@@ -1,0 +1,440 @@
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (an H100 is the target).
+
+    python3 chip_smoke.py
+
+Runs from the root of a checkout and imports only ``crane_scheduler_tpu_torch``.
+Each phase prints one line; a failed phase raises, and the script exits
+non-zero without printing a result.
+
+1. environment: the card's name and power limit (``nvidia-smi``);
+2. build: both CUDA kernels from ``crane_scheduler_tpu_torch/csrc``, one
+   ``nvcc`` each, started together;
+3. K1 (fused filter+score) against its plain PyTorch version on the card,
+   exact equality: 50,000 nodes with the default policy (fresh, stale,
+   missing, negative and NaN entries) and three pathological policies;
+4. K2 (gang level totals) against its plain version, exact equality:
+   plain mode (w = 1, no offsets) and combined mode (w = 3, max_offset =
+   220, capacities, offsets, prior);
+5. the main path: a 50,000-node ``ClusterState`` with fresh annotations,
+   ``BatchScheduler(dtype=torch.float32)`` (hybrid f64 rescue rows) through
+   eleven ``schedule_pod_burst`` calls of 100,000 pods with the clock moving
+   between them, then a depth-4 ``schedule_bursts_pipelined`` run. Every
+   burst passes ``check_placement_parity`` (exact f64 verdicts, scores and
+   water-filling counts); placements equal a float64 twin scheduler's on
+   a twin cluster; both kernels' launch counts over the run are > 0. The
+   line carries each burst's wall ms and host ms per stage;
+6. profile: one more warm burst under ``torch.profiler`` for the device's
+   busy time, idle share and each kernel's device time.
+
+Then one JSON line of per-kernel numbers, the ``nvidia-smi`` name/power
+line, and the final ``{"ok": true, ...}`` line. Exit codes: 0 on success,
+2 without a CUDA device, 1 on any failure.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import statistics
+import time
+
+import numpy as np
+import torch
+
+from crane_scheduler_tpu_torch.cluster import ClusterState, Node
+from crane_scheduler_tpu_torch.framework.scheduler import BURST_STAGES, BatchScheduler
+from crane_scheduler_tpu_torch.kernels import build_all
+from crane_scheduler_tpu_torch.policy import DEFAULT_POLICY, compile_policy
+from crane_scheduler_tpu_torch.policy.types import (
+    DynamicSchedulerPolicy,
+    PolicySpec,
+    PredicatePolicy,
+    PriorityPolicy,
+    SyncPolicy,
+)
+from crane_scheduler_tpu_torch.scorer import gang_kernel, score_kernel
+from crane_scheduler_tpu_torch.scorer.batched import PolicyConstants, score_plain
+from crane_scheduler_tpu_torch.scorer.parity import check_placement_parity
+from crane_scheduler_tpu_torch.scorer.topk import hot_penalty_steps
+from crane_scheduler_tpu_torch.utils import format_local_time
+
+SEED = 0
+N_NODES = 50_000
+N_PADDED = 51_200  # the scheduler's 2048-node snapshot bucket
+BURST_PODS = 100_000
+SINGLE_BURSTS = 11  # one cold, ten warm
+NOW = 1753776000.0
+K1_LATER = 31.0  # a rebased `now` the main path also scores at
+
+# H100 SXM published rates (NVIDIA data sheet; dense, non-tensor paths)
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# 64 INT32 lanes per SM x 132 SMs x 1.98 GHz, a multiply-add counted as two
+INT32_OPS_PER_S = 33.5e12
+
+PATHOLOGICAL = {
+    "empty": PolicySpec(),
+    "predicates-only": PolicySpec(
+        sync_period=(SyncPolicy("a", 60.0),),
+        predicate=(PredicatePolicy("a", 0.5), PredicatePolicy("a", 0.0)),
+    ),
+    "zero-weight-sum": PolicySpec(
+        sync_period=(SyncPolicy("a", 60.0),),
+        priority=(PriorityPolicy("a", 0.0),),
+    ),
+}
+
+
+def log(phase: str, **fields) -> None:
+    print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def gpu_name_and_power() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, iters: int = 50, warmup: int = 3) -> float:
+    """Mean device ms per call of ``fn`` over ``iters`` back-to-back calls,
+    timed with CUDA events after ``warmup`` calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+# -- K1 ----------------------------------------------------------------------
+
+def score_inputs(tensors, n: int, n_valid: int, rng, dev):
+    """Rebased f32 step inputs (now = 0) with stale, missing, negative and
+    NaN entries and hot values of every freshness."""
+    m = tensors.num_metrics
+    values = rng.uniform(0.0, 1.0, (n, m)).round(5)
+    ts = -rng.choice([0.0, 30.0, 170.0, 479.0, 481.0, 2000.0], (n, m))
+    roll = rng.random((n, m))
+    ts[roll < 0.05] = -np.inf  # missing annotation
+    values[roll < 0.05] = np.nan
+    values[(roll >= 0.05) & (roll < 0.07)] = -0.3  # negative reading
+    values[(roll >= 0.07) & (roll < 0.08)] = np.nan  # "NaN,<fresh ts>"
+    near = (roll >= 0.08) & (roll < 0.2)
+    values[near] = rng.choice([0.64999, 0.65, 0.65001, 0.75, 0.75001], near.sum())
+    hot = rng.choice([0.0, 1.0, 2.0, 0.1, 0.35, 3.0], n)
+    hot_ts = -rng.choice([0.0, 60.0, 299.0, 301.0], n)
+    valid = np.zeros(n, dtype=bool)
+    valid[:n_valid] = True
+    values[n_valid:], ts[n_valid:], hot_ts[n_valid:] = np.nan, -np.inf, -np.inf
+    f32 = lambda a: torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(dev)  # noqa: E731
+    return (f32(values), f32(ts), f32(hot), f32(hot_ts), torch.from_numpy(valid).to(dev))
+
+
+def k1_bound_ms(n: int, m: int, n_pred: int, n_prio: int) -> tuple[float, str]:
+    # each input read once, each output written once
+    nbytes = n * (2 * m * 4 + 4 + 4 + 1) + n * (1 + 4)
+    # per node: ~4 float ops per predicate, ~6 per priority entry, ~12 for
+    # the quotient, truncations, hot penalty and clip
+    ops = n * (4 * n_pred + 6 * n_prio + 12)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def phase_k1(dev, rng) -> dict:
+    worst = 0
+    shapes = []
+    timing = None
+    for name, spec in [("default", DEFAULT_POLICY.spec), *PATHOLOGICAL.items()]:
+        tensors = compile_policy(DynamicSchedulerPolicy(spec=spec))
+        consts = PolicyConstants(tensors, torch.float32, dev)
+        args = score_inputs(tensors, N_PADDED, N_NODES, rng, dev)
+        cases = [(args, 0.0)]
+        if name == "default":
+            # the step re-scores a resident snapshot at a later rebased
+            # `now`: the same data, timestamps shifted with the clock
+            values, ts, hot, hot_ts, valid = args
+            cases.append(((values, ts + K1_LATER, hot, hot_ts + K1_LATER, valid), K1_LATER))
+        for case_args, now in cases:
+            sched_k, score_k = score_kernel.fused_score(*case_args, now, consts)
+            sched_p, score_p = score_plain(*case_args, now, consts)
+            torch.cuda.synchronize()
+            err = max(
+                int((score_k.long() - score_p.long()).abs().max()),
+                int((sched_k.long() - sched_p.long()).abs().max()),
+            )
+            if err != 0 or not torch.equal(score_k, score_p) or not torch.equal(sched_k, sched_p):
+                raise AssertionError(
+                    f"K1 != plain version for policy {name} at now={now} (max err {err})"
+                )
+            worst = max(worst, err)
+        shapes.append(name)
+        if name == "default":
+            timing = {
+                "ms": cuda_ms(lambda: score_kernel.fused_score(*args, 0.0, consts)),
+                "plain_ms": cuda_ms(lambda: score_plain(*args, 0.0, consts)),
+            }
+            bound, by = k1_bound_ms(N_PADDED, tensors.num_metrics,
+                                    len(tensors.pred_idx), len(tensors.prio_idx))
+            timing.update(bound_ms=bound, bound_by=by)
+    log("k1_vs_plain", equal=True, policies=shapes, nows=[0.0, K1_LATER],
+        nodes=N_PADDED, **timing)
+    return {"max_abs_err": worst, **timing}
+
+
+# -- K2 ----------------------------------------------------------------------
+
+def gang_inputs(n: int, rng, dev, w: int, max_offset: int, combined: bool):
+    s = rng.integers(0, 101, n)
+    sched = rng.random(n) > 0.25
+    num_pods = BURST_PODS
+    cap = rng.integers(0, 111, n) if combined else np.full(n, 1 << 30)
+    k_cap = np.minimum(np.where(sched, cap, 0), num_pods)
+    k_cap = np.minimum(k_cap, (2**31 - 1) // n)
+    offs = rng.integers(0, max_offset + 1, n) if combined else np.zeros(n, np.int64)
+    pri = rng.integers(0, 5, n) if combined else np.zeros(n, np.int64)
+    i32 = lambda a: torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(dev)  # noqa: E731
+    g = i32(hot_penalty_steps(compile_policy(DEFAULT_POLICY).hv_count))
+    n_levels = 100 * w + max_offset + 2
+    return (i32(s), i32(offs), i32(k_cap), i32(pri), g, w, n_levels)
+
+
+def k2_bound_ms(n: int, n_levels: int) -> tuple[float, str]:
+    nbytes = 4 * 4 * n + 4 * n_levels
+    ops = 25 * n_levels * n  # ~25 int32 ops per (level, node) cell
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def phase_k2(dev, rng) -> dict:
+    out = {}
+    worst = 0
+    for mode, w, max_offset in (("plain", 1, 0), ("combined", 3, 220)):
+        args = gang_inputs(N_PADDED, rng, dev, w, max_offset, mode == "combined")
+        got = gang_kernel.gang_totals(*args)
+        want = gang_kernel.gang_totals_plain(*args)
+        torch.cuda.synchronize()
+        err = int((got.long() - want.long()).abs().max())
+        if err != 0 or not torch.equal(got, want):
+            raise AssertionError(f"K2 != plain version in {mode} mode (max err {err})")
+        worst = max(worst, err)
+        ms = cuda_ms(lambda: gang_kernel.gang_totals(*args))
+        plain = cuda_ms(lambda: gang_kernel.gang_totals_plain(*args), iters=20)
+        bound, by = k2_bound_ms(N_PADDED, args[-1])
+        out[mode] = dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
+                         n_levels=args[-1])
+    log("k2_vs_plain", equal=True, nodes=N_PADDED, **out)
+    return {"max_abs_err": worst, **out["plain"]}
+
+
+# -- the main path -------------------------------------------------------------
+
+class Clock:
+    def __init__(self, t: float):
+        self.t = t
+
+    def __call__(self) -> float:
+        return self.t
+
+
+def build_cluster(annotations) -> ClusterState:
+    cluster = ClusterState()
+    for name, anno in annotations:
+        cluster.add_node(Node(name=name, annotations=dict(anno)))
+    return cluster
+
+
+def cluster_annotations(tensors, rng):
+    """50,000 nodes, fresh annotations for the 6 default metrics and the
+    hot value, values drawn from the seed (as the benchmark builds them)."""
+    fresh = format_local_time(NOW - 30.0)
+    values = rng.uniform(0.0, 1.0, (N_NODES, tensors.num_metrics))
+    hot = rng.integers(0, 3, N_NODES)
+    names = tensors.metric_names
+    return [
+        (f"node-{i:05d}", {
+            **{m: f"{values[i, k]:.5f},{fresh}" for k, m in enumerate(names)},
+            "node_hot_value": f"{int(hot[i])},{fresh}",
+        })
+        for i in range(N_NODES)
+    ]
+
+
+def parity_check(sched: BatchScheduler, result, num_pods: int) -> None:
+    snap = sched.store.snapshot(bucket=2048)
+    n = snap.n_nodes
+    idx = np.asarray(result.node_idx)
+    check_placement_parity(
+        values=snap.values[:n], ts=snap.ts[:n], hot_value=snap.hot_value[:n],
+        hot_ts=snap.hot_ts[:n], node_valid=snap.node_valid[:n], now=result.now,
+        tensors=sched.tensors, schedulable=result.schedulable_row,
+        scores=result.scores_row, counts=np.bincount(idx[idx >= 0], minlength=n),
+        num_pods=num_pods, unassigned=int((idx < 0).sum()),
+    )
+
+
+def run_bursts(sched: BatchScheduler, clock: Clock, nows, check: bool):
+    """A single burst at each of ``nows`` but the last, then one depth-4
+    pipelined run of four at the last; returns (node_idx per burst, wall
+    ms per single burst, host stage ms per single burst, pipelined ms)."""
+    placements, burst_ms, stage_ms = [], [], []
+    for k, now in enumerate(nows[:-1]):
+        clock.t = now
+        names = [f"burst{k}-{i}" for i in range(BURST_PODS)]
+        sched.burst_stage_ms = dict.fromkeys(BURST_STAGES, 0.0)
+        t0 = time.perf_counter()
+        result = sched.schedule_pod_burst("bench", names)
+        burst_ms.append((time.perf_counter() - t0) * 1e3)
+        stage_ms.append(dict(sched.burst_stage_ms))  # the live dict goes on counting
+        if check:
+            parity_check(sched, result, BURST_PODS)
+            if result.n_assigned != BURST_PODS:
+                raise AssertionError(f"burst {k}: {result.n_assigned}/{BURST_PODS} placed")
+        placements.append(result.node_idx)
+    clock.t = nows[-1]
+    bursts = [("bench", [f"pipe{k}-{i}" for i in range(BURST_PODS // 4)]) for k in range(4)]
+    t0 = time.perf_counter()
+    results = list(sched.schedule_bursts_pipelined(bursts, depth=4))
+    pipe_ms = (time.perf_counter() - t0) * 1e3
+    for result in results:
+        if check:
+            parity_check(sched, result, BURST_PODS // 4)
+        placements.append(result.node_idx)
+    return placements, burst_ms, stage_ms, pipe_ms
+
+
+def phase_main_path(rng) -> dict:
+    tensors = compile_policy(DEFAULT_POLICY)
+    t0 = time.perf_counter()
+    annos = cluster_annotations(tensors, rng)
+    cluster = build_cluster(annos)
+    build_s = time.perf_counter() - t0
+    nows = [NOW + 12.0 * k for k in range(SINGLE_BURSTS + 1)]
+
+    clock = Clock(NOW)
+    sched = BatchScheduler(cluster, DEFAULT_POLICY, dtype=torch.float32, clock=clock)
+    score_kernel.KERNEL.launches = 0
+    gang_kernel.KERNEL.launches = 0
+    t_run = time.perf_counter()
+    placements, burst_ms, stage_ms, pipe_ms = run_bursts(sched, clock, nows, check=True)
+    run_s = time.perf_counter() - t_run
+    launches = {"score": score_kernel.KERNEL.launches, "gang": gang_kernel.KERNEL.launches}
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"main path did not launch every kernel: {launches}")
+
+    twin_clock = Clock(NOW)
+    twin = BatchScheduler(build_cluster(annos), DEFAULT_POLICY, dtype=torch.float64,
+                          clock=twin_clock)
+    twin_placements, twin_ms, _, twin_pipe_ms = run_bursts(twin, twin_clock, nows, check=False)
+    for k, (a, b) in enumerate(zip(placements, twin_placements)):
+        if not np.array_equal(a, b):
+            raise AssertionError(f"burst {k}: f32-hybrid placements != float64 placements")
+    warm = burst_ms[1:]
+    log(
+        "main_path", nodes=N_NODES, pods_per_burst=BURST_PODS, bursts=len(burst_ms),
+        pipelined_bursts=4, parity="ok", f64_twin_equal=True,
+        ms_per_burst=burst_ms, warm_median_ms=statistics.median(warm),
+        pods_per_s_warm_median=BURST_PODS / (statistics.median(warm) / 1e3),
+        warm_stage_median_ms={
+            st: statistics.median(d[st] for d in stage_ms[1:]) for st in BURST_STAGES
+        },
+        stage_ms_per_burst=stage_ms, pipelined_ms_total=pipe_ms,
+        f64_twin_ms_per_burst=twin_ms, f64_twin_warm_median_ms=statistics.median(twin_ms[1:]),
+        f64_twin_pipelined_ms_total=twin_pipe_ms,
+        refresh_stats=sched.refresh_stats, launches=launches,
+        cluster_build_s=build_s, run_s=run_s,
+    )
+    return launches, sched, clock, nows[-1]
+
+
+def phase_profile(sched: BatchScheduler, clock: Clock, now: float) -> None:
+    """One more warm 100,000-pod burst under ``torch.profiler``: the
+    device's busy time and idle share, and each kernel's device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    clock.t = now + 12.0
+    names = [f"prof-{i}" for i in range(BURST_PODS)]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sched.schedule_pod_burst("bench", names)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    # device-side events only (kernels, copies, fills); the aten ops that
+    # launched them carry the same time again
+    device = {
+        e.key: (e.count, e.self_device_time_total) for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA
+        and e.self_device_time_total > 0
+    }
+    busy_us = sum(us for _, us in device.values())
+    top = sorted(device.items(), key=lambda kv: -kv[1][1])[:6]
+    ours = {
+        name: [[c, us / c] for k, (c, us) in device.items() if name in k]
+        for name in ("score_nodes_kernel", "gang_totals_kernel")
+    }
+    log(
+        "profile", pods=BURST_PODS, profiled_wall_ms=wall_us / 1e3,
+        device_busy_ms=busy_us / 1e3 if device else None,
+        device_idle_share=(1 - busy_us / wall_us) if device else None,
+        device_events=sum(c for c, _ in device.values()),
+        kernel_launches_and_device_us=ours,
+        top_device_us=[[k[:60], c, us] for k, (c, us) in top],
+    )
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda")
+    card = gpu_name_and_power()
+    log("environment", gpu=card, torch=torch.__version__, cuda=torch.version.cuda,
+        device_count=torch.cuda.device_count())
+
+    t0 = time.perf_counter()
+    build_all([score_kernel.KERNEL, gang_kernel.KERNEL])
+    ptxas = {k.source.name: [ln for ln in k.build_log.splitlines() if "registers" in ln]
+             for k in (score_kernel.KERNEL, gang_kernel.KERNEL)}
+    log("build", seconds=time.perf_counter() - t0, ptxas=ptxas)
+
+    rng = np.random.default_rng(SEED)
+    k1 = phase_k1(dev, rng)
+    k2 = phase_k2(dev, rng)
+    launches, sched, clock, last_now = phase_main_path(rng)
+    phase_profile(sched, clock, last_now)
+
+    kernels = [
+        {
+            "name": "fused_filter_score", "route": "cuda",
+            "source": "crane_scheduler_tpu_torch/csrc/score_kernel.cu",
+            "replaces": "crane_scheduler_tpu/scorer/pallas_kernel.py:140",
+            "launches": launches["score"], "max_abs_err": k1["max_abs_err"],
+            "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
+            "bound_by": k1["bound_by"], "library_ms": None,
+        },
+        {
+            "name": "gang_level_totals", "route": "cuda",
+            "source": "crane_scheduler_tpu_torch/csrc/gang_totals.cu",
+            "replaces": "crane_scheduler_tpu/scorer/pallas_gang.py:142",
+            "launches": launches["gang"], "max_abs_err": k2["max_abs_err"],
+            "ms": k2["ms"], "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
+            "bound_by": k2["bound_by"], "library_ms": None,
+        },
+    ]
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(gpu_name_and_power(), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,409 @@
+"""In-memory cluster state: the framework's kube-apiserver stand-in.
+
+Counterpart of ``crane_scheduler_tpu/cluster/state.py``, cut to what the
+burst-scheduling path reads and writes: nodes with annotations, pods as
+objects or as columnar bursts, binds that stamp ``Scheduled`` events into
+a bounded log, and the ``sched_version`` counter. Event subscriptions,
+the dirty-name and pod-change journals, the columnar annotation overlay
+and the kube mirror's bulk transactions come with the slices that read
+them.
+
+The reference coordinates its two processes exclusively through the
+Kubernetes API — the controller JSON-patches node annotations
+(ref: pkg/controller/annotator/node.go:123-146) and watches ``Scheduled``
+events (ref: cmd/controller/app/options/factory.go:25-33); the scheduler
+plugin reads nodes from its informer snapshot. Binds here emit the same
+"Successfully assigned <ns/pod> to <node>" events the reference parses.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from collections import deque
+from dataclasses import dataclass, field, replace
+from typing import Mapping
+
+import numpy as np
+
+# bounded event log, as an apiserver's event TTL bounds it
+_MAX_EVENTS = 4096
+
+
+@dataclass(frozen=True)
+class Node:
+    name: str
+    annotations: Mapping[str, str] = field(default_factory=dict)
+
+
+@dataclass(frozen=True)
+class Pod:
+    name: str
+    namespace: str = "default"
+    annotations: Mapping[str, str] = field(default_factory=dict)
+    node_name: str = ""
+
+    def key(self) -> str:
+        return f"{self.namespace}/{self.name}"
+
+
+@dataclass(frozen=True)
+class Event:
+    namespace: str
+    name: str
+    type: str  # "Normal" | "Warning"
+    reason: str
+    message: str
+    count: int = 1
+    event_time: float = 0.0  # used when count == 0 (ref: event.go:131-137)
+    last_timestamp: float = 0.0
+    resource_version: int = 0
+
+
+class _PodBurst:
+    """Columnar pod population: a burst of bare pods as rows, not objects.
+
+    Names are a list, placements are one int32 column indexing a
+    burst-local node table. A row becomes a real ``Pod`` object only when
+    an object-path write (``add_pod``, ``bind_pods``) reaches its key.
+    """
+
+    __slots__ = ("namespace", "names", "node_ids", "table", "table_map", "dead")
+
+    def __init__(self, namespace: str, names: list):
+        self.namespace = namespace
+        self.names = names
+        self.node_ids = np.full((len(names),), -1, dtype=np.int32)
+        self.table: list[str] = []  # burst-local node intern table
+        self.table_map: dict[str, int] = {}
+        self.dead: set[int] = set()  # rows materialized out
+
+    def materialize(self, row: int) -> Pod:
+        node = self.table[self.node_ids[row]] if self.node_ids[row] >= 0 else ""
+        return Pod(name=self.names[row], namespace=self.namespace, node_name=node)
+
+
+class ClusterState:
+    """Thread-safe cluster model: nodes, pods, binds and their events."""
+
+    def __init__(self):
+        self._lock = threading.RLock()
+        self._nodes: dict[str, Node] = {}
+        self._pods: dict[str, Pod] = {}
+        # per-node bound-pod key index (insertion-ordered)
+        self._pods_by_node: dict[str, dict[str, None]] = {}
+        self._events: deque[Event] = deque(maxlen=_MAX_EVENTS)
+        self._rv_next = 1  # next event resourceVersion
+        self._sched_version = 0
+        # columnar pod bursts (see add_pod_burst)
+        self._bursts: list[_PodBurst] = []
+        self._burst_index: dict[str, tuple[_PodBurst, int]] | None = None
+        # burst bound-pod counts, slot-interned and columnar: one growable
+        # int64 array indexed by a cluster-wide name->slot map, so a
+        # 100k-pod bind folds in as one vectorized fancy-index add;
+        # count_pods_all reads a merged dict cached on _count_version
+        self._count_slot: dict[str, int] = {}
+        self._slot_names: list[str] = []
+        self._count_arr = np.zeros((0,), dtype=np.int64)
+        self._count_version = 0
+        self._count_dict_cache: tuple | None = None
+        self._table_slots_cache: tuple | None = None
+
+    @property
+    def sched_version(self) -> int:
+        """Monotonic mutation counter (an informer resourceVersion
+        stand-in) over changes a scheduling snapshot can observe: node
+        add/delete and bound-pod add/replace/bind. Adding a pending
+        (unbound) pod does NOT bump it."""
+        with self._lock:
+            return self._sched_version
+
+    # -- nodes -------------------------------------------------------------
+
+    def add_node(self, node: Node) -> None:
+        with self._lock:
+            self._nodes[node.name] = node
+            self._sched_version += 1
+
+    def delete_node(self, name: str) -> None:
+        with self._lock:
+            self._nodes.pop(name, None)
+            self._sched_version += 1
+
+    def list_nodes(self) -> list[Node]:
+        with self._lock:
+            return list(self._nodes.values())
+
+    # -- pods --------------------------------------------------------------
+
+    def _index_remove(self, pod: Pod) -> None:
+        if pod.node_name:
+            keys = self._pods_by_node.get(pod.node_name)
+            if keys is not None:
+                keys.pop(pod.key(), None)
+                if not keys:
+                    del self._pods_by_node[pod.node_name]
+
+    def _index_add(self, pod: Pod) -> None:
+        if pod.node_name:
+            self._pods_by_node.setdefault(pod.node_name, {})[pod.key()] = None
+
+    def _add_pod_locked(self, pod: Pod) -> None:
+        """Add or replace (caller holds the lock). An object pod added
+        under a live burst key retires that row; replacing a bound pod,
+        object or burst row, counts as a bound-pod change."""
+        key = pod.key()
+        prev_burst_bound = False
+        hit = self._burst_lookup_locked(key)
+        if hit is not None:
+            burst, row = hit
+            prev_burst_bound = int(burst.node_ids[row]) >= 0
+            self._burst_retire_row_locked(burst, row)
+            self._burst_index.pop(key, None)
+        prev = self._pods.get(key)
+        if prev is not None:
+            self._index_remove(prev)
+        self._pods[key] = pod
+        self._index_add(pod)
+        if pod.node_name or (prev is not None and prev.node_name) or prev_burst_bound:
+            self._sched_version += 1
+
+    def add_pod(self, pod: Pod) -> None:
+        with self._lock:
+            self._add_pod_locked(pod)
+
+    def add_pods(self, pods) -> None:
+        """Batch ``add_pod``: one lock hold for a whole burst's pods."""
+        with self._lock:
+            for pod in pods:
+                self._add_pod_locked(pod)
+
+    def count_pods_all(self) -> dict[str, int]:
+        """Bound-pod counts for every node (object pods and burst rows)."""
+        with self._lock:
+            counts = {name: len(keys) for name, keys in self._pods_by_node.items()}
+            burst_counts = self._burst_counts_locked()
+            if burst_counts:
+                for name, c in burst_counts.items():
+                    counts[name] = counts.get(name, 0) + c
+            return counts
+
+    def bind_pods(self, assignments, now: float | None = None) -> list[str]:
+        """Batch bind: one lock hold moves every pod and stamps its
+        ``Scheduled`` event, in assignment order — the same pods, events
+        and order as binding one pod at a time. ``assignments`` is a
+        ``{pod_key: node_name}`` mapping (or iterable of pairs); returns
+        the keys actually bound (missing pods are skipped)."""
+        if now is None:
+            now = time.time()
+        items = assignments.items() if hasattr(assignments, "items") else assignments
+        bound: list[str] = []
+        with self._lock:
+            pods = self._pods
+            for pod_key, node_name in items:
+                pod = pods.get(pod_key)
+                if pod is None:
+                    hit = self._burst_lookup_locked(pod_key)
+                    if hit is None:
+                        continue
+                    pod = self._materialize_out_locked(*hit)
+                self._index_remove(pod)
+                new_pod = replace(pod, node_name=node_name)
+                pods[pod_key] = new_pod
+                self._index_add(new_pod)
+                self._sched_version += 1
+                bound.append(pod_key)
+                self._events.append(Event(
+                    namespace=pod.namespace,
+                    name=f"{pod.name}.scheduled",
+                    type="Normal",
+                    reason="Scheduled",
+                    message=f"Successfully assigned {pod_key} to {node_name}",
+                    count=1,
+                    last_timestamp=now,
+                    resource_version=self._next_rv(),
+                ))
+        return bound
+
+    # -- columnar pod bursts -----------------------------------------------
+    #
+    # A burst of bare pods lives as rows (names + one int32 placement
+    # column), not 100k Python objects. A bind is one array transaction,
+    # and only the bounded event log's tail becomes Event objects.
+
+    def add_pod_burst(self, namespace: str, names: list) -> _PodBurst:
+        """Create a columnar burst of bare pending pods. Names must be
+        unique within the namespace like any pod key."""
+        burst = _PodBurst(namespace, list(names))
+        with self._lock:
+            self._bursts.append(burst)
+            index = self._burst_index
+            if index is not None:
+                # extend the existing index instead of invalidating it —
+                # a rebuild walks every live row of every burst
+                ns = burst.namespace
+                for row, name in enumerate(burst.names):
+                    index[f"{ns}/{name}"] = (burst, row)
+        return burst
+
+    def _burst_lookup_locked(self, key: str):
+        if not self._bursts:
+            return None
+        index = self._burst_index
+        if index is None:
+            index = {}
+            for b in self._bursts:
+                ns = b.namespace
+                dead = b.dead
+                for row, name in enumerate(b.names):
+                    if row not in dead:
+                        index[f"{ns}/{name}"] = (b, row)
+            self._burst_index = index
+        return index.get(key)
+
+    def _burst_retire_row_locked(self, burst: _PodBurst, row: int) -> None:
+        """Mark a row dead, keeping the bound counts true. A fully dead
+        burst is dropped."""
+        burst.dead.add(row)
+        tid = int(burst.node_ids[row])
+        if tid >= 0:
+            slot = self._count_slot.get(burst.table[tid])
+            if slot is not None and self._count_arr[slot] > 0:
+                self._count_arr[slot] -= 1
+            self._count_version += 1
+        if len(burst.dead) == len(burst.names):
+            self._bursts.remove(burst)
+
+    def _materialize_out_locked(self, burst: _PodBurst, row: int) -> Pod:
+        """Copy-on-write: move a burst row into the object world."""
+        pod = burst.materialize(row)
+        self._burst_retire_row_locked(burst, row)
+        self._burst_index.pop(pod.key(), None)
+        self._pods[pod.key()] = pod
+        self._index_add(pod)
+        return pod
+
+    def _count_slots_for_locked(self, table: list) -> np.ndarray:
+        """Slot indices for a node table, cached on the table OBJECT
+        (bursts over one snapshot share one table); assigns new slots and
+        grows the count array as needed."""
+        cache = self._table_slots_cache
+        if cache is not None and cache[0] is table and len(cache[1]) == len(table):
+            return cache[1]
+        slot = self._count_slot
+        names_by_slot = self._slot_names
+        out = np.empty((len(table),), dtype=np.int64)
+        for j, name in enumerate(table):
+            s = slot.get(name)
+            if s is None:
+                s = slot[name] = len(names_by_slot)
+                names_by_slot.append(name)
+            out[j] = s
+        if len(self._count_arr) < len(names_by_slot):
+            grown = np.zeros((len(names_by_slot),), dtype=np.int64)
+            grown[: len(self._count_arr)] = self._count_arr
+            self._count_arr = grown
+        self._table_slots_cache = (table, out)
+        return out
+
+    def _burst_counts_locked(self) -> dict[str, int] | None:
+        """Bound-pod counts of live burst rows as a dict, rebuilt lazily
+        from the slot array and cached on the counts version."""
+        if not self._bursts:
+            return None
+        cache = self._count_dict_cache
+        if cache is None or cache[0] != self._count_version:
+            arr = self._count_arr
+            names_by_slot = self._slot_names
+            merged = {names_by_slot[i]: int(arr[i]) for i in np.nonzero(arr)[0].tolist()}
+            cache = (self._count_version, merged)
+            self._count_dict_cache = cache
+        return cache[1]
+
+    def bind_burst(self, burst: _PodBurst, node_table, node_idx, now=None):
+        """Columnar bind: row ``i`` -> ``node_table[node_idx[i]]`` (``-1``
+        leaves the row pending). One lock transaction applies the whole
+        column and stamps ``sched_version`` and resourceVersions exactly
+        as per-pod ``bind_pods`` would; Event objects are built only for
+        the bounded log's tail (the deque would evict the rest). Returns
+        the bound row indices (ascending = event order)."""
+        if now is None:
+            now = time.time()
+        node_idx = np.asarray(node_idx, dtype=np.int32)
+        with self._lock:
+            table_map = burst.table_map
+            table = burst.table
+            slots_key = None
+            if not table_map:
+                # first bind of the burst (the common case): adopt the
+                # whole node table at C speed; a size mismatch means
+                # duplicate names, which take the dedup loop below
+                table_map.update(zip(node_table, range(len(node_table))))
+                if len(table_map) == len(node_table):
+                    table.extend(node_table)
+                    remap = np.arange(len(node_table), dtype=np.int32)
+                    # table contents == node_table: key the slot cache on
+                    # the caller's table object, shared across bursts
+                    slots_key = node_table
+                else:
+                    table_map.clear()
+            if slots_key is None:
+                remap = np.empty((len(node_table),), dtype=np.int32)
+                for j, name in enumerate(node_table):
+                    tid = table_map.get(name)
+                    if tid is None:
+                        tid = table_map[name] = len(table)
+                        table.append(name)
+                    remap[j] = tid
+                slots_key = table
+            eligible = (node_idx >= 0) & (burst.node_ids[: len(node_idx)] == -1)
+            if burst.dead:
+                dead_rows = np.fromiter(burst.dead, dtype=np.int64)
+                eligible[dead_rows[dead_rows < len(eligible)]] = False
+            rows = np.nonzero(eligible)[0]
+            bound_idx = node_idx[rows]
+            burst.node_ids[rows] = remap[bound_idx]
+            n = len(rows)
+            # slots are unique per table, so the fancy-index += is exact
+            bc = np.bincount(remap[bound_idx], minlength=len(table))
+            slots = self._count_slots_for_locked(slots_key)  # may grow the array
+            self._count_arr[slots] += bc
+            self._count_version += 1
+            self._sched_version += n
+            rv_base = self._rv_next
+            self._rv_next += n
+            ns = burst.namespace
+            names = burst.names
+            for k in range(max(0, n - _MAX_EVENTS), n):
+                pod_name = names[int(rows[k])]
+                # raw construction: field-identical to Event(...) without
+                # the frozen-dataclass __init__, which costs milliseconds
+                # over a 4096-event tail
+                ev = object.__new__(Event)
+                ev.__dict__.update(
+                    namespace=ns,
+                    name=f"{pod_name}.scheduled",
+                    type="Normal",
+                    reason="Scheduled",
+                    message=(
+                        f"Successfully assigned {ns}/{pod_name} "
+                        f"to {node_table[int(bound_idx[k])]}"
+                    ),
+                    count=1,
+                    event_time=0.0,
+                    last_timestamp=now,
+                    resource_version=rv_base + k,
+                )
+                self._events.append(ev)
+        return rows
+
+    # -- events ------------------------------------------------------------
+
+    def _next_rv(self) -> int:
+        v = self._rv_next
+        self._rv_next = v + 1
+        return v
+
+    def list_events(self) -> list[Event]:
+        with self._lock:
+            return list(self._events)

@@ -1,0 +1,62 @@
+"""Carrying state across from the JAX package, as plain numpy.
+
+The port imports nothing of ``crane_scheduler_tpu``. A caller that holds
+that package's objects (a test feeding both packages identical inputs,
+or a process migrating a live store) passes their fields as numpy
+arrays and scalars; these functions build the port's objects from them.
+"""
+
+from __future__ import annotations
+
+from dataclasses import fields
+
+import numpy as np
+
+from .loadstore.store import DeviceSnapshot
+from .policy.compile import PolicyTensors
+
+_SNAPSHOT_FIELDS = (
+    "values", "ts", "hot_value", "hot_ts", "node_valid", "n_nodes", "node_names",
+)
+
+
+def policy_tensors_from_numpy(d) -> PolicyTensors:
+    """``PolicyTensors`` from a mapping of its fields (``metric_names``,
+    ``metric_index``, the entry arrays and ``weight_sum``). Arrays are
+    copied with the dtypes the port's ``compile_policy`` produces."""
+    names = [f.name for f in fields(PolicyTensors)]
+    missing = [k for k in names if k not in d]
+    if missing:
+        raise KeyError(f"policy tensors lack fields {missing}")
+    dtypes = {
+        "sync_seconds": np.float64, "active_seconds": np.float64,
+        "pred_idx": np.int32, "pred_threshold": np.float64,
+        "pred_active": np.float64, "prio_idx": np.int32,
+        "prio_weight": np.float64, "prio_active": np.float64,
+        "hv_range_seconds": np.float64, "hv_count": np.int64,
+    }
+    kw = {k: np.array(d[k], dtype=dt) for k, dt in dtypes.items()}
+    return PolicyTensors(
+        metric_names=tuple(d["metric_names"]),
+        metric_index=dict(d["metric_index"]),
+        weight_sum=float(d["weight_sum"]),
+        **kw,
+    )
+
+
+def snapshot_from_numpy(d) -> DeviceSnapshot:
+    """``DeviceSnapshot`` from a mapping with ``values``, ``ts``,
+    ``hot_value``, ``hot_ts``, ``node_valid``, ``n_nodes`` and
+    ``node_names`` (arrays copied; ``version`` is -1, synthetic)."""
+    missing = [k for k in _SNAPSHOT_FIELDS if k not in d]
+    if missing:
+        raise KeyError(f"snapshot lacks fields {missing}")
+    return DeviceSnapshot(
+        values=np.array(d["values"], dtype=np.float64),
+        ts=np.array(d["ts"], dtype=np.float64),
+        hot_value=np.array(d["hot_value"], dtype=np.float64),
+        hot_ts=np.array(d["hot_ts"], dtype=np.float64),
+        node_valid=np.array(d["node_valid"], dtype=bool),
+        n_nodes=int(d["n_nodes"]),
+        node_names=tuple(d["node_names"]),
+    )

@@ -1,0 +1,86 @@
+"""Wrapper of the gang level-table totals CUDA kernel (``csrc/gang_totals.cu``).
+
+Counterpart of ``crane_scheduler_tpu/scorer/pallas_gang.py``: ``totals[L] =
+Σ_n A_n(L)`` for the dense level grid of the water-filling solve
+(``topk.GangScheduler``), without writing the ``[n_levels, N]`` table to
+device memory. ``a_table`` is the per-node token count both the solver
+and the plain version use; ``gang_totals_plain`` is the kernel's plain
+version. CPU tensors take it; CUDA tensors launch the kernel or raise.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..constants import MAX_NODE_SCORE
+from ..kernels import CudaKernel
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+KERNEL = CudaKernel(
+    "gang_totals.cu",
+    "crane_gang_totals",
+    [_P, _P, _P, _P, _I,  # s, offs, cap, pri, n
+     _P, _I, _I,  # g staircase [11], dynamic weight, n_levels
+     _P, _P],  # totals out, stream
+)
+
+
+def a_table(s, offsets, k_cap, prior, lv, g, w: int):
+    """A_n(L): tokens of node n valued >= level L, for ``lv`` broadcast
+    against the node axis (``topk.py`` ``GangScheduler._a_table`` in the
+    reference). Level 0, and any L <= offset, is the full ``k_cap``;
+    ``prior`` tokens were taken by an earlier pass and come off the
+    unlocked count. int32 throughout; ``//`` floors as in the reference."""
+    qnum = lv - offsets
+    q = torch.div(qnum + (w - 1), w, rounding_mode="floor")
+    xq = torch.clamp(torch.div(s - q, 10, rounding_mode="floor"), 0, 10)
+    unlocked = torch.where((q <= MAX_NODE_SCORE) & (s >= q), g[xq.long()], 0)
+    unlocked = torch.clamp(unlocked - prior, min=0)
+    unlocked = torch.where(qnum <= 0, k_cap, unlocked)
+    return torch.minimum(k_cap, unlocked)
+
+
+def gang_totals_plain(s, offs, k_cap, pri, g, w: int, n_levels: int):
+    """Dense totals through the materialized [n_levels, N] table."""
+    levels = torch.arange(n_levels, dtype=torch.int32, device=s.device)
+    table = a_table(s[None, :], offs[None, :], k_cap[None, :], pri[None, :],
+                    levels[:, None], g, w)
+    return table.sum(dim=1, dtype=torch.int32)
+
+
+def gang_totals(s, offs, k_cap, pri, g, w: int, n_levels: int):
+    """``totals`` int32 [n_levels] for int32 [N] scores, offsets (clipped
+    to [0, max_offset]), per-node capacity (clipped to (2^31-1)//N) and
+    prior counts, and the int32 [11] hot-penalty staircase ``g``."""
+    if s.device.type == "cpu":
+        return gang_totals_plain(s, offs, k_cap, pri, g, w, n_levels)
+    if s.device.type != "cuda":
+        raise ValueError(f"unsupported device {s.device}")
+    n = s.shape[0]
+    for name, t, shape in (("s", s, (n,)), ("offs", offs, (n,)),
+                           ("k_cap", k_cap, (n,)), ("pri", pri, (n,)),
+                           ("g", g, (11,))):
+        if t.device != s.device:
+            raise ValueError(f"{name} is on {t.device}, s on {s.device}")
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name} must be int32, got {t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if w < 1 or n_levels < 1:
+        raise ValueError(f"need dynamic weight >= 1 and n_levels >= 1, got {w}, {n_levels}")
+    totals = torch.zeros((n_levels,), dtype=torch.int32, device=s.device)
+    if n == 0:
+        return totals
+    with torch.cuda.device(s.device):
+        stream = torch.cuda.current_stream(s.device).cuda_stream
+        KERNEL.launch(
+            s.data_ptr(), offs.data_ptr(), k_cap.data_ptr(), pri.data_ptr(), n,
+            g.data_ptr(), w, n_levels, totals.data_ptr(), stream,
+        )
+    return totals

@@ -1,0 +1,112 @@
+"""The PyTorch port stands alone: it imports without JAX, without the JAX
+package and without PyYAML, and its entry points never move to the CPU
+on their own."""
+
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parents[1]
+PORT = REPO / "crane_scheduler_tpu_torch"
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+for name in {blocked!r}:
+    sys.modules[name] = None
+import crane_scheduler_tpu_torch as pkg
+mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for m in mods:
+    importlib.import_module(m)
+import chip_smoke
+assert not any(k == "jax" or k.startswith(("jax.", "crane_scheduler_tpu."))
+               for k, v in sys.modules.items() if v is not None)
+print(len(mods))
+"""
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Tiny tensors: one intra-op thread is faster here and leaves the
+    other test workers their cores."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+def _run_blocked(blocked):
+    path = os.pathsep.join(p for p in (str(REPO), os.environ.get("PYTHONPATH")) if p)
+    env = dict(os.environ, PYTHONPATH=path, OMP_NUM_THREADS="1")
+    out = subprocess.run(
+        [sys.executable, "-c", _IMPORT_ALL.format(blocked=blocked)],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    return int(out.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize(
+    "blocked",
+    [("jax", "crane_scheduler_tpu"), ("jax", "crane_scheduler_tpu", "yaml")],
+    ids=["no-jax", "no-jax-no-yaml"],
+)
+def test_port_and_chip_smoke_import_without_jax(blocked):
+    # every module of the port (and chip_smoke) imports with these blocked
+    assert _run_blocked(blocked) >= 20
+
+
+def test_no_jax_or_reference_imports_in_port_sources():
+    pattern = re.compile(
+        r"^\s*(import|from)\s+(jax\b|crane_scheduler_tpu\b(?!_torch))", re.M
+    )
+    # _build/ holds build outputs, not sources
+    files = [f for f in sorted(PORT.rglob("*.py")) if "_build" not in f.parts]
+    files.append(REPO / "chip_smoke.py")
+    offenders = [str(f) for f in files if pattern.search(f.read_text())]
+    assert offenders == []
+
+
+def test_batch_scheduler_without_device_needs_cuda(monkeypatch):
+    from crane_scheduler_tpu_torch.cluster import ClusterState
+    from crane_scheduler_tpu_torch.framework.scheduler import BatchScheduler
+    from crane_scheduler_tpu_torch.policy import DEFAULT_POLICY
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        BatchScheduler(ClusterState(), DEFAULT_POLICY)
+    with pytest.raises(ValueError, match="unsupported device"):
+        BatchScheduler(ClusterState(), DEFAULT_POLICY, device="meta")
+    # the CPU is used only when asked for
+    sched = BatchScheduler(ClusterState(), DEFAULT_POLICY, device="cpu")
+    assert sched.device.type == "cpu" and sched.gang.device.type == "cpu"
+
+
+def test_kernel_wrappers_take_plain_version_only_on_cpu():
+    """CPU tensors run the plain versions and count no launch."""
+    from crane_scheduler_tpu_torch.policy import DEFAULT_POLICY, compile_policy
+    from crane_scheduler_tpu_torch.scorer import gang_kernel, score_kernel
+    from crane_scheduler_tpu_torch.scorer.batched import PolicyConstants
+
+    t = compile_policy(DEFAULT_POLICY)
+    consts = PolicyConstants(t, torch.float32, "cpu")
+    n = 16
+    rng = np.random.default_rng(0)
+    values = torch.from_numpy(rng.uniform(0, 1, (n, t.num_metrics)).astype(np.float32))
+    ts = torch.zeros((n, t.num_metrics), dtype=torch.float32)
+    before = (score_kernel.KERNEL.launches, gang_kernel.KERNEL.launches)
+    sched, scores = score_kernel.fused_score(
+        values, ts, torch.zeros(n), torch.zeros(n),
+        torch.ones(n, dtype=torch.bool), 0.0, consts,
+    )
+    assert sched.dtype == torch.bool and scores.dtype == torch.int32
+    g = torch.tensor([2, 4, 5, 6, 8, 9, 10, 12, 14, 15, 16], dtype=torch.int32)
+    z = torch.zeros(n, dtype=torch.int32)
+    totals = gang_kernel.gang_totals(scores, z, z + 3, z, g, 1, 102)
+    assert totals.shape == (102,) and int(totals[0]) == 3 * n
+    assert (score_kernel.KERNEL.launches, gang_kernel.KERNEL.launches) == before
