@@ -10,11 +10,17 @@ non-zero without printing a result.
 2. build: both CUDA kernels from ``crane_scheduler_tpu_torch/csrc``, one
    ``nvcc`` each, started together;
 3. K1 (fused filter+score) against its plain PyTorch version on the card,
-   exact equality: 50,000 nodes with the default policy (fresh, stale,
-   missing, negative and NaN entries) and three pathological policies;
+   exact equality: 51,200 nodes with the default policy (fresh, stale,
+   missing, negative and NaN entries) at `now` = 0 and 31 s, three
+   pathological policies, a policy at the kernel's maximum entry count,
+   and ragged node counts (50,001, 257, 1); a policy above the maximum
+   must raise. Then the kernel's own device time per launch;
 4. K2 (gang level totals) against its plain version, exact equality:
    plain mode (w = 1, no offsets) and combined mode (w = 3, max_offset =
-   220, capacities, offsets, prior);
+   220, capacities, offsets, prior), each also at ragged node counts and
+   with every node on one score; a level count above the kernel's
+   shared-memory histogram must raise. Then the kernel's own device time
+   per launch in both modes;
 5. the main path: a 50,000-node ``ClusterState`` with fresh annotations,
    ``BatchScheduler(dtype=torch.float32)`` (hybrid f64 rescue rows) through
    eleven ``schedule_pod_burst`` calls of 100,000 pods with the clock moving
@@ -26,6 +32,11 @@ non-zero without printing a result.
 6. profile: one more warm burst under ``torch.profiler`` for the device's
    busy time, idle share and each kernel's device time.
 
+A kernel's device time is the mean duration of its launches under
+``torch.profiler`` over 200 back-to-back wrapper calls at the main path's
+shape, over the launches the profiler recorded (``device_launches_seen``);
+"host launch ms" is CUDA-event time over 50 back-to-back wrapper calls,
+which at this size is the host's launch cost, not the kernel's.
 Then one JSON line of per-kernel numbers, the ``nvidia-smi`` name/power
 line, and the final ``{"ok": true, ...}`` line. Exit codes: 0 on success,
 2 without a CUDA device, 1 on any failure.
@@ -66,6 +77,8 @@ BURST_PODS = 100_000
 SINGLE_BURSTS = 11  # one cold, ten warm
 NOW = 1753776000.0
 K1_LATER = 31.0  # a rebased `now` the main path also scores at
+RAGGED = (50_001, 257, 1)  # node counts that leave a partial 256-thread block
+DEVICE_LAUNCHES = 200  # launches profiled per device-time measurement
 
 # H100 SXM published rates (NVIDIA data sheet; dense, non-tensor paths)
 HBM_BYTES_PER_S = 3.35e12
@@ -86,6 +99,19 @@ PATHOLOGICAL = {
 }
 
 
+def max_entry_policy(n_entries: int) -> PolicySpec:
+    """``n_entries`` predicates and as many priorities over 8 metrics,
+    thresholds on both sides of the inputs' values, one disabled."""
+    metrics = [f"m{k}" for k in range(8)]
+    return PolicySpec(
+        sync_period=tuple(SyncPolicy(m, 60.0 * (k + 1)) for k, m in enumerate(metrics)),
+        predicate=tuple(PredicatePolicy(metrics[k % 8], (0.65, 0.5, 0.0, 0.9)[k % 4])
+                        for k in range(n_entries)),
+        priority=tuple(PriorityPolicy(metrics[(3 * k) % 8], 0.1 * (k + 1))
+                       for k in range(n_entries)),
+    )
+
+
 def log(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
@@ -99,8 +125,9 @@ def gpu_name_and_power() -> str:
 
 
 def cuda_ms(fn, iters: int = 50, warmup: int = 3) -> float:
-    """Mean device ms per call of ``fn`` over ``iters`` back-to-back calls,
-    timed with CUDA events after ``warmup`` calls."""
+    """Mean ms per call of ``fn`` over ``iters`` back-to-back calls, timed
+    with CUDA events after ``warmup`` calls. For a call that launches one
+    small kernel this is the host's launch cost."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -111,6 +138,48 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_us(fn, kernel: str, launches: int = DEVICE_LAUNCHES,
+              attempts: int = 3) -> tuple[float, int]:
+    """Mean device time in us of ``kernel`` per launch, and the number of
+    launches it is the mean of: ``torch.profiler`` over ``launches``
+    back-to-back calls of ``fn``, after one warm call.
+
+    The profiler can lose a share of a run's device records (161 of 200
+    seen in one H100 run); the mean over the records it kept is still the
+    mean duration. A session that kept fewer than half is run again, up
+    to ``attempts`` in all; the session that kept the most is used, and
+    none kept, or more records than launches, fails."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    best = (0, 0.0)
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(launches):
+                fn()
+            torch.cuda.synchronize()
+        hits = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.key]
+        count = sum(e.count for e in hits)
+        if count > launches:
+            raise AssertionError(f"profiler saw {count} launches of {kernel}, "
+                                 f"more than the {launches} made")
+        if count > best[0]:
+            best = (count, sum(e.self_device_time_total for e in hits))
+        if 2 * count >= launches:
+            break
+    count, total_us = best
+    if count == 0:
+        raise AssertionError(f"profiler saw no launch of {kernel} in {attempts} sessions")
+    return total_us / count, count
+
+
+def bound_fields(device: float, bound_ms: float) -> dict:
+    return {"device_us": device, "bound_us": bound_ms * 1e3,
+            "pct_of_bound": 100.0 * bound_ms * 1e3 / device}
 
 
 # -- K1 ----------------------------------------------------------------------
@@ -147,11 +216,27 @@ def k1_bound_ms(n: int, m: int, n_pred: int, n_prio: int) -> tuple[float, str]:
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
+def k1_check(name: str, consts, case_args, now: float) -> int:
+    sched_k, score_k = score_kernel.fused_score(*case_args, now, consts)
+    sched_p, score_p = score_plain(*case_args, now, consts)
+    torch.cuda.synchronize()
+    err = max(
+        int((score_k.long() - score_p.long()).abs().max()),
+        int((sched_k.long() - sched_p.long()).abs().max()),
+    )
+    if err != 0 or not torch.equal(score_k, score_p) or not torch.equal(sched_k, sched_p):
+        raise AssertionError(f"K1 != plain version for {name} at now={now} (max err {err})")
+    return err
+
+
 def phase_k1(dev, rng) -> dict:
     worst = 0
     shapes = []
     timing = None
-    for name, spec in [("default", DEFAULT_POLICY.spec), *PATHOLOGICAL.items()]:
+    max_entries = score_kernel.MAX_ENTRIES
+    policies = [("default", DEFAULT_POLICY.spec), *PATHOLOGICAL.items(),
+                (f"{max_entries}-entries", max_entry_policy(max_entries))]
+    for name, spec in policies:
         tensors = compile_policy(DynamicSchedulerPolicy(spec=spec))
         consts = PolicyConstants(tensors, torch.float32, dev)
         args = score_inputs(tensors, N_PADDED, N_NODES, rng, dev)
@@ -161,30 +246,33 @@ def phase_k1(dev, rng) -> dict:
             # `now`: the same data, timestamps shifted with the clock
             values, ts, hot, hot_ts, valid = args
             cases.append(((values, ts + K1_LATER, hot, hot_ts + K1_LATER, valid), K1_LATER))
+        for n in RAGGED if name in ("default", f"{max_entries}-entries") else ():
+            cases.append((score_inputs(tensors, n, n - n // 50, rng, dev), 0.0))
         for case_args, now in cases:
-            sched_k, score_k = score_kernel.fused_score(*case_args, now, consts)
-            sched_p, score_p = score_plain(*case_args, now, consts)
-            torch.cuda.synchronize()
-            err = max(
-                int((score_k.long() - score_p.long()).abs().max()),
-                int((sched_k.long() - sched_p.long()).abs().max()),
-            )
-            if err != 0 or not torch.equal(score_k, score_p) or not torch.equal(sched_k, sched_p):
-                raise AssertionError(
-                    f"K1 != plain version for policy {name} at now={now} (max err {err})"
-                )
-            worst = max(worst, err)
+            worst = max(worst, k1_check(f"policy {name}, {case_args[0].shape[0]} nodes",
+                                        consts, case_args, now))
         shapes.append(name)
         if name == "default":
-            timing = {
-                "ms": cuda_ms(lambda: score_kernel.fused_score(*args, 0.0, consts)),
-                "plain_ms": cuda_ms(lambda: score_plain(*args, 0.0, consts)),
-            }
             bound, by = k1_bound_ms(N_PADDED, tensors.num_metrics,
                                     len(tensors.pred_idx), len(tensors.prio_idx))
-            timing.update(bound_ms=bound, bound_by=by)
+            kernel_us, seen = device_us(lambda: score_kernel.fused_score(*args, 0.0, consts),
+                                        "score_nodes_kernel")
+            timing = {
+                "ms": kernel_us / 1e3, "device_launches_seen": seen,
+                "host_launch_ms": cuda_ms(lambda: score_kernel.fused_score(*args, 0.0, consts)),
+                "plain_ms": cuda_ms(lambda: score_plain(*args, 0.0, consts)),
+                "bound_ms": bound, "bound_by": by, **bound_fields(kernel_us, bound),
+            }
+    over = compile_policy(DynamicSchedulerPolicy(spec=max_entry_policy(max_entries + 1)))
+    over_consts = PolicyConstants(over, torch.float32, dev)
+    try:
+        score_kernel.fused_score(*score_inputs(over, 257, 257, rng, dev), 0.0, over_consts)
+    except ValueError as e:
+        refused = str(e)
+    else:
+        raise AssertionError(f"K1 took a policy with {max_entries + 1} entries per list")
     log("k1_vs_plain", equal=True, policies=shapes, nows=[0.0, K1_LATER],
-        nodes=N_PADDED, **timing)
+        nodes=N_PADDED, ragged_nodes=list(RAGGED), refused_over_max=refused, **timing)
     return {"max_abs_err": worst, **timing}
 
 
@@ -205,31 +293,63 @@ def gang_inputs(n: int, rng, dev, w: int, max_offset: int, combined: bool):
     return (i32(s), i32(offs), i32(k_cap), i32(pri), g, w, n_levels)
 
 
-def k2_bound_ms(n: int, n_levels: int) -> tuple[float, str]:
-    nbytes = 4 * 4 * n + 4 * n_levels
-    ops = 25 * n_levels * n  # ~25 int32 ops per (level, node) cell
+def k2_steps(s: np.ndarray) -> int:
+    """Steps K2 takes over these scores: per node the level-0 term, one per
+    run of equal staircase index, and the tail."""
+    s = s.astype(np.int64)
+    qmax = np.clip(s, 0, 100)
+    runs = np.minimum((s - 1) // 10, 10) - np.minimum((s - qmax) // 10, 10) + 1
+    return int((np.where(s > 0, runs, 0) + 2).sum())
+
+
+def k2_bound_ms(n: int, n_levels: int, steps: int) -> tuple[float, str]:
+    nbytes = 4 * 4 * n + 4 * n_levels  # s, offs, cap, pri in; totals out
+    ops = 10 * steps  # ~10 int32 ops per step of the walk
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def k2_check(label: str, args) -> int:
+    got = gang_kernel.gang_totals(*args)
+    want = gang_kernel.gang_totals_plain(*args)
+    torch.cuda.synchronize()
+    err = int((got.long() - want.long()).abs().max())
+    if err != 0 or not torch.equal(got, want):
+        raise AssertionError(f"K2 != plain version, {label} (max err {err})")
+    return err
 
 
 def phase_k2(dev, rng) -> dict:
     out = {}
     worst = 0
     for mode, w, max_offset in (("plain", 1, 0), ("combined", 3, 220)):
-        args = gang_inputs(N_PADDED, rng, dev, w, max_offset, mode == "combined")
-        got = gang_kernel.gang_totals(*args)
-        want = gang_kernel.gang_totals_plain(*args)
-        torch.cuda.synchronize()
-        err = int((got.long() - want.long()).abs().max())
-        if err != 0 or not torch.equal(got, want):
-            raise AssertionError(f"K2 != plain version in {mode} mode (max err {err})")
-        worst = max(worst, err)
-        ms = cuda_ms(lambda: gang_kernel.gang_totals(*args))
-        plain = cuda_ms(lambda: gang_kernel.gang_totals_plain(*args), iters=20)
-        bound, by = k2_bound_ms(N_PADDED, args[-1])
-        out[mode] = dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
-                         n_levels=args[-1])
-    log("k2_vs_plain", equal=True, nodes=N_PADDED, **out)
+        combined = mode == "combined"
+        args = gang_inputs(N_PADDED, rng, dev, w, max_offset, combined)
+        worst = max(worst, k2_check(f"{mode} mode", args))
+        for n in RAGGED:
+            worst = max(worst, k2_check(f"{mode} mode, {n} nodes",
+                                        gang_inputs(n, rng, dev, w, max_offset, combined)))
+        for score in (57, 100):  # every node on one score: every bin contended
+            one = (torch.full_like(args[0], score), *args[1:])
+            worst = max(worst, k2_check(f"{mode} mode, every score {score}", one))
+        kernel_us, seen = device_us(lambda: gang_kernel.gang_totals(*args),
+                                    "gang_totals_kernel")
+        bound, by = k2_bound_ms(N_PADDED, args[-1], k2_steps(args[0].cpu().numpy()))
+        out[mode] = dict(
+            ms=kernel_us / 1e3, device_launches_seen=seen,
+            host_launch_ms=cuda_ms(lambda: gang_kernel.gang_totals(*args)),
+            plain_ms=cuda_ms(lambda: gang_kernel.gang_totals_plain(*args), iters=20),
+            bound_ms=bound, bound_by=by, n_levels=args[-1], **bound_fields(kernel_us, bound),
+        )
+    limit = gang_kernel.max_levels(args[0].device)
+    try:
+        gang_kernel.gang_totals(*args[:-1], limit + 1)
+    except ValueError as e:
+        refused = str(e)
+    else:
+        raise AssertionError(f"K2 took {limit + 1} levels, above its limit of {limit}")
+    log("k2_vs_plain", equal=True, nodes=N_PADDED, ragged_nodes=list(RAGGED),
+        one_score=[57, 100], max_levels=limit, refused_over_max=refused, **out)
     return {"max_abs_err": worst, **out["plain"]}
 
 
@@ -388,6 +508,11 @@ def phase_profile(sched: BatchScheduler, clock: Clock, now: float) -> None:
     )
 
 
+# per kernel in the `kernels` line: `ms` is the kernel's own device time
+KERNEL_KEYS = ("ms", "plain_ms", "bound_ms", "bound_by", "device_us", "bound_us",
+               "pct_of_bound", "host_launch_ms", "device_launches_seen")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
@@ -415,16 +540,14 @@ def main() -> int:
             "source": "crane_scheduler_tpu_torch/csrc/score_kernel.cu",
             "replaces": "crane_scheduler_tpu/scorer/pallas_kernel.py:140",
             "launches": launches["score"], "max_abs_err": k1["max_abs_err"],
-            "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
-            "bound_by": k1["bound_by"], "library_ms": None,
+            **{k: k1[k] for k in KERNEL_KEYS}, "library_ms": None,
         },
         {
             "name": "gang_level_totals", "route": "cuda",
             "source": "crane_scheduler_tpu_torch/csrc/gang_totals.cu",
             "replaces": "crane_scheduler_tpu/scorer/pallas_gang.py:142",
             "launches": launches["gang"], "max_abs_err": k2["max_abs_err"],
-            "ms": k2["ms"], "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
-            "bound_by": k2["bound_by"], "library_ms": None,
+            **{k: k2[k] for k in KERNEL_KEYS}, "library_ms": None,
         },
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -12,29 +12,62 @@
 //   score  = clip(base - penalty, 0, 100), 0 where the row is invalid
 //   sched  = !over & valid
 //
-// Layout: one thread per node, reading its own row of the node-major
-// [N, M] f32 matrices as the scheduling step holds them; policy constants
-// are small device arrays walked in policy order. The TPU kernel's
-// transposed [M_pad, N] layout and 8-sublane output broadcast served the
-// TPU's (8, 128) tiling and have no counterpart here.
+// Layout:
+// - Policy by value. The column indices, windows, thresholds and weights
+//   come in one ScorePolicy struct in the kernel's parameter space (at most
+//   kMaxEntries predicates and as many priorities; the wrapper raises above
+//   that), so they are uniform constant-bank operands and no node waits on
+//   a dependent global load of a policy constant before it can read its row.
+// - Rows read directly. A thread scores one node at a time, reading the
+//   entries of its own [M]-float rows of values and timestamps that the
+//   policy names; a warp's loads of one column touch 32 consecutive rows,
+//   whose lines the warp's other columns then hit in L1. The policy loops
+//   stay rolled, which keeps the code small (28 registers): the main path
+//   launches this kernel once per burst, between other kernels, so it
+//   starts with cold instruction caches.
+// - One wave. The grid is min(ceil(N / 256), SMs x resident blocks per SM),
+//   from the device's SM count and this kernel's occupancy; blocks take
+//   further nodes in a grid-stride loop.
+// This kernel's first design on the H100 staged 256-node tiles of both
+// matrices in shared memory with 16-byte loads and unrolled the policy
+// loops; it ran slower than the row-per-thread layout, warm and cold, and
+// was dropped. The TPU kernel's transposed [M_pad, N] layout and 8-sublane
+// output broadcast served the TPU's (8, 128) tiling and have no
+// counterpart here.
 //
-// Bound on an H100 SXM (3.35 TB/s): bytes. At 51,200 padded nodes x 6
-// metrics the kernel reads 2 x 51,200 x 6 x 4 B (values, ts) + 51,200 x
-// 9 B (hot, hot_ts, valid) and writes 51,200 x 5 B, about 3.2 MB, or
-// about 0.95 us; the ~80 float ops per node are ~0.06 us at 67 TFLOP/s.
-// At this size a launch costs more than either, so the kernel is
-// launch-bound; its design keeps it to one pass with no intermediate
-// device-memory traffic.
+// Bound on an H100 SXM (3.35 TB/s): bytes. At 51,200 nodes x 6 metrics the
+// kernel reads 2 x 51,200 x 6 x 4 B (values, ts) + 51,200 x 9 B (hot,
+// hot_ts, valid) and writes 51,200 x 5 B, about 3.17 MB, or about 0.95 us;
+// the ~80 float ops per node are ~0.06 us at 67 TFLOP/s.
 //
 // Bit parity with the f32 reference: every float op is an explicitly
-// rounded intrinsic (and the build passes -fmad=false), the division is
-// correctly rounded, Go's int() maps NaN/Inf/out-of-range to INT32_MIN
-// (CUDA's conversion would saturate and send NaN to 0), and the
-// subtraction base - penalty wraps in two's complement through uint32.
+// rounded intrinsic (__fsub_rn, __fmul_rn, __fadd_rn, __fdiv_rn; the build
+// also passes -fmad=false), priority entries add in policy order, Go's int()
+// maps NaN/Inf/out-of-range to INT32_MIN (CUDA's conversion would saturate
+// and send NaN to 0), and the subtraction base - penalty wraps in two's
+// complement through uint32.
 
 #include <cuda_runtime.h>
+#include <atomic>
 #include <climits>
 #include <cstdint>
+
+constexpr int kMaxEntries = 16;
+
+// At namespace scope: a C entry point whose parameter type had internal
+// linkage would get internal linkage itself.
+struct ScorePolicy {
+  int n_pred;
+  int n_prio;
+  int pred_col[kMaxEntries];
+  float pred_thr[kMaxEntries];
+  float pred_active[kMaxEntries];
+  int prio_col[kMaxEntries];
+  float prio_w[kMaxEntries];
+  float prio_active[kMaxEntries];
+  float weight_sum;
+  float hot_active;
+};
 
 namespace {
 
@@ -50,77 +83,105 @@ __global__ void __launch_bounds__(kBlock) score_nodes_kernel(
     const float* __restrict__ values, const float* __restrict__ ts,
     const float* __restrict__ hot, const float* __restrict__ hot_ts,
     const uint8_t* __restrict__ valid, int n, int m, float now,
-    const int* __restrict__ pred_idx, const float* __restrict__ pred_thr,
-    const float* __restrict__ pred_active, int n_pred,
-    const int* __restrict__ prio_idx, const float* __restrict__ prio_w,
-    const float* __restrict__ prio_active, int n_prio, float weight_sum,
-    float hot_active, uint8_t* __restrict__ sched_out,
+    const ScorePolicy pol, uint8_t* __restrict__ sched_out,
     int* __restrict__ score_out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const float* u_row = values + static_cast<size_t>(i) * m;
-  const float* t_row = ts + static_cast<size_t>(i) * m;
+  for (int i = blockIdx.x * kBlock + threadIdx.x; i < n; i += gridDim.x * kBlock) {
+    const float* u_row = values + static_cast<size_t>(i) * m;
+    const float* t_row = ts + static_cast<size_t>(i) * m;
 
-  bool over = false;
-  for (int p = 0; p < n_pred; ++p) {
-    const float active = pred_active[p];
-    const float thr = pred_thr[p];
-    if (!(active > 0.0f) || thr == 0.0f) continue;  // entry disabled
-    const int c = pred_idx[p];
-    const float u = u_row[c];
-    const bool fresh = now < __fadd_rn(t_row[c], active);
-    over = over || (fresh && !(u < 0.0f) && u > thr);
-  }
-
-  int base = 0;  // no priorities: score 0
-  if (n_prio > 0) {
-    float acc = 0.0f;
-    for (int k = 0; k < n_prio; ++k) {
-      const float active = prio_active[k];
-      const int c = prio_idx[k];
+    bool over = false;
+#pragma unroll 1
+    for (int p = 0; p < pol.n_pred; ++p) {
+      const float active = pol.pred_active[p];
+      const float thr = pol.pred_thr[p];
+      if (!(active > 0.0f) || thr == 0.0f) continue;  // entry disabled
+      const int c = pol.pred_col[p];
       const float u = u_row[c];
-      const bool ok =
-          active > 0.0f && now < __fadd_rn(t_row[c], active) && !(u < 0.0f);
-      // Go rounds twice: fl(fl((1 - u) * w) * 100); entries add in order.
-      const float contrib =
-          __fmul_rn(__fmul_rn(__fsub_rn(1.0f, u), prio_w[k]), 100.0f);
-      const float entry = ok ? contrib : 0.0f;
-      acc = (k == 0) ? entry : __fadd_rn(acc, entry);
+      const bool fresh = now < __fadd_rn(t_row[c], active);
+      over = over || (fresh && !(u < 0.0f) && u > thr);
     }
-    // weight_sum == 0 gives NaN or +-Inf, which truncate to INT32_MIN
-    // exactly as the reference's explicit NaN/Inf quotient does.
-    base = go_trunc_i32(__fdiv_rn(acc, weight_sum));
-  }
 
-  const float h = hot[i];
-  const bool hot_ok = now < __fadd_rn(hot_ts[i], hot_active) && !(h < 0.0f);
-  const int penalty = go_trunc_i32(__fmul_rn(hot_ok ? h : 0.0f, 10.0f));
-  int score = static_cast<int>(static_cast<uint32_t>(base) -
-                               static_cast<uint32_t>(penalty));
-  score = min(max(score, 0), 100);
-  const bool v = valid[i] != 0;
-  score_out[i] = v ? score : 0;
-  sched_out[i] = (v && !over) ? 1 : 0;
+    int base = 0;  // no priorities: score 0
+    if (pol.n_prio > 0) {
+      float acc = 0.0f;
+#pragma unroll 1
+      for (int k = 0; k < pol.n_prio; ++k) {
+        const float active = pol.prio_active[k];
+        const int c = pol.prio_col[k];
+        const float u = u_row[c];
+        const bool ok =
+            active > 0.0f && now < __fadd_rn(t_row[c], active) && !(u < 0.0f);
+        // Go rounds twice: fl(fl((1 - u) * w) * 100); entries add in order.
+        const float contrib =
+            __fmul_rn(__fmul_rn(__fsub_rn(1.0f, u), pol.prio_w[k]), 100.0f);
+        const float entry = ok ? contrib : 0.0f;
+        acc = (k == 0) ? entry : __fadd_rn(acc, entry);
+      }
+      // weight_sum == 0 gives NaN or +-Inf, which truncate to INT32_MIN
+      // exactly as the reference's explicit NaN/Inf quotient does.
+      base = go_trunc_i32(__fdiv_rn(acc, pol.weight_sum));
+    }
+
+    const float h = hot[i];
+    const bool hot_ok = now < __fadd_rn(hot_ts[i], pol.hot_active) && !(h < 0.0f);
+    const int penalty = go_trunc_i32(__fmul_rn(hot_ok ? h : 0.0f, 10.0f));
+    int score = static_cast<int>(static_cast<uint32_t>(base) -
+                                 static_cast<uint32_t>(penalty));
+    score = min(max(score, 0), 100);
+    const bool v = valid[i] != 0;
+    score_out[i] = v ? score : 0;
+    sched_out[i] = (v && !over) ? 1 : 0;
+  }
+}
+
+std::atomic<int> g_wave[64];  // per device: blocks in one wave, 0 until asked
+
+// Blocks of score_nodes_kernel resident on the whole current device (SMs x
+// blocks per SM): one wave. Cached per device, so a launch costs no
+// occupancy query.
+cudaError_t one_wave(int* blocks) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const bool cache = dev >= 0 && dev < 64;
+  if (cache && (*blocks = g_wave[dev].load(std::memory_order_relaxed)) > 0)
+    return cudaSuccess;
+  int sms = 0, per_sm = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, score_nodes_kernel,
+                                                        kBlock, 0);
+  if (err != cudaSuccess) return err;
+  *blocks = sms * (per_sm > 0 ? per_sm : 1);
+  if (cache) g_wave[dev].store(*blocks, std::memory_order_relaxed);
+  return cudaSuccess;
 }
 
 }  // namespace
 
+// sizeof(ScorePolicy), which the wrapper holds against its own copy of the
+// layout before it passes one.
+extern "C" int crane_score_nodes_policy_bytes() {
+  return static_cast<int>(sizeof(ScorePolicy));
+}
+
+// The caller checks the policy's entry counts against kMaxEntries.
 extern "C" int crane_score_nodes(
     const void* values, const void* ts, const void* hot, const void* hot_ts,
-    const void* valid, int n, int m, float now, const void* pred_idx,
-    const void* pred_thr, const void* pred_active, int n_pred,
-    const void* prio_idx, const void* prio_w, const void* prio_active,
-    int n_prio, float weight_sum, float hot_active, void* sched_out,
-    void* score_out, void* stream) {
-  const int grid = (n + kBlock - 1) / kBlock;
+    const void* valid, int n, int m, float now, const ScorePolicy* policy,
+    void* sched_out, void* score_out, void* stream) {
+  if (n <= 0 || m < 0 || policy->n_pred < 0 || policy->n_pred > kMaxEntries ||
+      policy->n_prio < 0 || policy->n_prio > kMaxEntries)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int wave = 0;
+  const cudaError_t err = one_wave(&wave);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int needed = (n + kBlock - 1) / kBlock;
+  const int grid = needed < wave ? needed : wave;
   score_nodes_kernel<<<grid, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(values), static_cast<const float*>(ts),
       static_cast<const float*>(hot), static_cast<const float*>(hot_ts),
-      static_cast<const uint8_t*>(valid), n, m, now,
-      static_cast<const int*>(pred_idx), static_cast<const float*>(pred_thr),
-      static_cast<const float*>(pred_active), n_pred,
-      static_cast<const int*>(prio_idx), static_cast<const float*>(prio_w),
-      static_cast<const float*>(prio_active), n_prio, weight_sum, hot_active,
+      static_cast<const uint8_t*>(valid), n, m, now, *policy,
       static_cast<uint8_t*>(sched_out), static_cast<int*>(score_out));
   return static_cast<int>(cudaGetLastError());
 }

@@ -114,6 +114,15 @@ class CudaKernel:
                 self._lib, self._fn = lib, fn
             return self._fn
 
+    def function(self, symbol: str, argtypes: list, restype=ctypes.c_int):
+        """Another C entry point of this kernel's library (a query the
+        wrapper makes before it launches); builds the library if needed."""
+        self._function()
+        fn = getattr(self._lib, symbol)
+        fn.argtypes = argtypes
+        fn.restype = restype
+        return fn
+
     def launch(self, *args) -> None:
         """Call the C entry point; raise on a nonzero CUDA error code."""
         err = self._function()(*args)

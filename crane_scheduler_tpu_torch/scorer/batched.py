@@ -53,8 +53,7 @@ class PolicyConstants:
 
     ``pred``/``prio`` hold ``(column, threshold-or-weight, window)`` in
     policy order, rounded to the dtype (the plain version slices columns
-    with them); the ``*_d`` tensors are the same values on ``device`` for
-    the kernel.
+    with them; the fused kernel takes the same values by value).
     """
 
     def __init__(self, tensors: PolicyTensors, dtype: torch.dtype, device):
@@ -75,17 +74,7 @@ class PolicyConstants:
         ]
         self.weight_sum = float(rnd(t.weight_sum))
         self.hot_active = float(rnd(HOT_VALUE_ACTIVE_PERIOD_SECONDS))
-
-        def dev(vals, dt):
-            return torch.tensor(vals, dtype=dt, device=device)
-
-        self.pred_idx_d = dev([c for c, _, _ in self.pred], torch.int32)
-        self.pred_threshold_d = dev([x for _, x, _ in self.pred], dtype)
-        self.pred_active_d = dev([a for _, _, a in self.pred], dtype)
-        self.prio_idx_d = dev([c for c, _, _ in self.prio], torch.int32)
-        self.prio_weight_d = dev([x for _, x, _ in self.prio], dtype)
-        self.prio_active_d = dev([a for _, _, a in self.prio], dtype)
-        self.device = self.pred_idx_d.device  # resolved, e.g. cuda:0
+        self.device = resolve_device(device)  # resolved, e.g. cuda:0
 
     def round(self, x: float) -> float:
         """``x`` rounded to the dtype, as a Python float."""

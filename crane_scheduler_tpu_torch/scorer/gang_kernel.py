@@ -6,6 +6,11 @@ Counterpart of ``crane_scheduler_tpu/scorer/pallas_gang.py``: ``totals[L] =
 device memory. ``a_table`` is the per-node token count both the solver
 and the plain version use; ``gang_totals_plain`` is the kernel's plain
 version. CPU tensors take it; CUDA tensors launch the kernel or raise.
+
+The kernel adds each node's step function of L (at most 13 steps) into a
+per-block difference histogram and prefix-scans it, so its work does not
+grow with the level count; the histogram lives in shared memory, which
+bounds the level count per launch (``max_levels``).
 """
 
 from __future__ import annotations
@@ -25,8 +30,23 @@ KERNEL = CudaKernel(
     "crane_gang_totals",
     [_P, _P, _P, _P, _I,  # s, offs, cap, pri, n
      _P, _I, _I,  # g staircase [11], dynamic weight, n_levels
-     _P, _P],  # totals out, stream
+     _P, _P],  # totals out (zeroed), stream
 )
+
+_MAX_LEVELS: dict[int, int] = {}  # device index -> levels one launch holds
+
+
+def max_levels(device: torch.device) -> int:
+    """The largest ``n_levels`` the kernel takes on ``device`` (a CUDA
+    device): its opt-in shared memory per block in 4-byte bins."""
+    if device.index not in _MAX_LEVELS:
+        query = KERNEL.function("crane_gang_totals_max_levels", [])
+        with torch.cuda.device(device):
+            got = query()
+        if got <= 0:
+            raise RuntimeError(f"crane_gang_totals_max_levels failed with CUDA error {-got}")
+        _MAX_LEVELS[device.index] = got
+    return _MAX_LEVELS[device.index]
 
 
 def a_table(s, offsets, k_cap, prior, lv, g, w: int):
@@ -74,9 +94,15 @@ def gang_totals(s, offs, k_cap, pri, g, w: int, n_levels: int):
             raise ValueError(f"{name} must be contiguous")
     if w < 1 or n_levels < 1:
         raise ValueError(f"need dynamic weight >= 1 and n_levels >= 1, got {w}, {n_levels}")
-    totals = torch.zeros((n_levels,), dtype=torch.int32, device=s.device)
     if n == 0:
-        return totals
+        return torch.zeros((n_levels,), dtype=torch.int32, device=s.device)
+    limit = max_levels(s.device)
+    if n_levels > limit:
+        raise ValueError(
+            f"n_levels={n_levels} exceeds the {limit} levels the gang totals "
+            f"kernel's shared-memory histogram holds on {s.device}"
+        )
+    totals = torch.zeros((n_levels,), dtype=torch.int32, device=s.device)
     with torch.cuda.device(s.device):
         stream = torch.cuda.current_stream(s.device).cuda_stream
         KERNEL.launch(
