@@ -30,7 +30,38 @@ non-zero without printing a result.
    a twin cluster; both kernels' launch counts over the run are > 0. The
    line carries each burst's wall ms and host ms per stage;
 6. profile: one more warm burst under ``torch.profiler`` for the device's
-   busy time, idle share and each kernel's device time.
+   busy time, idle share and each kernel's device time;
+7. delta_path: a fresh ``BatchScheduler(dtype=torch.float32)`` on the same
+   cluster, over the main path's clock range (so the unpatched rows'
+   timestamps stay far from expiry, as on the hit path), takes one cold
+   burst, then one warm 100,000-pod burst after each
+   of ten ``patch_node_annotations_bulk`` calls over 500 seeded-random
+   nodes (1%, new values stamped at that burst's clock). Ten bursts must
+   take the delta path and one the full path; every burst passes
+   ``check_placement_parity``; scores, verdicts and placements equal a
+   second scheduler's full prepare of the same cluster at the same `now`.
+   The line carries the prepare ms of the delta bursts beside the full
+   prepare and the main path's hit-path median, the rescanned rows and
+   kernel launches per burst, and the device time of one delta upload and
+   scatter (``torch.profiler``);
+8. column_path: a direct-mode store (``BatchScheduler(store=...,
+   refresh_from_cluster=False)``) takes, before each of ten bursts, one
+   annotator-shaped sweep: one ``bulk_set_by_name`` per metric over all
+   50,000 names (the same list object each time, one shared timestamp, hot
+   values with the first metric), one sweep leaving two nodes out of one
+   metric. Ten bursts must take the column path; the same parity and
+   identity checks as the delta path;
+9. overlap: the depth-4 pipelined run of 4 x 25,000 pods, once blocking and
+   once with ``overlap_refresh`` and ``overlap_bind``, annotations static:
+   identical placements, every result settled when the generator is
+   consumed; overlap hits, bind-flush windows and wall ms per burst of both
+   (no claim goes with them);
+10. hybrid_scorer: ``HybridScorer`` over the 50,000-node snapshot equals
+   ``BatchedScorer(torch.float64)`` exactly.
+
+Before each path (main path, delta, column, overlap, hybrid scorer) the
+kernels' launch counters are set to 0, and after it each kernel the path
+runs must have launched; the ``kernels`` line lists the counts per path.
 
 A kernel's device time is the mean duration of its launches under
 ``torch.profiler`` over 200 back-to-back wrapper calls at the main path's
@@ -56,6 +87,7 @@ import torch
 from crane_scheduler_tpu_torch.cluster import ClusterState, Node
 from crane_scheduler_tpu_torch.framework.scheduler import BURST_STAGES, BatchScheduler
 from crane_scheduler_tpu_torch.kernels import build_all
+from crane_scheduler_tpu_torch.loadstore import NodeLoadStore
 from crane_scheduler_tpu_torch.policy import DEFAULT_POLICY, compile_policy
 from crane_scheduler_tpu_torch.policy.types import (
     DynamicSchedulerPolicy,
@@ -65,7 +97,8 @@ from crane_scheduler_tpu_torch.policy.types import (
     SyncPolicy,
 )
 from crane_scheduler_tpu_torch.scorer import gang_kernel, score_kernel
-from crane_scheduler_tpu_torch.scorer.batched import PolicyConstants, score_plain
+from crane_scheduler_tpu_torch.scorer.batched import BatchedScorer, PolicyConstants, score_plain
+from crane_scheduler_tpu_torch.scorer.hybrid import HybridScorer
 from crane_scheduler_tpu_torch.scorer.parity import check_placement_parity
 from crane_scheduler_tpu_torch.scorer.topk import hot_penalty_steps
 from crane_scheduler_tpu_torch.utils import format_local_time
@@ -79,6 +112,8 @@ NOW = 1753776000.0
 K1_LATER = 31.0  # a rebased `now` the main path also scores at
 RAGGED = (50_001, 257, 1)  # node counts that leave a partial 256-thread block
 DEVICE_LAUNCHES = 200  # launches profiled per device-time measurement
+UPDATE_BURSTS = 10  # warm bursts of the delta and column paths
+DELTA_NODES = N_NODES // 100  # nodes each delta-path patch rewrites (1%)
 
 # H100 SXM published rates (NVIDIA data sheet; dense, non-tensor paths)
 HBM_BYTES_PER_S = 3.35e12
@@ -429,6 +464,24 @@ def run_bursts(sched: BatchScheduler, clock: Clock, nows, check: bool):
     return placements, burst_ms, stage_ms, pipe_ms
 
 
+KERNELS = {"score": score_kernel.KERNEL, "gang": gang_kernel.KERNEL}
+
+
+def reset_launches() -> None:
+    for kernel in KERNELS.values():
+        kernel.launches = 0
+
+
+def read_launches(path: str, need=("score", "gang")) -> dict:
+    """The launch counts since ``reset_launches``; raises unless every
+    kernel in ``need`` launched on ``path``."""
+    got = {name: kernel.launches for name, kernel in KERNELS.items()}
+    missing = [name for name in need if got[name] <= 0]
+    if missing:
+        raise AssertionError(f"{path} did not launch {missing}: {got}")
+    return got
+
+
 def phase_main_path(rng) -> dict:
     tensors = compile_policy(DEFAULT_POLICY)
     t0 = time.perf_counter()
@@ -439,14 +492,11 @@ def phase_main_path(rng) -> dict:
 
     clock = Clock(NOW)
     sched = BatchScheduler(cluster, DEFAULT_POLICY, dtype=torch.float32, clock=clock)
-    score_kernel.KERNEL.launches = 0
-    gang_kernel.KERNEL.launches = 0
+    reset_launches()
     t_run = time.perf_counter()
     placements, burst_ms, stage_ms, pipe_ms = run_bursts(sched, clock, nows, check=True)
     run_s = time.perf_counter() - t_run
-    launches = {"score": score_kernel.KERNEL.launches, "gang": gang_kernel.KERNEL.launches}
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"main path did not launch every kernel: {launches}")
+    launches = read_launches("main path")
 
     twin_clock = Clock(NOW)
     twin = BatchScheduler(build_cluster(annos), DEFAULT_POLICY, dtype=torch.float64,
@@ -456,6 +506,7 @@ def phase_main_path(rng) -> dict:
         if not np.array_equal(a, b):
             raise AssertionError(f"burst {k}: f32-hybrid placements != float64 placements")
     warm = burst_ms[1:]
+    hit_prepare_ms = statistics.median(d["prepare"] for d in stage_ms[1:])
     log(
         "main_path", nodes=N_NODES, pods_per_burst=BURST_PODS, bursts=len(burst_ms),
         pipelined_bursts=4, parity="ok", f64_twin_equal=True,
@@ -470,7 +521,7 @@ def phase_main_path(rng) -> dict:
         refresh_stats=sched.refresh_stats, launches=launches,
         cluster_build_s=build_s, run_s=run_s,
     )
-    return launches, sched, clock, nows[-1]
+    return launches, sched, clock, nows[-1], hit_prepare_ms
 
 
 def phase_profile(sched: BatchScheduler, clock: Clock, now: float) -> None:
@@ -508,6 +559,226 @@ def phase_profile(sched: BatchScheduler, clock: Clock, now: float) -> None:
     )
 
 
+# -- keeping the resident snapshot current ------------------------------------
+
+def timed_burst(sched: BatchScheduler, tag: str) -> tuple:
+    """One checked 100,000-pod burst: (wall ms, host stage ms, launches)."""
+    names = [f"{tag}-{i}" for i in range(BURST_PODS)]
+    sched.burst_stage_ms = dict.fromkeys(BURST_STAGES, 0.0)
+    before = {name: kernel.launches for name, kernel in KERNELS.items()}
+    t0 = time.perf_counter()
+    result = sched.schedule_pod_burst("update", names)
+    wall = (time.perf_counter() - t0) * 1e3
+    launched = {name: kernel.launches - before[name] for name, kernel in KERNELS.items()}
+    parity_check(sched, result, BURST_PODS)
+    if result.n_assigned != BURST_PODS:
+        raise AssertionError(f"{tag}: {result.n_assigned}/{BURST_PODS} placed")
+    return wall, dict(sched.burst_stage_ms), launched
+
+
+def run_update_bursts(sched: BatchScheduler, clock: Clock, update, path: str) -> dict:
+    """A cold burst, then ``UPDATE_BURSTS`` warm ones, each after
+    ``update(k, now)``; returns the per-burst numbers for the log line."""
+    cold_ms, cold_stages, _ = timed_burst(sched, f"{path}-cold")
+    out = {"burst_ms": [], "prepare_ms": [], "rescan_rows": [], "launches_per_burst": []}
+    stage_ms = []
+    for k in range(UPDATE_BURSTS):
+        clock.t += 12.0
+        update(k, clock.t)
+        rescan = sched.refresh_stats["risk_rescan_rows"]
+        wall, stages, launched = timed_burst(sched, f"{path}-{k}")
+        out["burst_ms"].append(wall)
+        stage_ms.append(stages)
+        out["prepare_ms"].append(stages["prepare"])
+        out["rescan_rows"].append(sched.refresh_stats["risk_rescan_rows"] - rescan)
+        out["launches_per_burst"].append(launched)
+    out["cold_ms"], out["full_prepare_ms"] = cold_ms, cold_stages["prepare"]
+    out["prepare_median_ms"] = statistics.median(out["prepare_ms"])
+    out["burst_median_ms"] = statistics.median(out["burst_ms"])
+    out["stage_median_ms"] = {st: statistics.median(d[st] for d in stage_ms) for st in BURST_STAGES}
+    return out
+
+
+def same_as_full_prepare(sched: BatchScheduler, fresh: BatchScheduler, path: str) -> None:
+    """``sched``'s kept-current snapshot and ``fresh``'s full prepare score
+    and place one unbound burst identically at the same `now`."""
+    names = [f"{path}-cmp-{i}" for i in range(BURST_PODS)]
+    kept = sched.schedule_pod_burst("update", names, bind=False)
+    full = fresh.schedule_pod_burst("update", names, bind=False)
+    if fresh.refresh_stats["full"] != 1 or kept.node_table != full.node_table:
+        raise AssertionError(f"{path}: the comparison did not take a full prepare")
+    for field in ("scores_row", "schedulable_row", "node_idx"):
+        if not np.array_equal(getattr(kept, field), getattr(full, field)):
+            raise AssertionError(f"{path}: {field} differs from a full prepare")
+
+
+def device_events(prof) -> dict:
+    return {
+        e.key: [e.count, e.self_device_time_total] for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
+    }
+
+
+def patch_nodes(cluster: ClusterState, names: list, metric_names, rng, now: float) -> None:
+    """One annotator-sized patch: ``DELTA_NODES`` seeded-random nodes get
+    new values and hot values stamped at ``now``."""
+    rows = rng.choice(len(names), DELTA_NODES, replace=False)
+    values = rng.uniform(0.0, 1.0, (DELTA_NODES, len(metric_names)))
+    hot = rng.integers(0, 3, DELTA_NODES)
+    stamp = format_local_time(now)
+    per = {
+        names[r]: {
+            **{m: f"{values[j, k]:.5f},{stamp}" for k, m in enumerate(metric_names)},
+            "node_hot_value": f"{int(hot[j])},{stamp}",
+        }
+        for j, r in enumerate(rows)
+    }
+    if cluster.patch_node_annotations_bulk(per) != DELTA_NODES:
+        raise AssertionError("patch missed nodes")
+
+
+def phase_delta_path(cluster: ClusterState, rng, now: float, hit_prepare_ms: float):
+    tensors = compile_policy(DEFAULT_POLICY)
+    names = [n.name for n in cluster.list_nodes()]
+    clock = Clock(now)
+    sched = BatchScheduler(cluster, DEFAULT_POLICY, dtype=torch.float32, clock=clock)
+    reset_launches()
+    out = run_update_bursts(
+        sched, clock, lambda k, t: patch_nodes(cluster, names, tensors.metric_names, rng, t),
+        "delta",
+    )
+    stats = dict(sched.refresh_stats)
+    if stats["delta"] != UPDATE_BURSTS or stats["full"] != 1:
+        raise AssertionError(f"delta path: refresh_stats {stats}")
+    same_as_full_prepare(
+        sched, BatchScheduler(cluster, DEFAULT_POLICY, dtype=torch.float32, clock=clock), "delta")
+    launches = read_launches("delta path")
+
+    # the device time of one more delta upload and scatter, alone
+    from torch.profiler import ProfilerActivity, profile
+
+    clock.t += 12.0
+    patch_nodes(cluster, names, tensors.metric_names, rng, clock.t)
+    sched.refresh()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sched._prepare(clock.t)
+        torch.cuda.synchronize()
+        prepare_wall_ms = (time.perf_counter() - t0) * 1e3
+    if sched.refresh_stats["delta"] != UPDATE_BURSTS + 1:
+        raise AssertionError("the profiled prepare did not take the delta path")
+    events = device_events(prof)
+    log("delta_path", nodes=N_NODES, patched_nodes_per_burst=DELTA_NODES,
+        pods_per_burst=BURST_PODS, parity="ok", equal_to_full_prepare=True,
+        refresh_stats=stats, main_path_hit_prepare_median_ms=hit_prepare_ms,
+        profiled_prepare_wall_ms=prepare_wall_ms,
+        profiled_prepare_device_us=sum(us for _, us in events.values()),
+        profiled_prepare_device_events=events, launches=launches, **out)
+    return launches
+
+
+def annotator_sweep(store: NodeLoadStore, names: list, metric_names, rng, now: float,
+                    partial_metric=None) -> None:
+    """The annotator's direct-mode sweep: one ``bulk_set_by_name`` per
+    metric over ``names``, one shared timestamp, hot values with the first
+    metric; ``partial_metric`` leaves the last two nodes out."""
+    hot = rng.integers(0, 3, len(names)).astype(np.float64)
+    for k, metric in enumerate(metric_names):
+        cols = names[:-2] if metric == partial_metric else names
+        values = rng.uniform(0.0, 1.0, len(cols)).round(5)
+        if k == 0:
+            store.bulk_set_by_name(metric, cols, values, now, hot[: len(cols)], now)
+        else:
+            store.bulk_set_by_name(metric, cols, values, now)
+
+
+def phase_column_path(rng, now: float):
+    tensors = compile_policy(DEFAULT_POLICY)
+    store = NodeLoadStore(tensors)
+    names = [f"node-{i:05d}" for i in range(N_NODES)]
+    annotator_sweep(store, names, tensors.metric_names, rng, now - 30.0)
+    clock = Clock(now)
+    direct = dict(store=store, refresh_from_cluster=False)
+    sched = BatchScheduler(ClusterState(), DEFAULT_POLICY, dtype=torch.float32, clock=clock,
+                           **direct)
+    partial = tensors.metric_names[1]
+    reset_launches()
+    out = run_update_bursts(
+        sched, clock,
+        lambda k, t: annotator_sweep(store, names, tensors.metric_names, rng, t,
+                                     partial_metric=partial if k == 4 else None),
+        "column",
+    )
+    stats = dict(sched.refresh_stats)
+    if stats["columns"] != UPDATE_BURSTS or stats["full"] != 1:
+        raise AssertionError(f"column path: refresh_stats {stats}")
+    same_as_full_prepare(sched, BatchScheduler(
+        ClusterState(), DEFAULT_POLICY, dtype=torch.float32, clock=clock, **direct), "column")
+    launches = read_launches("column path")
+    log("column_path", nodes=N_NODES, sweeps=UPDATE_BURSTS, partial_sweep=4,
+        pods_per_burst=BURST_PODS, parity="ok", equal_to_full_prepare=True,
+        refresh_stats=stats, launches=launches, **out)
+    return launches, store, clock.t
+
+
+def phase_overlap(sched: BatchScheduler, clock: Clock, now: float) -> dict:
+    clock.t = now
+    sched.schedule_pod_burst("overlap", ["overlap-warm"], bind=False)  # absorb earlier patches
+    reset_launches()
+    runs, placements = {}, {}
+    for mode, kw in (("blocking", {}),
+                     ("overlapped", {"overlap_refresh": True, "overlap_bind": True})):
+        bursts = [("overlap", [f"{mode}{k}-{i}" for i in range(BURST_PODS // 4)])
+                  for k in range(4)]
+        hits = sched.refresh_stats["overlap_hits"]
+        results, marks = [], []
+        t0 = time.perf_counter()
+        for result in sched.schedule_bursts_pipelined(bursts, depth=4, **kw):
+            results.append(result)
+            marks.append(time.perf_counter())
+        t_end = time.perf_counter()  # after the loop's teardown flushed the binds
+        for result in results:  # consumed: every bind has settled
+            placed = int((np.asarray(result.node_idx) >= 0).sum())
+            if (result.bound_rows is None or len(result.bound_rows) != placed
+                    or placed != BURST_PODS // 4):
+                raise AssertionError(f"overlap ({mode}): a result did not settle")
+        placements[mode] = [np.asarray(r.node_idx) for r in results]
+        runs[mode] = {
+            "wall_ms_total": (t_end - t0) * 1e3,
+            "ms_between_results": [(b - a) * 1e3 for a, b in zip([t0, *marks], marks)],
+            "overlap_hits": sched.refresh_stats["overlap_hits"] - hits,
+            "bind_flush": sched.bind_flush_stats,
+        }
+    for a, b in zip(placements["blocking"], placements["overlapped"]):
+        if not np.array_equal(a, b):
+            raise AssertionError("overlapped placements != blocking placements")
+    launches = read_launches("overlap")
+    log("overlap", nodes=N_NODES, pipelined_bursts=4, pods_per_burst=BURST_PODS // 4,
+        depth=4, identical=True, settled=True, launches=launches, **runs)
+    return launches
+
+
+def phase_hybrid_scorer(store: NodeLoadStore, now: float) -> dict:
+    tensors = store.tensors
+    snap = store.snapshot(bucket=2048)
+    args = (snap.values, snap.ts, snap.hot_value, snap.hot_ts, snap.node_valid, now)
+    hybrid = HybridScorer(tensors)
+    hybrid(*args)  # warm
+    reset_launches()
+    t0 = time.perf_counter()
+    got = hybrid(*args)
+    hybrid_ms = (time.perf_counter() - t0) * 1e3
+    launches = read_launches("hybrid scorer", need=("score",))
+    want = BatchedScorer(tensors, dtype=torch.float64)(*args)
+    if not (np.array_equal(got.schedulable, want.schedulable.cpu().numpy())
+            and np.array_equal(got.scores, want.scores.cpu().numpy())):
+        raise AssertionError("HybridScorer != BatchedScorer(float64)")
+    log("hybrid_scorer", nodes=snap.n_nodes, padded=snap.values.shape[0], equal_to_f64=True,
+        rescored=got.rescored, host_ms=hybrid_ms, launches=launches)
+    return launches
+
+
 # per kernel in the `kernels` line: `ms` is the kernel's own device time
 KERNEL_KEYS = ("ms", "plain_ms", "bound_ms", "bound_by", "device_us", "bound_us",
                "pct_of_bound", "host_launch_ms", "device_launches_seen")
@@ -531,8 +802,16 @@ def main() -> int:
     rng = np.random.default_rng(SEED)
     k1 = phase_k1(dev, rng)
     k2 = phase_k2(dev, rng)
-    launches, sched, clock, last_now = phase_main_path(rng)
+    launches, sched, clock, last_now, hit_prepare_ms = phase_main_path(rng)
     phase_profile(sched, clock, last_now)
+    by_path = {"main_path": launches}
+    # the delta path scores the main path's cluster over the main path's
+    # clock range, where the unpatched rows' stamps are far from expiry
+    # (the hit path's conditions); its own fresh scheduler starts at NOW
+    by_path["delta_path"] = phase_delta_path(sched.cluster, rng, NOW, hit_prepare_ms)
+    by_path["column_path"], store, column_now = phase_column_path(rng, last_now + 24.0)
+    by_path["overlap"] = phase_overlap(sched, clock, last_now + 24.0)
+    by_path["hybrid_scorer"] = phase_hybrid_scorer(store, column_now)
 
     kernels = [
         {
@@ -540,6 +819,7 @@ def main() -> int:
             "source": "crane_scheduler_tpu_torch/csrc/score_kernel.cu",
             "replaces": "crane_scheduler_tpu/scorer/pallas_kernel.py:140",
             "launches": launches["score"], "max_abs_err": k1["max_abs_err"],
+            "launches_by_path": {p: c["score"] for p, c in by_path.items()},
             **{k: k1[k] for k in KERNEL_KEYS}, "library_ms": None,
         },
         {
@@ -547,6 +827,7 @@ def main() -> int:
             "source": "crane_scheduler_tpu_torch/csrc/gang_totals.cu",
             "replaces": "crane_scheduler_tpu/scorer/pallas_gang.py:142",
             "launches": launches["gang"], "max_abs_err": k2["max_abs_err"],
+            "launches_by_path": {p: c["gang"] for p, c in by_path.items() if c["gang"]},
             **{k: k2[k] for k in KERNEL_KEYS}, "library_ms": None,
         },
     ]

@@ -1,12 +1,14 @@
 """In-memory cluster state: the framework's kube-apiserver stand-in.
 
 Counterpart of ``crane_scheduler_tpu/cluster/state.py``, cut to what the
-burst-scheduling path reads and writes: nodes with annotations, pods as
-objects or as columnar bursts, binds that stamp ``Scheduled`` events into
-a bounded log, and the ``sched_version`` counter. Event subscriptions,
-the dirty-name and pod-change journals, the columnar annotation overlay
-and the kube mirror's bulk transactions come with the slices that read
-them.
+burst-scheduling path reads and writes: nodes with annotations, the
+annotator's patch primitives (single, bulk, columnar through a lazy
+overlay, and column groups), pods as objects or as columnar bursts, binds
+that stamp ``Scheduled`` events into a bounded log, and the
+``sched_version``, ``node_version`` and ``node_set_version`` counters.
+Event subscriptions, the dirty-name and pod-change journals, the shard
+fences and the kube mirror's bulk transactions come with the slices that
+read them.
 
 The reference coordinates its two processes exclusively through the
 Kubernetes API — the controller JSON-patches node annotations
@@ -89,6 +91,21 @@ class ClusterState:
     def __init__(self):
         self._lock = threading.RLock()
         self._nodes: dict[str, Node] = {}
+        # Lazy annotation overlay: columnar patches append segments
+        # (names, pos, {key: values}, dead) holding the sweep's column
+        # lists by reference, so a 50k-node flush is O(keys) bookkeeping.
+        # ``pos`` is a name->row map cached per names-list object. Reads
+        # fold lazily (list_nodes folds everything). Writes of another
+        # style (add_node, delete_node, single/bulk dict patches) mark the
+        # name ``dead`` in every existing segment so a stale column value
+        # never shadows a newer authoritative write.
+        self._anno_segments: list[
+            tuple[list[str], dict[str, int], dict[str, list[str]], set]
+        ] = []
+        self._names_pos_cache: tuple[list[str], dict[str, int]] | None = None
+        self._node_set_version = 0
+        # bumps on node mutations only (membership or annotations)
+        self._node_version = 0
         self._pods: dict[str, Pod] = {}
         # per-node bound-pod key index (insertion-ordered)
         self._pods_by_node: dict[str, dict[str, None]] = {}
@@ -118,21 +135,168 @@ class ClusterState:
         with self._lock:
             return self._sched_version
 
+    @property
+    def node_set_version(self) -> int:
+        """Bumps only on node add/delete, not on annotation patches."""
+        with self._lock:
+            return self._node_set_version
+
+    @property
+    def node_version(self) -> int:
+        """Bumps on any node change (membership or annotations) and on
+        nothing else."""
+        with self._lock:
+            return self._node_version
+
     # -- nodes -------------------------------------------------------------
+
+    def _drop_overlay_locked(self, name: str) -> None:
+        """A newer authoritative write for ``name`` supersedes every
+        existing segment's values for it; later segments apply again."""
+        for seg in self._anno_segments:
+            seg[3].add(name)
+
+    def _pos_for_locked(self, names: list[str]) -> dict[str, int]:
+        cache = self._names_pos_cache
+        if cache is None or cache[0] is not names:
+            # keyed on object identity; the strong ref keeps the id stable
+            cache = (names, {n: i for i, n in enumerate(names)})
+            self._names_pos_cache = cache
+        return cache[1]
+
+    def _merged_annotations_locked(self, node: Node):
+        """Node's annotations with the overlay applied; the node's own
+        mapping when the overlay has nothing for it."""
+        merged = None
+        name = node.name
+        for _names, pos, cols, dead in self._anno_segments:
+            if name in dead:
+                continue
+            i = pos.get(name)
+            if i is None:
+                continue
+            if merged is None:
+                merged = dict(node.annotations)
+            for key, values in cols.items():
+                merged[key] = values[i]
+        return merged if merged is not None else node.annotations
+
+    def _fold_overlay_locked(self) -> None:
+        """Materialize every overlay segment into the node objects (paid
+        once per full read instead of every flush)."""
+        if not self._anno_segments:
+            return
+        segments, self._anno_segments = self._anno_segments, []
+        nodes = self._nodes
+        for name, node in nodes.items():
+            anno = None
+            for _names, pos, cols, dead in segments:
+                if name in dead:
+                    continue
+                i = pos.get(name)
+                if i is None:
+                    continue
+                if anno is None:
+                    anno = dict(node.annotations)
+                for key, values in cols.items():
+                    anno[key] = values[i]
+            if anno is not None:
+                nodes[name] = replace(node, annotations=anno)
 
     def add_node(self, node: Node) -> None:
         with self._lock:
+            prev = self._nodes.get(node.name)
+            # the incoming object is authoritative: stale overlay values
+            # must not shadow it
+            self._drop_overlay_locked(node.name)
             self._nodes[node.name] = node
             self._sched_version += 1
+            self._node_version += 1
+            if prev is None:
+                self._node_set_version += 1
 
     def delete_node(self, name: str) -> None:
         with self._lock:
             self._nodes.pop(name, None)
+            self._drop_overlay_locked(name)
             self._sched_version += 1
+            self._node_version += 1
+            self._node_set_version += 1
 
     def list_nodes(self) -> list[Node]:
         with self._lock:
+            self._fold_overlay_locked()
             return list(self._nodes.values())
+
+    def patch_node_annotation(self, name: str, key: str, value: str) -> bool:
+        """The annotator's write primitive: one (node, key) annotation.
+        The node's map is replaced, so ``bulk_ingest``'s identity skip
+        sees the change."""
+        with self._lock:
+            node = self._nodes.get(name)
+            if node is None:
+                return False
+            anno = dict(self._merged_annotations_locked(node))
+            anno[key] = value
+            self._drop_overlay_locked(name)
+            self._nodes[name] = replace(node, annotations=anno)
+            self._sched_version += 1
+            self._node_version += 1
+            return True
+
+    def patch_node_annotations_bulk(self, per_node: Mapping[str, Mapping[str, str]]) -> int:
+        """Batch annotation patch: one lock hold and one new map per node
+        for a whole sweep's writes. Returns the patched count; missing
+        nodes are skipped like ``patch_node_annotation``'s False."""
+        patched = 0
+        with self._lock:
+            nodes = self._nodes
+            has_overlay = bool(self._anno_segments)
+            for name, kv in per_node.items():
+                node = nodes.get(name)
+                if node is None:
+                    continue
+                if has_overlay:
+                    anno = dict(self._merged_annotations_locked(node))
+                    self._drop_overlay_locked(name)
+                else:
+                    anno = dict(node.annotations)
+                anno.update(kv)
+                nodes[name] = replace(node, annotations=anno)
+                self._sched_version += 1
+                patched += 1
+            if patched:
+                self._node_version += 1
+        return patched
+
+    def patch_node_annotations_columns(
+        self, names: list[str], columns: Mapping[str, list[str]]
+    ) -> int:
+        """Columnar batch patch: every column in ``columns`` is aligned
+        with ``names``. Lands in the lazy overlay as an O(keys) segment
+        append or merge; readers fold it. Returns the submitted row count;
+        rows for unknown nodes are dropped at fold time."""
+        with self._lock:
+            segments = self._anno_segments
+            if segments and segments[-1][0] is names and not segments[-1][3]:
+                # steady state: same names object, no tombstones
+                segments[-1][2].update(columns)
+            else:
+                segments.append((names, self._pos_for_locked(names), dict(columns), set()))
+                if len(segments) > 8:
+                    # churning node sets or tombstones: bound the read cost
+                    self._fold_overlay_locked()
+            self._sched_version += len(names)
+            self._node_version += 1
+        return len(names)
+
+    def patch_node_annotation_groups(self, groups) -> int:
+        """Apply several aligned column groups (``[(names, {key:
+        values}), ...]``), each as an overlay segment."""
+        patched = 0
+        for names, columns in groups:
+            patched += self.patch_node_annotations_columns(names, columns)
+        return patched
 
     # -- pods --------------------------------------------------------------
 

@@ -1,7 +1,11 @@
 """Columnar node-load state: the HBM-resident node-by-metric tensor.
 
 Copy of ``crane_scheduler_tpu/loadstore/store.py``; annotation batches
-decode through ``codec.bulk_decode_annotations`` (the numpy codec).
+decode through ``codec.bulk_decode_annotations`` (the numpy codec). With
+the version and layout bookkeeping that lets a resident device snapshot
+follow the store by row deltas (``delta_since``) or by replaying
+whole-column writes (``column_delta_since``, fed by ``bulk_set_by_name``,
+the annotator's direct-mode sweep shape).
 
 The reference's scoring inputs live as per-node annotation strings patched
 one (node, metric) at a time (ref: pkg/controller/annotator/node.go:123-146)
@@ -66,9 +70,11 @@ class DeviceSnapshot:
     node_valid: np.ndarray  # [Npad] bool
     n_nodes: int
     node_names: tuple[str, ...]
-    # store version the snapshot was taken at (-1 = synthetic snapshot):
-    # the resident device copy keys on this
+    # store version and layout version the snapshot was taken at, read
+    # under the same lock hold as the data (-1 = synthetic snapshot): the
+    # resident device copy keys on both
     version: int = -1
+    layout_version: int = -1
 
 
 class NodeLoadStore:
@@ -96,16 +102,98 @@ class NodeLoadStore:
         # snapshot keys on this, so an unchanged store costs zero
         # host->device traffic per cycle
         self._version = 0
+        # delta-upload support: which version last touched each row, and
+        # a separate counter for layout changes (row <-> name mapping) —
+        # value edits can upload as row deltas, layout changes cannot
+        self._row_versions = np.zeros((cap,), dtype=np.int64)
+        self._layout_version = 0
+        # column-write log (see _COLUMN_LOG_CAP): entries
+        # (pre_version, post_version, col_or_None, ids, values_or_None,
+        #  ts_or_None, hot_values_or_None, hot_ts_or_None). A consumer
+        # needs a contiguous pre/post chain from its version to the
+        # current one: any other mutation breaks the chain by
+        # construction, so no invalidation hooks are needed.
+        self._column_log: list[tuple] = []
+        # (names list identity, layout_version, ids): bulk_set_by_name's
+        # name->row resolution for the annotator's cached sweep list
+        self._ids_cache: tuple | None = None
+
+    # bulk_set_by_name appends one entry per call so a device snapshot can
+    # replay whole-column writes instead of re-uploading full matrices
+    _COLUMN_LOG_CAP = 128
 
     @property
     def version(self) -> int:
         """Bumped by every mutation that can change snapshot contents."""
         return self._version
 
+    @property
+    def layout_version(self) -> int:
+        """Bumped when the row <-> node-name mapping changes (add/remove);
+        a device-resident snapshot can only delta-update while this is
+        stable."""
+        return self._layout_version
+
+    def _touch(self, row: int) -> None:
+        """Record that ``row`` changed at the current version (callers
+        hold the lock and have already bumped ``_version``)."""
+        self._row_versions[row] = self._version
+
+    @_locked
+    def column_delta_since(self, version: int):
+        """Column-write replay from ``version`` to the current version:
+        ``(current_version, layout_version, entries)`` where each entry is
+        ``(col_or_None, ids, values_or_None, ts_or_None,
+        hot_values_or_None, hot_ts_or_None)`` in application order, or
+        ``None`` when the interval is not exactly covered by logged
+        ``bulk_set_by_name`` calls."""
+        if version == self._version:
+            return self._version, self._layout_version, []
+        start = None
+        for k, entry in enumerate(self._column_log):
+            if entry[0] == version:
+                start = k
+                break
+        if start is None:
+            return None
+        chain = []
+        expect = version
+        for entry in self._column_log[start:]:
+            if entry[0] != expect:
+                return None
+            chain.append(entry[2:])
+            expect = entry[1]
+        if expect != self._version:
+            return None
+        return self._version, self._layout_version, chain
+
+    @_locked
+    def delta_since(self, version: int):
+        """Rows whose contents changed after ``version``, with their
+        current data, all under one lock hold: ``(current_version,
+        layout_version, row_ids, values[k, M], ts[k, M], hot_value[k],
+        hot_ts[k])``. Valid for delta-uploading a device snapshot taken at
+        ``version`` only while the layout version is unchanged (the caller
+        checks). The arrays are fresh copies."""
+        ids = np.nonzero(self._row_versions[: self._n] > version)[0].astype(np.int64)
+        return (
+            self._version,
+            self._layout_version,
+            ids,
+            self.values[ids],
+            self.ts[ids],
+            self.hot_value[ids],
+            self.hot_ts[ids],
+        )
+
     # -- node membership ---------------------------------------------------
 
     def __len__(self) -> int:
         return self._n
+
+    @property
+    def node_names(self) -> tuple[str, ...]:
+        return tuple(self._names)
 
     @_locked
     def add_node(self, name: str) -> int:
@@ -122,6 +210,8 @@ class NodeLoadStore:
         self.hot_value[i] = np.nan
         self.hot_ts[i] = _NEG_INF
         self._version += 1
+        self._layout_version += 1
+        self._touch(i)
         return i
 
     @_locked
@@ -143,6 +233,10 @@ class NodeLoadStore:
         self._names.pop()
         self._n = last
         self._version += 1
+        self._layout_version += 1
+        self._row_versions[last] = 0
+        if i != last:
+            self._touch(i)  # row i now holds the moved node's data
 
     def _grow(self, new_cap: int) -> None:
         m = self.tensors.num_metrics
@@ -151,6 +245,7 @@ class NodeLoadStore:
             ("ts", _NEG_INF, (new_cap, m)),
             ("hot_value", np.nan, (new_cap,)),
             ("hot_ts", _NEG_INF, (new_cap,)),
+            ("_row_versions", 0, (new_cap,)),
         ):
             old = getattr(self, attr)
             new = np.full(shape, fill, dtype=old.dtype)
@@ -161,10 +256,112 @@ class NodeLoadStore:
     # -- writes ------------------------------------------------------------
 
     @_locked
+    def set_metric(
+        self, node: str, metric: str, value: float, ts: float,
+        create: bool = True,
+    ) -> None:
+        """One (node, metric) write. ``create=False`` drops the write when
+        the node has no row (a writer racing ``prune_absent`` must not
+        resurrect a deleted node)."""
+        i = self._index.get(node)
+        if i is None:
+            if not create:
+                return
+            i = self.add_node(node)
+        self._last_anno.pop(node, None)
+        col = self.tensors.metric_index.get(metric)
+        if col is None:
+            return  # metric not referenced by the policy: ignore
+        self.values[i, col] = value
+        self.ts[i, col] = ts
+        self._version += 1
+        self._touch(i)
+
+    @_locked
+    def set_hot_value(
+        self, node: str, value: float, ts: float, create: bool = True
+    ) -> None:
+        i = self._index.get(node)
+        if i is None:
+            if not create:
+                return
+            i = self.add_node(node)
+        self._last_anno.pop(node, None)
+        self.hot_value[i] = value
+        self.hot_ts[i] = ts
+        self._version += 1
+        self._touch(i)
+
+    @_locked
+    def bulk_set_by_name(
+        self,
+        metric: str,
+        names: list[str],
+        values: np.ndarray,
+        ts: float | np.ndarray,
+        hot_values: np.ndarray | None = None,
+        hot_ts: float | np.ndarray | None = None,
+    ) -> None:
+        """Atomic by-name column write: name->row resolution (adding
+        missing nodes) and the metric/hot writes happen under one lock
+        hold, so a concurrent ``prune_absent`` can never redirect a
+        resolved id to another node's row. A write that kept the layout
+        is logged for ``column_delta_since``."""
+        index = self._index
+        pre_version = self._version
+        pre_layout = self._layout_version
+        # a sweep passes the same cached name list once per metric:
+        # resolve name->row once per (list identity, layout)
+        cached = self._ids_cache
+        if cached is not None and cached[0] is names and cached[1] == pre_layout:
+            ids = cached[2]
+        else:
+            ids = np.asarray(
+                [i if (i := index.get(n)) is not None else self.add_node(n) for n in names],
+                dtype=np.int64,
+            )
+            if isinstance(names, list):
+                self._ids_cache = (names, self._layout_version, ids)
+        wrote = False
+        col = self.tensors.metric_index.get(metric)
+        if col is not None and len(ids):
+            self.values[ids, col] = values
+            self.ts[ids, col] = ts
+            self._version += 1
+            wrote = True
+        if hot_values is not None and len(ids):
+            self.hot_value[ids] = hot_values
+            self.hot_ts[ids] = hot_ts
+            self._version += 1
+            wrote = True
+        if not wrote:
+            return
+        self._row_versions[ids] = self._version
+        if pre_layout != self._layout_version:
+            return  # the write added nodes: not replayable
+
+        def column(a):
+            return np.broadcast_to(np.asarray(a, np.float64), ids.shape).copy()
+
+        self._column_log.append((
+            pre_version,
+            self._version,
+            col,
+            ids,
+            column(values) if col is not None else None,
+            column(ts) if col is not None else None,
+            column(hot_values) if hot_values is not None else None,
+            column(hot_ts) if hot_values is not None else None,
+        ))
+        if len(self._column_log) > self._COLUMN_LOG_CAP:
+            del self._column_log[0]
+
+    @_locked
     def ingest_node_annotations(self, node: str, anno: Mapping[str, str] | None) -> None:
         """Ingest one node's full annotation map (the parity read path):
-        exactly ``bulk_ingest([(node, anno)])`` without the identity
-        skip."""
+        ``add_node`` then ``bulk_ingest([(node, anno)])`` without the
+        identity skip, with the reference's version bookkeeping."""
+        self.add_node(node)
         self._last_anno.pop(node, None)
         self.bulk_ingest([(node, anno)])
         # a later bulk_ingest must re-read the node whatever map it brings
@@ -196,6 +393,7 @@ class NodeLoadStore:
         rows: list[int] = []
         cols: list[int] = []  # -1 == hot value
         touched: list[int] = []
+        added = False
         for name, anno in items:
             i = index.get(name)
             if i is None:
@@ -206,6 +404,7 @@ class NodeLoadStore:
                 self._n += 1
                 self._names.append(name)
                 index[name] = i
+                added = True
             elif last.get(name) is anno:
                 continue
             last[name] = anno
@@ -219,11 +418,14 @@ class NodeLoadStore:
         if not touched:
             return
         self._version += 1
+        if added:
+            self._layout_version += 1
         t_idx = np.asarray(touched, dtype=np.int64)
         self.values[t_idx] = np.nan
         self.ts[t_idx] = _NEG_INF
         self.hot_value[t_idx] = np.nan
         self.hot_ts[t_idx] = _NEG_INF
+        self._row_versions[t_idx] = self._version
         if not raws:
             return
         values, ts = bulk_decode_annotations(raws)
@@ -261,4 +463,5 @@ class NodeLoadStore:
             n_nodes=n,
             node_names=tuple(self._names),
             version=self._version,
+            layout_version=self._layout_version,
         )

@@ -10,9 +10,19 @@ device->host fetch, already started.
 
 ``prepare`` uploads a store snapshot with one pinned, non-blocking copy
 per array; the hybrid risk scan runs on the host while those copies are
-in flight. ``with_overrides`` refreshes the rescue vectors for a later
-wall time against the same resident snapshot (full or incremental; the
-incremental path patches the device vectors with ``index_copy``).
+in flight. ``apply_delta`` (changed rows) and ``apply_columns`` (a replay
+of the store's whole-column writes) bring a resident snapshot up to date
+with a changed store without a full upload; ``with_overrides`` refreshes
+the rescue vectors for a later wall time or for the rows those updates
+touched (full or incremental; the incremental path patches the device
+vectors with ``index_copy``).
+
+Every update returns a new ``PreparedSnapshot`` and leaves the one it was
+given as it was (out-of-place ``index_copy``, or a private clone that is
+then written), as the reference's immutable arrays do: a pipelined loop
+may still hold cycles dispatched against an older snapshot. Scatters
+write exactly the changed rows; there is no padding to bound compiled
+variants, and so no out-of-range index.
 """
 
 from __future__ import annotations
@@ -169,6 +179,9 @@ class ScheduleStep:
 
     # -- uploads -----------------------------------------------------------
 
+    def _np_dtype(self):
+        return np.float64 if self.scorer.dtype == torch.float64 else np.float32
+
     def _upload(self, arr: np.ndarray) -> torch.Tensor:
         """One host array to the device: a pinned, non-blocking copy on
         CUDA; a private copy on the CPU (snapshots are mutable hosts)."""
@@ -182,13 +195,12 @@ class ScheduleStep:
         once per refresh; the step then reruns against the resident
         tensors for any pod batch. Capacity is unbounded (1 << 30 per
         node) and offsets are zero: the plain Dynamic-score domain."""
-        f64 = self.scorer.dtype == torch.float64
-        np_dtype = np.float64 if f64 else np.float32
+        np_dtype = self._np_dtype()
         ts = np.asarray(snapshot.ts, np.float64)
         hot_ts = np.asarray(snapshot.hot_ts, np.float64)
         now_value = float(now)
         epoch = 0.0
-        if not f64:
+        if np_dtype != np.float64:
             epoch = now_value  # exact in f64; deltas small enough for f32
             ts = ts - epoch
             hot_ts = hot_ts - epoch
@@ -231,18 +243,20 @@ class ScheduleStep:
             "ovr_rescan_rows": scanned,
         }
 
-    def with_overrides(self, prepared: PreparedSnapshot, snapshot, now: float) -> PreparedSnapshot:
+    def with_overrides(self, prepared: PreparedSnapshot, snapshot, now: float,
+                       force: bool = False, dirty_rows=None) -> PreparedSnapshot:
         """Refresh the hybrid rescue vectors for a new wall time against
-        the same resident snapshot (the store is unchanged). No-op for
-        non-hybrid steps or when the overrides are current for ``now``.
+        the same resident snapshot. No-op for non-hybrid steps or (unless
+        ``force``) when the overrides are current for ``now``.
 
-        With the snapshot's incremental cache only rows whose cached
-        verdict can flip with the clock are rescanned, and those rows are
-        copied into new device vectors with ``index_copy``; without one
-        the scan and the upload are full. Past ``EPOCH_REBASE_SECONDS``
-        of snapshot age the timestamps are re-uploaded rebased around
-        ``now``."""
-        if not self.hybrid or prepared.ovr_now == float(now):
+        With the snapshot's incremental cache, only rows whose inputs
+        changed (``dirty_rows``: the rows of a delta or column update;
+        ``force`` with ``dirty_rows=None`` means unknown changes and a
+        full rescan) or whose cached verdict can flip with the clock are
+        rescanned, and those rows are copied into new device vectors with
+        ``index_copy``. Past ``EPOCH_REBASE_SECONDS`` of snapshot age the
+        timestamps are re-uploaded rebased around ``now``."""
+        if not self.hybrid or (not force and prepared.ovr_now == float(now)):
             return prepared
         age = abs(float(now) - prepared.epoch)
         if age > EPOCH_REBASE_SECONDS:  # hybrid is always non-f64
@@ -257,14 +271,21 @@ class ScheduleStep:
                 epoch=float(now),
                 **self._override_vectors(snapshot, float(now), rebase_age=0.0),
             )
+        cache = prepared.ovr_cache if prepared.ovr_mask is not None else None
+        if force and dirty_rows is None:
+            cache = None  # unknown mutations: a full rescan is required
+        if cache is None:
+            return dataclasses.replace(
+                prepared, **self._override_vectors(snapshot, float(now), rebase_age=age)
+            )
         mask, sched, score, changed, new_cache, scanned = (
             compute_overrides_incremental(
                 self.tensors, snapshot.values, snapshot.ts, snapshot.hot_value,
                 snapshot.hot_ts, snapshot.node_valid, float(now),
-                cache=prepared.ovr_cache, rebase_age=age,
+                cache=cache, dirty_rows=dirty_rows, rebase_age=age,
             )
         )
-        if changed is None:  # no usable cache: full scan, full re-upload
+        if changed is None:  # the cache was rebuilt: full re-upload
             return dataclasses.replace(
                 prepared,
                 ovr_mask=self._upload(mask),
@@ -288,6 +309,89 @@ class ScheduleStep:
             ),
             ovr_now=float(now), ovr_cache=new_cache, ovr_rescan_rows=scanned,
         )
+
+    # -- resident-snapshot updates -----------------------------------------
+
+    def apply_delta(self, prepared: PreparedSnapshot, rows, values_rows, ts_rows,
+                    hot_rows, hot_ts_rows) -> PreparedSnapshot:
+        """Scatter changed rows into new copies of the resident arrays
+        instead of re-uploading full matrices. Timestamps rebase to the
+        snapshot's existing epoch (in float64 on the host, then cast), so
+        the result equals a full ``prepare`` of the updated store at the
+        same epoch bit for bit. Hybrid callers must refresh their override
+        vectors afterwards: the rescue rows derive from the changed data."""
+        k = len(rows)
+        if k == 0:
+            return prepared
+        np_dtype = self._np_dtype()
+        up = self._upload
+        idx = up(np.asarray(rows, dtype=np.int64))
+        ts_rows = np.asarray(ts_rows, np.float64) - prepared.epoch
+        hot_ts_rows = np.asarray(hot_ts_rows, np.float64) - prepared.epoch
+        return dataclasses.replace(
+            prepared,
+            values=prepared.values.index_copy(0, idx, up(np.asarray(values_rows, np_dtype))),
+            ts=prepared.ts.index_copy(0, idx, up(ts_rows.astype(np_dtype))),
+            hot_value=prepared.hot_value.index_copy(0, idx, up(np.asarray(hot_rows, np_dtype))),
+            hot_ts=prepared.hot_ts.index_copy(0, idx, up(hot_ts_rows.astype(np_dtype))),
+        )
+
+    def apply_columns(self, prepared: PreparedSnapshot, entries, n: int) -> PreparedSnapshot:
+        """Replay a store column-write log (``NodeLoadStore.
+        column_delta_since``) against the resident arrays: a whole-column
+        write uploads one [N] vector per touched column (its timestamps as
+        one scalar when they are uniform), a partial one scatters its
+        rows. Timestamps rebase to the snapshot's epoch. Scores and
+        verdicts equal a full ``prepare`` of the updated store at the same
+        epoch; pad rows may differ (a uniform timestamp stamps them too,
+        a whole hot-value write pads with NaN), and they never score."""
+        np_dtype = self._np_dtype()
+        up = self._upload
+        npad = int(prepared.capacity.shape[0])
+        own: dict = {}
+
+        def private(name):
+            # one copy of each touched array per replay, then written in place
+            t = own.get(name)
+            if t is None:
+                t = own[name] = getattr(prepared, name).clone()
+            return t
+
+        for col, ids, v, t, hv, ht in entries:
+            full = len(ids) == n and np.array_equal(ids, np.arange(n, dtype=ids.dtype))
+            idx = None if full else up(np.asarray(ids, dtype=np.int64))
+            if col is not None:
+                values, ts = private("values"), private("ts")
+                t64 = np.asarray(t, np.float64) - prepared.epoch
+                if full:
+                    v_pad = np.full((npad,), np.nan)
+                    v_pad[:n] = v
+                    values[:, col] = up(v_pad.astype(np_dtype))
+                    if t64.size and np.all(t64 == t64[0]):
+                        # one scalar, rounded to the dtype on the host
+                        ts[:, col] = float(np_dtype(t64[0]))
+                    else:
+                        t_pad = np.full((npad,), -np.inf)
+                        t_pad[:n] = t64
+                        ts[:, col] = up(t_pad.astype(np_dtype))
+                else:
+                    values[idx, col] = up(np.asarray(v, np_dtype))
+                    ts[idx, col] = up(t64.astype(np_dtype))
+            if hv is not None:
+                ht64 = np.asarray(ht, np.float64) - prepared.epoch
+                if full:
+                    # fresh uploads: private already, nothing to clone
+                    h_pad = np.full((npad,), np.nan)
+                    h_pad[:n] = hv
+                    ht_pad = np.full((npad,), -np.inf)
+                    ht_pad[:n] = ht64
+                    own["hot_value"] = up(h_pad.astype(np_dtype))
+                    own["hot_ts"] = up(ht_pad.astype(np_dtype))
+                else:
+                    hot, hot_ts = private("hot_value"), private("hot_ts")
+                    hot[idx] = up(np.asarray(hv, np_dtype))
+                    hot_ts[idx] = up(ht64.astype(np_dtype))
+        return dataclasses.replace(prepared, **own) if own else prepared
 
     # -- calls -------------------------------------------------------------
 

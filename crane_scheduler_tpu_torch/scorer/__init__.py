@@ -10,6 +10,8 @@ from .oracle import (
 )
 from .batched import BatchedScorer, ScoreResult
 from .hybrid import (
+    HybridResult,
+    HybridScorer,
     OverrideCache,
     compute_overrides,
     compute_overrides_incremental,
@@ -19,6 +21,8 @@ from .topk import GangScheduler, gang_assign_host, gang_assign_oracle
 from .parity import ParityError, check_placement_parity
 
 __all__ = [
+    "HybridResult",
+    "HybridScorer",
     "OverrideCache",
     "compute_overrides",
     "compute_overrides_incremental",

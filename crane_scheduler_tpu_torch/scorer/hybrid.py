@@ -1,7 +1,10 @@
 """Hybrid scorer: float32 speed, float64 placement parity.
 
-The numpy parts of ``crane_scheduler_tpu/scorer/hybrid.py``: the risk
-scan, the exact f64 re-score and the override vectors. ``ScheduleStep``
+Counterpart of ``crane_scheduler_tpu/scorer/hybrid.py``: the risk scan,
+the exact f64 re-score, the override vectors (full and incremental, with
+the dirty rows of a delta or column upload) and ``HybridScorer``, whose
+float32 pass is ``BatchedScorer(torch.float32)`` (on CUDA tensors the
+fused kernel ``csrc/score_kernel.cu``). ``ScheduleStep``
 (``parallel/step.py``) substitutes the override rows on the device.
 
 The float32 fast path can disagree with the Go semantics only where a
@@ -32,7 +35,10 @@ extra host re-scores for a safety margin.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Any
+
 import numpy as np
+import torch
 
 from ..constants import (
     HOT_VALUE_ACTIVE_PERIOD_SECONDS,
@@ -40,6 +46,7 @@ from ..constants import (
     MIN_NODE_SCORE,
 )
 from ..policy.compile import PolicyTensors
+from .batched import BatchedScorer
 
 _CMP_TOL = 1e-4  # |usage - threshold| risk window
 _TRUNC_TOL = 1e-3  # distance-to-integer risk window for quotients
@@ -110,6 +117,13 @@ def score_rows_f64(
     score = (base - penalty).astype(np.int64)  # wraps like Go int64
     score = np.clip(score, MIN_NODE_SCORE, MAX_NODE_SCORE)
     return schedulable, score.astype(np.int32)
+
+
+@dataclass
+class HybridResult:
+    schedulable: Any
+    scores: Any
+    rescored: int  # rows that took the f64 path
 
 
 def risk_mask_f64(
@@ -315,6 +329,7 @@ class OverrideCache:
 def compute_overrides_incremental(
     tensors: PolicyTensors, values, ts, hot_value, hot_ts, node_valid, now,
     cache: OverrideCache | None = None,
+    dirty_rows=None,
     rebase_age: float = 0.0,
 ):
     """Incremental twin of ``compute_overrides``.
@@ -325,8 +340,8 @@ def compute_overrides_incremental(
     have changed), the refreshed cache, and the number of rows scanned.
 
     With a ``cache`` from an earlier call over the SAME array identity
-    chain (the store unchanged), only rows whose clock moved past their
-    margin are rescanned; the rest reuse bits
+    chain, only rows whose inputs changed (``dirty_rows``) or whose
+    clock moved past their margin are rescanned; the rest reuse bits
     that are provably identical to a full ``risk_mask_f64`` +
     ``score_rows_f64`` pass at this ``now``. The returned cache is a
     fresh copy-on-write object — snapshots holding the old cache stay
@@ -371,6 +386,8 @@ def compute_overrides_incremental(
         return ovr_mask, ovr_sched, ovr_score, None, cache, n
 
     need = np.abs(now_f - cache.now_ref) >= _MARGIN_SAFETY * cache.margin
+    if dirty_rows is not None and len(dirty_rows):
+        need[np.asarray(dirty_rows, dtype=np.int64)] = True
     need &= valid
     rows = np.flatnonzero(need)
     if rows.size == 0:
@@ -407,3 +424,38 @@ def compute_overrides_incremental(
     cache.margin[rows] = margin_r
     cache.now_ref[rows] = now_f
     return cache.mask, cache.sched, cache.score, rows, cache, int(rows.size)
+
+
+class HybridScorer:
+    """float32 batched pass + risk mask + exact f64 host re-score.
+
+    ``device=None`` means the GPU (the float32 pass launches the fused
+    score kernel); ``device="cpu"`` runs its plain version."""
+
+    def __init__(self, tensors: PolicyTensors, device=None):
+        self.tensors = tensors
+        self._f32 = BatchedScorer(tensors, dtype=torch.float32, device=device)
+
+    def __call__(self, values, ts, hot_value, hot_ts, node_valid, now) -> HybridResult:
+        now_f = float(now)
+        values64 = np.asarray(values, dtype=np.float64)
+        ts64 = np.asarray(ts, dtype=np.float64)
+        hot64 = np.asarray(hot_value, dtype=np.float64)
+        hot_ts64 = np.asarray(hot_ts, dtype=np.float64)
+        valid = np.asarray(node_valid, dtype=bool)
+        # BatchedScorer's f32 mode owns the rebase/downcast invariants
+        f32 = self._f32(values64, ts64, hot64, hot_ts64, valid, now_f)
+        schedulable = f32.schedulable.cpu().numpy()
+        scores = f32.scores.cpu().numpy()
+        risk = risk_mask_f64(self.tensors, values64, ts64, hot64, hot_ts64, now_f)
+        risky = np.nonzero(risk & valid)[0]
+        if len(risky):
+            sched64, score64 = score_rows_f64(
+                values64[risky], ts64[risky], hot64[risky], hot_ts64[risky],
+                now_f, self.tensors,
+            )
+            schedulable = schedulable.copy()
+            scores = scores.copy()
+            schedulable[risky] = sched64 & valid[risky]
+            scores[risky] = np.where(valid[risky], score64, 0)
+        return HybridResult(schedulable, scores, rescored=len(risky))
