@@ -57,11 +57,40 @@ non-zero without printing a result.
    consumed; overlap hits, bind-flush windows and wall ms per burst of both
    (no claim goes with them);
 10. hybrid_scorer: ``HybridScorer`` over the 50,000-node snapshot equals
-   ``BatchedScorer(torch.float64)`` exactly.
+   ``BatchedScorer(torch.float64)`` exactly;
+11. drip_window: the drip path's batched window ``_drip_batch`` on the card
+   equals the same function on CPU tensors, exactly (every int64 output and
+   the folded carry), at 50,000, 50,001 and 257 nodes, K = 128, with the tie
+   count on and off, over random inputs, no schedulable row, all rows at one
+   weight (the first pod's winner must be the first maximum) and padded
+   rows and pods; one window runs under ``torch.cuda.set_sync_debug_mode
+   ("error")``, so a host synchronisation inside it fails. Then its device
+   us, device kernels and host kernel-launch calls per window
+   (``torch.profiler`` over three windows) and the median host ms of ten
+   ``DripBatchKernel.dispatch`` calls with the carry kept;
+12. drip_queue: 50,000 nodes from seed 0 with the default policy's
+   annotations and allocatable {cpu 16, memory 64Gi, ephemeral-storage
+   100Gi, pods 110}, ``ResourceFitPlugin`` weight 1 and ``DynamicPlugin``
+   weight 3 on a fixed clock. One window of infeasible pods warms it; then
+   ``schedule_queue`` (window 128) places 4,096 pods of 100m cpu and 128Mi,
+   equal pod for pod to a twin cluster's per-pod columnar ``schedule_one``;
+   every pod binds and folds, no fallback, and the best nodes fill to their
+   110-pod cap. The line carries ms per pod, windows, uploads, and the
+   device busy and idle share of one more profiled window;
+13. drip_serve: the same storm through ``open_queue(window=32)``, one
+   ``offer`` per pod after 16 infeasible ones, the half-full tail dispatched
+   by ``drain``; placements equal drip_queue's;
+14. drip_scalar: at 2,000 nodes and 64 pods, the scalar plugin loop
+   (``columnar=False``) and ``schedule_queue`` on a scheduler from
+   ``build_scheduler_from_config`` place alike, unseeded and with a seeded
+   tie-break, where windows with ties replay per-pod (``replays > 0``) and
+   consume the seeded RNG as the scalar loop does.
 
-Before each path (main path, delta, column, overlap, hybrid scorer) the
-kernels' launch counters are set to 0, and after it each kernel the path
-runs must have launched; the ``kernels`` line lists the counts per path.
+Before each path (main path, delta, column, overlap, hybrid scorer, and the
+drip queue, serve and scalar phases) the kernels' launch counters are set
+to 0, and after it each kernel the path runs must have launched; the
+``kernels`` line lists the counts per path (the drip path runs neither
+kernel).
 
 A kernel's device time is the mean duration of its launches under
 ``torch.profiler`` over 200 back-to-back wrapper calls at the main path's
@@ -84,10 +113,28 @@ import time
 import numpy as np
 import torch
 
-from crane_scheduler_tpu_torch.cluster import ClusterState, Node
-from crane_scheduler_tpu_torch.framework.scheduler import BURST_STAGES, BatchScheduler
+from crane_scheduler_tpu_torch.cluster import (
+    ClusterState,
+    Container,
+    Node,
+    Pod,
+    ResourceRequirements,
+)
+from crane_scheduler_tpu_torch.config import (
+    PluginWeight,
+    SchedulerConfiguration,
+    SchedulerProfile,
+    build_scheduler_from_config,
+)
+from crane_scheduler_tpu_torch.fit import FitTracker, ResourceFitPlugin
+from crane_scheduler_tpu_torch.framework.scheduler import (
+    BURST_STAGES,
+    BatchScheduler,
+    Scheduler,
+)
 from crane_scheduler_tpu_torch.kernels import build_all
 from crane_scheduler_tpu_torch.loadstore import NodeLoadStore
+from crane_scheduler_tpu_torch.plugins import DynamicPlugin
 from crane_scheduler_tpu_torch.policy import DEFAULT_POLICY, compile_policy
 from crane_scheduler_tpu_torch.policy.types import (
     DynamicSchedulerPolicy,
@@ -96,7 +143,7 @@ from crane_scheduler_tpu_torch.policy.types import (
     PriorityPolicy,
     SyncPolicy,
 )
-from crane_scheduler_tpu_torch.scorer import gang_kernel, score_kernel
+from crane_scheduler_tpu_torch.scorer import drip_batch, gang_kernel, score_kernel
 from crane_scheduler_tpu_torch.scorer.batched import BatchedScorer, PolicyConstants, score_plain
 from crane_scheduler_tpu_torch.scorer.hybrid import HybridScorer
 from crane_scheduler_tpu_torch.scorer.parity import check_placement_parity
@@ -114,6 +161,15 @@ RAGGED = (50_001, 257, 1)  # node counts that leave a partial 256-thread block
 DEVICE_LAUNCHES = 200  # launches profiled per device-time measurement
 UPDATE_BURSTS = 10  # warm bursts of the delta and column paths
 DELTA_NODES = N_NODES // 100  # nodes each delta-path patch rewrites (1%)
+DRIP_WINDOW = 128  # schedule_queue's window (the batched drip benchmark's)
+DRIP_SERVE_WINDOW = 32  # open_queue's window (the scheduler CLI's)
+DRIP_PODS = 4096  # the drip storm
+DRIP_WINDOW_NODES = (N_NODES, 50_001, 257)
+DRIP_PROFILED_WINDOWS = 3  # windows per torch.profiler session (about 2,000 events each)
+DRIP_TIMED_DISPATCHES = 10
+DRIP_SCALAR_NODES = 2_000  # the scalar loop is O(plugins x nodes) per pod
+DRIP_SCALAR_PODS = 64
+DRIP_ALLOCATABLE = {"cpu": "16", "memory": "64Gi", "ephemeral-storage": "100Gi", "pods": "110"}
 
 # H100 SXM published rates (NVIDIA data sheet; dense, non-tensor paths)
 HBM_BYTES_PER_S = 3.35e12
@@ -779,6 +835,312 @@ def phase_hybrid_scorer(store: NodeLoadStore, now: float) -> dict:
     return launches
 
 
+# -- the drip path ---------------------------------------------------------------
+
+I64_MIN = int(np.iinfo(np.int64).min)
+
+
+def window_case(n: int, k: int, case: str, rng):
+    """One ``_drip_batch`` input set at the drip path's types: weighted
+    scores on the Dynamic plugin's scale (many ties), free rows in bytes
+    past int32, requests of three shapes. ``case``: "random", "infeasible"
+    (no row schedulable), "equal" (every row schedulable at one weight),
+    "padded" (the last 100 rows padding, the last 28 pods inactive, as the
+    reference's buckets pad)."""
+    schedulable = rng.random(n) < 0.8
+    weighted = rng.integers(0, 101, n).astype(np.int64) * 3
+    bounded = rng.random(n) < 0.9
+    free = np.stack([rng.integers(0, 16_001, n), rng.integers(0, 64 << 30, n),
+                     rng.integers(0, 100 << 30, n), rng.integers(0, 111, n)], axis=1)
+    vecs = np.stack([rng.choice([100, 500, 4000], k), rng.choice([128 << 20, 1 << 30, 40 << 30], k),
+                     np.zeros(k, np.int64), np.ones(k, np.int64)], axis=1)
+    active = np.ones(k, dtype=bool)
+    if case == "infeasible":
+        schedulable[:] = False
+    elif case == "equal":
+        schedulable[:] = True
+        weighted[:] = 150
+    elif case == "padded":
+        pad = min(100, n - 1)
+        schedulable[n - pad:] = False
+        weighted[n - pad:] = I64_MIN
+        bounded[n - pad:] = False
+        free[n - pad:] = 0
+        active[k - 28:] = False
+    return [schedulable, weighted, bounded, free.astype(np.int64), vecs.astype(np.int64), active]
+
+
+def first_choice(args) -> int:
+    """The first pod's winner by numpy: the first maximum, or -1."""
+    schedulable, weighted, bounded, free, vecs, _ = args
+    vec = vecs[0]
+    mask = schedulable & ~(bounded & ((vec > 0) & (free < vec)).any(axis=1))
+    return int(np.argmax(np.where(mask, weighted, I64_MIN))) if mask.any() else -1
+
+
+def profile_windows(fn, count: int) -> dict:
+    """``torch.profiler`` over ``count`` calls of ``fn`` (after one warm
+    call): device us, device kernel events and host kernel-launch calls per
+    call, and the records seen."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(count):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    device = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    busy_us = sum(e.self_device_time_total for e in device)
+    kernels = sum(e.count for e in device if not e.key.startswith("Memcpy")
+                  and not e.key.startswith("Memset"))
+    launches = sum(e.count for e in prof.key_averages() if e.key == "cudaLaunchKernel")
+    if not device:
+        raise AssertionError("the profiler saw no device time")
+    return {
+        "device_us": busy_us / count, "wall_us": wall_us / count,
+        "device_idle_share": 1 - busy_us / wall_us,
+        "device_events_seen": sum(e.count for e in device),
+        "device_kernels": kernels / count, "cuda_launch_kernel_calls": launches / count,
+        "top_device_us": [[e.key[:60], e.count, e.self_device_time_total]
+                          for e in sorted(device, key=lambda e: -e.self_device_time_total)[:5]],
+    }
+
+
+def phase_drip_window(dev) -> dict:
+    """``_drip_batch`` on the card against the same function on CPU tensors,
+    exactly: every int64 output and the folded carry."""
+    rng = np.random.default_rng(SEED)
+    checked = []
+    t_phase = time.perf_counter()
+    for n in DRIP_WINDOW_NODES:
+        for case in ("random", "infeasible", "equal", "padded"):
+            args = window_case(n, DRIP_WINDOW, case, rng)
+            for want_ties in (True, False):
+                host = [torch.from_numpy(a) for a in args]
+                outs_c, free_c = drip_batch._drip_batch(*host, want_ties=want_ties)
+                outs_d, free_d = drip_batch._drip_batch(*(t.to(dev) for t in host),
+                                                        want_ties=want_ties)
+                outs_d, free_d = outs_d.cpu(), free_d.cpu()
+                if not (torch.equal(outs_d, outs_c) and torch.equal(free_d, free_c)):
+                    raise AssertionError(f"_drip_batch on {dev} != CPU: {n} nodes, {case}, "
+                                         f"want_ties={want_ties}")
+                if int(outs_d[0, 0]) != first_choice(args):
+                    raise AssertionError(f"first pod's winner is not the first maximum: {case}")
+                if case == "infeasible" and not (outs_d[:, 0] == -1).all():
+                    raise AssertionError("a pod was placed with no schedulable row")
+                if case == "equal" and want_ties and int(outs_d[0, 2]) < 2:
+                    raise AssertionError("the all-equal case reported no tie")
+                checked.append([n, case, want_ties])
+    # timing at the queue's shape, carry kept as the scheduler keeps it
+    check_s = time.perf_counter() - t_phase
+    args = window_case(N_NODES, DRIP_WINDOW, "random", rng)
+    # the K-step loop never waits on the device: a synchronising call raises
+    dev_args = [torch.from_numpy(a).to(dev) for a in args]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        drip_batch._drip_batch(*dev_args, want_ties=True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    timing = {}
+    for want_ties in (False, True):
+        timing[f"want_ties_{want_ties}"] = profile_windows(
+            lambda: drip_batch._drip_batch(*dev_args, want_ties=want_ties), DRIP_PROFILED_WINDOWS)
+    kern = drip_batch.DripBatchKernel(device=dev)
+    schedulable, weighted, bounded, free, vecs, _ = args
+    host_ms = []
+    for _ in range(DRIP_TIMED_DISPATCHES + 1):
+        t0 = time.perf_counter()
+        chosen, _f, _t = kern.dispatch(schedulable, weighted, bounded, free, vecs, want_ties=False)
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        for i, c in enumerate(chosen):  # the scheduler's host fold replay
+            if c >= 0:
+                free[c] -= vecs[i]
+        kern.mark_synced(free)
+    if kern.free_uploads != 1:
+        raise AssertionError(f"the carry was uploaded {kern.free_uploads} times")
+    out = {
+        "nodes": list(DRIP_WINDOW_NODES), "k": DRIP_WINDOW, "cases": len(checked),
+        "equal_to_cpu": True, "first_max": True, "no_host_sync_in_window": True,
+        "device_us_per_window": timing["want_ties_False"]["device_us"],
+        "kernels_per_window": timing["want_ties_False"]["device_kernels"],
+        "host_ms_per_dispatch": statistics.median(host_ms[1:]),
+        "host_ms_per_dispatch_all": host_ms, "free_uploads": kern.free_uploads,
+        "check_s": check_s, "timing_s": time.perf_counter() - t_phase - check_s,
+        "profile": timing,
+    }
+    log("drip_window", **out)
+    return out
+
+
+def drip_cluster(annos) -> ClusterState:
+    cluster = ClusterState()
+    for name, anno in annos:
+        cluster.add_node(Node(name=name, annotations=dict(anno), allocatable=DRIP_ALLOCATABLE))
+    return cluster
+
+
+def drip_scheduler(cluster: ClusterState, dev, **kw) -> Scheduler:
+    """ResourceFit weight 1 and Dynamic weight 3 on a fixed clock."""
+    clock = lambda: NOW  # noqa: E731
+    sched = Scheduler(cluster, clock=clock, device=dev, **kw)
+    sched.register(ResourceFitPlugin(FitTracker(cluster)), weight=1)
+    sched.register(DynamicPlugin(DEFAULT_POLICY, clock=clock), weight=3)
+    return sched
+
+
+def storm(cluster: ClusterState, prefix: str, count: int, cpu: str = "100m") -> list:
+    pods = [Pod(name=f"{prefix}-{i:05d}", containers=(Container("c", ResourceRequirements(
+        requests={"cpu": cpu, "memory": "128Mi"})),)) for i in range(count)]
+    cluster.add_pods(pods)
+    return pods
+
+
+def placements(results) -> list:
+    return [(r.node, r.feasible) for r in results]
+
+
+def phase_drip_queue(dev, annos) -> tuple:
+    """``schedule_queue`` (window 128) over the storm against the per-pod
+    columnar ``schedule_one`` on a twin cluster, pod for pod."""
+    cluster = drip_cluster(annos)
+    sched = drip_scheduler(cluster, dev)
+    warm = sched.schedule_queue(storm(cluster, "warm", DRIP_WINDOW, cpu="100000"),
+                                window=DRIP_WINDOW)
+    if any(r.node for r in warm):
+        raise AssertionError("a warm-up pod was placed")
+    pre = sched.drip_stats()
+    pods = storm(cluster, "drip", DRIP_PODS)
+    reset_launches()
+    t0 = time.perf_counter()
+    results = sched.schedule_queue(pods, window=DRIP_WINDOW)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = read_launches("drip queue", need=())
+    stats = sched.drip_stats()
+    binds = sum(r.node is not None for r in results)
+    folds = stats["folds"] - pre["folds"]
+    if binds != DRIP_PODS or folds != binds or stats["fallbacks"]:
+        raise AssertionError(f"drip queue: {binds} binds, {folds} folds, "
+                             f"fallbacks {stats['fallbacks']}")
+    per_node = np.unique([r.node for r in results], return_counts=True)[1]
+    if per_node.max() != int(DRIP_ALLOCATABLE["pods"]):
+        raise AssertionError(f"no node filled to its pod cap: {per_node.max()}")
+
+    twin = drip_cluster(annos)
+    twin_sched = drip_scheduler(twin, dev)
+    t0 = time.perf_counter()
+    want = [twin_sched.schedule_one(p) for p in storm(twin, "drip", DRIP_PODS)]
+    perpod_ms = (time.perf_counter() - t0) * 1e3
+    if placements(results) != placements(want):
+        raise AssertionError("schedule_queue placements != per-pod columnar placements")
+
+    kern = sched._batch_kernel
+    windows = stats["batch"]["dispatches"] - pre["batch"]["dispatches"]
+    dispatch_s = stats["batch"]["kernel_seconds"][-windows:]
+    extra = iter(range(2))
+    prof = profile_windows(lambda: sched.schedule_queue(
+        storm(cluster, f"prof{next(extra)}", DRIP_WINDOW), window=DRIP_WINDOW), 1)
+    out = {
+        "nodes": len(annos), "pods": DRIP_PODS, "window": DRIP_WINDOW,
+        "equal_to_perpod": True, "binds": binds, "folds": folds, "fallbacks": 0,
+        "nodes_at_pod_cap": int((per_node == int(DRIP_ALLOCATABLE["pods"])).sum()),
+        "ms_per_pod": wall_ms / DRIP_PODS, "wall_ms": wall_ms, "windows": windows,
+        "dispatch_ms_median": statistics.median(dispatch_s) * 1e3,
+        "free_uploads": kern.free_uploads, "column_uploads": kern._cols.uploads,
+        "perpod_ms_per_pod": perpod_ms / DRIP_PODS,
+        "profiled_window": {k: prof[k] for k in ("device_us", "wall_us", "device_idle_share",
+                                                 "device_kernels", "device_events_seen",
+                                                 "top_device_us")},
+        "launches": launches,
+    }
+    log("drip_queue", **out)
+    return out, placements(results), launches
+
+
+def phase_drip_serve(dev, annos, queue_placements) -> tuple:
+    """The storm through ``open_queue(window=32)``, one ``offer`` per pod,
+    after 16 infeasible warm-up pods, so the last window is half full and
+    only ``drain`` dispatches it."""
+    cluster = drip_cluster(annos)
+    sched = drip_scheduler(cluster, dev)
+    queue = sched.open_queue(window=DRIP_SERVE_WINDOW)
+    for pod in storm(cluster, "warm", DRIP_SERVE_WINDOW // 2, cpu="100000"):
+        queue.offer(pod)
+    pods = storm(cluster, "drip", DRIP_PODS)
+    reset_launches()
+    t0 = time.perf_counter()
+    for pod in pods:
+        queue.offer(pod)
+    drained = queue.drain()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = read_launches("drip serve", need=())
+    results = queue.take_results()
+    if drained != DRIP_SERVE_WINDOW // 2 or any(r.node for r in results[:drained]):
+        raise AssertionError(f"drip serve: drained {drained}")
+    if placements(results[drained:]) != queue_placements:
+        raise AssertionError("open_queue placements != schedule_queue placements")
+    stats = sched.drip_stats()
+    out = {"nodes": len(annos), "pods": DRIP_PODS, "window": DRIP_SERVE_WINDOW,
+           "equal_to_queue": True, "drained_tail": drained,
+           "ms_per_pod": wall_ms / DRIP_PODS, "wall_ms": wall_ms,
+           "windows": stats["batch"]["dispatches"], "folds": stats["folds"],
+           "fallbacks": stats["fallbacks"], "free_uploads": sched._batch_kernel.free_uploads,
+           "launches": launches}
+    log("drip_serve", **out)
+    return out, launches
+
+
+def phase_drip_scalar(dev) -> dict:
+    """The scalar plugin loop against ``schedule_queue`` at 2,000 nodes,
+    unseeded and with a seeded tie-break (quantized annotations make real
+    ties, so seeded windows replay per-pod). The queue legs' schedulers come
+    from ``build_scheduler_from_config`` over a configuration built here."""
+    rng = np.random.default_rng(SEED + 1)
+    fresh = format_local_time(NOW - 30.0)
+    metrics = compile_policy(DEFAULT_POLICY).metric_names
+    # two levels per metric: about 31 nodes share the top score, so the
+    # windows hold real ties
+    values = rng.choice([0.1, 0.2], (DRIP_SCALAR_NODES, len(metrics)))
+    annos = [(f"node-{i:05d}", {m: f"{values[i, k]:.5f},{fresh}" for k, m in enumerate(metrics)})
+             for i in range(DRIP_SCALAR_NODES)]
+    config = SchedulerConfiguration(profiles=(SchedulerProfile(
+        filter_enabled=("Dynamic",), score_enabled=(PluginWeight("Dynamic", 3),)),))
+    legs = {}
+    reset_launches()
+    for seed in (None, 7):
+        cluster = drip_cluster(annos)
+        scalar = drip_scheduler(cluster, dev, columnar=False, tie_break_seed=seed)
+        t0 = time.perf_counter()
+        want = [scalar.schedule_one(p) for p in storm(cluster, "p", DRIP_SCALAR_PODS)]
+        scalar_ms = (time.perf_counter() - t0) * 1e3
+        cluster = drip_cluster(annos)
+        queued = build_scheduler_from_config(cluster, config, clock=lambda: NOW,
+                                             policy=DEFAULT_POLICY, tie_break_seed=seed,
+                                             device=dev)
+        if [(type(wp.plugin), wp.weight) for wp in queued._plugins] != [
+                (ResourceFitPlugin, 1), (DynamicPlugin, 3)]:
+            raise AssertionError("build_scheduler_from_config registered other plugins")
+        got = queued.schedule_queue(storm(cluster, "p", DRIP_SCALAR_PODS), window=16)
+        if placements(got) != placements(want):
+            raise AssertionError(f"scalar loop != schedule_queue (tie_break_seed={seed})")
+        stats = queued.drip_stats()["batch"]
+        if seed is not None and (stats["replays"] == 0
+                                 or queued._tie_rng.getstate() != scalar._tie_rng.getstate()):
+            raise AssertionError("the seeded leg did not replay, or consumed other RNG")
+        legs[f"seed_{seed}"] = {"scalar_ms_per_pod": scalar_ms / DRIP_SCALAR_PODS,
+                                "windows": stats["dispatches"], "replays": stats["replays"],
+                                "distinct_nodes": len({r.node for r in got})}
+    launches = read_launches("drip scalar", need=())
+    out = {"nodes": DRIP_SCALAR_NODES, "pods": DRIP_SCALAR_PODS, "scalar_equal_to_queue": True,
+           "from_config": True, **legs, "launches": launches}
+    log("drip_scalar", **out)
+    return launches
+
+
 # per kernel in the `kernels` line: `ms` is the kernel's own device time
 KERNEL_KEYS = ("ms", "plain_ms", "bound_ms", "bound_by", "device_us", "bound_us",
                "pct_of_bound", "host_launch_ms", "device_launches_seen")
@@ -812,6 +1174,12 @@ def main() -> int:
     by_path["column_path"], store, column_now = phase_column_path(rng, last_now + 24.0)
     by_path["overlap"] = phase_overlap(sched, clock, last_now + 24.0)
     by_path["hybrid_scorer"] = phase_hybrid_scorer(store, column_now)
+    # the drip path: no hand-written kernel lies on it, so K1 and K2 show 0
+    phase_drip_window(dev)
+    drip_annos = cluster_annotations(compile_policy(DEFAULT_POLICY), np.random.default_rng(SEED))
+    _, queue_placed, by_path["drip_queue"] = phase_drip_queue(dev, drip_annos)
+    _, by_path["drip_serve"] = phase_drip_serve(dev, drip_annos, queue_placed)
+    by_path["drip_scalar"] = phase_drip_scalar(dev)
 
     kernels = [
         {
@@ -827,7 +1195,7 @@ def main() -> int:
             "source": "crane_scheduler_tpu_torch/csrc/gang_totals.cu",
             "replaces": "crane_scheduler_tpu/scorer/pallas_gang.py:142",
             "launches": launches["gang"], "max_abs_err": k2["max_abs_err"],
-            "launches_by_path": {p: c["gang"] for p, c in by_path.items() if c["gang"]},
+            "launches_by_path": {p: c["gang"] for p, c in by_path.items()},
             **{k: k2[k] for k in KERNEL_KEYS}, "library_ms": None,
         },
     ]

@@ -2,7 +2,9 @@
 
 The burst-scheduling path (fused Dynamic filter+score, water-filling gang
 solve, columnar bind) runs on an NVIDIA GPU through PyTorch and two CUDA
-kernels written for Hopper (``csrc/``). The package imports neither JAX
+kernels written for Hopper (``csrc/``); the per-pod drip path
+(``framework.scheduler.Scheduler``) runs its batched windows there through
+PyTorch. The package imports neither JAX
 nor ``crane_scheduler_tpu``; the host modules it needs are its own copies.
 
 Entry points take a ``device`` argument; ``None`` means ``"cuda"`` and

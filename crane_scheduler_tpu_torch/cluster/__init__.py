@@ -1,3 +1,19 @@
-from .state import ClusterState, Event, Node, Pod
+from .state import (
+    ClusterState,
+    Container,
+    Event,
+    Node,
+    OwnerReference,
+    Pod,
+    ResourceRequirements,
+)
 
-__all__ = ["ClusterState", "Event", "Node", "Pod"]
+__all__ = [
+    "ClusterState",
+    "Container",
+    "Event",
+    "Node",
+    "OwnerReference",
+    "Pod",
+    "ResourceRequirements",
+]

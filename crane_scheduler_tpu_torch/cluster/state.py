@@ -1,14 +1,16 @@
 """In-memory cluster state: the framework's kube-apiserver stand-in.
 
 Counterpart of ``crane_scheduler_tpu/cluster/state.py``, cut to what the
-burst-scheduling path reads and writes: nodes with annotations, the
-annotator's patch primitives (single, bulk, columnar through a lazy
-overlay, and column groups), pods as objects or as columnar bursts, binds
-that stamp ``Scheduled`` events into a bounded log, and the
-``sched_version``, ``node_version`` and ``node_set_version`` counters.
-Event subscriptions, the dirty-name and pod-change journals, the shard
-fences and the kube mirror's bulk transactions come with the slices that
-read them.
+burst and drip scheduling paths read and write: nodes with annotations,
+labels and allocatable, the annotator's patch primitives (single, bulk,
+columnar through a lazy overlay, and column groups), pods with containers,
+owner references, init containers and overhead, as objects or as columnar
+bursts, binds that stamp ``Scheduled`` events into a bounded log, the
+``sched_version``, ``node_version``, ``node_set_version`` and
+``pod_version`` counters, and the pod-change journal behind
+``pod_changes_since``. Event subscriptions, the dirty-name journal, the
+shard fences and the kube mirror's bulk transactions come with the slices
+that read them.
 
 The reference coordinates its two processes exclusively through the
 Kubernetes API — the controller JSON-patches node annotations
@@ -24,18 +26,50 @@ import threading
 import time
 from collections import deque
 from dataclasses import dataclass, field, replace
-from typing import Mapping
+from types import MappingProxyType
+from typing import Any, Mapping
 
 import numpy as np
 
 # bounded event log, as an apiserver's event TTL bounds it
 _MAX_EVENTS = 4096
 
+# bounded pod-change journal (``pod_changes_since``)
+_POD_LOG_CAP = 8192
+
+# Shared empty-mapping default of the optional resource fields: a plain
+# default (not a default_factory) so every instance shares one read-only
+# "not reported" map.
+_EMPTY_MAP: Mapping[str, Any] = MappingProxyType({})
+
 
 @dataclass(frozen=True)
 class Node:
     name: str
     annotations: Mapping[str, str] = field(default_factory=dict)
+    labels: Mapping[str, str] = field(default_factory=dict)
+    # ``status.allocatable`` quantities (cpu/memory/pods/...), verbatim
+    # wire strings. Empty = the node never reported allocatable — the fit
+    # layer treats that as unknown (fail-open), not as zero.
+    allocatable: Mapping[str, Any] = _EMPTY_MAP
+
+
+@dataclass(frozen=True)
+class OwnerReference:
+    kind: str
+    name: str = ""
+
+
+@dataclass(frozen=True)
+class ResourceRequirements:
+    requests: Mapping[str, float] = field(default_factory=dict)
+    limits: Mapping[str, float] = field(default_factory=dict)
+
+
+@dataclass(frozen=True)
+class Container:
+    name: str
+    resources: ResourceRequirements = field(default_factory=ResourceRequirements)
 
 
 @dataclass(frozen=True)
@@ -43,10 +77,20 @@ class Pod:
     name: str
     namespace: str = "default"
     annotations: Mapping[str, str] = field(default_factory=dict)
+    owner_references: tuple[OwnerReference, ...] = ()
+    containers: tuple[Container, ...] = ()
     node_name: str = ""
+    # ``spec.initContainers`` / ``spec.overhead``: inputs to the kube
+    # effective-request rule max(init, sum(containers)) + overhead
+    init_containers: tuple[Container, ...] = ()
+    overhead: Mapping[str, Any] = _EMPTY_MAP
 
     def key(self) -> str:
         return f"{self.namespace}/{self.name}"
+
+    def is_daemonset_pod(self) -> bool:
+        """ref: pkg/utils/utils.go:17-24."""
+        return any(ref.kind == "DaemonSet" for ref in self.owner_references)
 
 
 @dataclass(frozen=True)
@@ -125,6 +169,12 @@ class ClusterState:
         self._count_version = 0
         self._count_dict_cache: tuple | None = None
         self._table_slots_cache: tuple | None = None
+        # pod-change journal: which nodes had bound-pod or membership
+        # changes, per pod_version. Annotation patches and columnar burst
+        # binds leave it alone, as in the reference.
+        self._pod_version = 0
+        self._pod_change_log: deque[tuple[int, str]] = deque(maxlen=_POD_LOG_CAP)
+        self._pod_log_floor = 0  # oldest version not fully covered
 
     @property
     def sched_version(self) -> int:
@@ -134,6 +184,31 @@ class ClusterState:
         (unbound) pod does NOT bump it."""
         with self._lock:
             return self._sched_version
+
+    @property
+    def pod_version(self) -> int:
+        """Bumps on bound-pod set/placement/annotation changes and node
+        membership. Node annotation patches do not bump it."""
+        with self._lock:
+            return self._pod_version
+
+    def _note_pod_change_locked(self, node_name: str) -> None:
+        """Journal a bound-pod change on ``node_name`` (caller holds the
+        lock)."""
+        self._pod_version += 1
+        log = self._pod_change_log
+        if len(log) == log.maxlen:
+            self._pod_log_floor = log[0][0]
+        log.append((self._pod_version, node_name))
+
+    def pod_changes_since(self, version: int):
+        """Node names with bound-pod changes after ``version``, or None
+        when the journal no longer covers the interval (the caller must
+        rebuild in full)."""
+        with self._lock:
+            if version < self._pod_log_floor:
+                return None
+            return {name for v, name in self._pod_change_log if v > version}
 
     @property
     def node_set_version(self) -> int:
@@ -214,14 +289,31 @@ class ClusterState:
             self._node_version += 1
             if prev is None:
                 self._node_set_version += 1
+                self._note_pod_change_locked(node.name)  # new node row
 
     def delete_node(self, name: str) -> None:
         with self._lock:
+            if name in self._nodes:
+                self._note_pod_change_locked(name)
             self._nodes.pop(name, None)
             self._drop_overlay_locked(name)
             self._sched_version += 1
             self._node_version += 1
             self._node_set_version += 1
+
+    def get_node(self, name: str) -> Node | None:
+        with self._lock:
+            node = self._nodes.get(name)
+            if node is None or not self._anno_segments:
+                return node
+            merged = self._merged_annotations_locked(node)
+            if merged is node.annotations:
+                return node
+            # fold this node so repeated reads stay cheap
+            node = replace(node, annotations=merged)
+            self._nodes[name] = node
+            self._drop_overlay_locked(name)
+            return node
 
     def list_nodes(self) -> list[Node]:
         with self._lock:
@@ -331,6 +423,20 @@ class ClusterState:
         self._index_add(pod)
         if pod.node_name or (prev is not None and prev.node_name) or prev_burst_bound:
             self._sched_version += 1
+        # journal only real changes: re-adding an identical bound pod
+        # leaves pod_version where it was
+        same = (
+            prev is not None
+            and prev.node_name == pod.node_name
+            and prev.annotations == pod.annotations
+            and prev.containers == pod.containers
+            and prev.init_containers == pod.init_containers
+            and prev.overhead == pod.overhead
+        )
+        if pod.node_name and not same:
+            self._note_pod_change_locked(pod.node_name)
+        if prev is not None and prev.node_name and prev.node_name != pod.node_name:
+            self._note_pod_change_locked(prev.node_name)
 
     def add_pod(self, pod: Pod) -> None:
         with self._lock:
@@ -342,6 +448,67 @@ class ClusterState:
             for pod in pods:
                 self._add_pod_locked(pod)
 
+    def delete_pod(self, key: str) -> None:
+        with self._lock:
+            self._delete_pod_locked(key)
+
+    def _delete_pod_locked(self, key: str) -> None:
+        pod = self._pods.pop(key, None)
+        if pod is None and self._bursts:
+            hit = self._burst_lookup_locked(key)
+            if hit is not None:
+                burst, row = hit
+                pod = burst.materialize(row)
+                self._burst_retire_row_locked(burst, row)
+                self._burst_index.pop(key, None)
+                # a burst row's delete moves no pod_version, as in the
+                # reference (burst rows are outside the journal)
+                if pod.node_name:
+                    self._sched_version += 1
+                return
+        if pod is not None:
+            self._index_remove(pod)
+        if pod is not None and pod.node_name:
+            self._sched_version += 1
+            self._note_pod_change_locked(pod.node_name)
+
+    def get_pod(self, key: str) -> Pod | None:
+        with self._lock:
+            pod = self._pods.get(key)
+            if pod is None and self._bursts:
+                hit = self._burst_lookup_locked(key)
+                if hit is not None:
+                    return hit[0].materialize(hit[1])
+            return pod
+
+    def list_pods(self, node_name: str | None = None) -> list[Pod]:
+        """Every pod, or the pods bound to ``node_name`` (object pods in
+        insertion order, then burst rows)."""
+        with self._lock:
+            if node_name is None:
+                out = list(self._pods.values())
+            else:
+                keys = self._pods_by_node.get(node_name)
+                out = [self._pods[k] for k in keys] if keys else []
+            if self._bursts:
+                out.extend(self._burst_pods_locked(node_name))
+            return out
+
+    def _burst_pods_locked(self, node_name: str | None) -> list[Pod]:
+        """Materialize burst rows (all, or those bound to ``node_name``)."""
+        out: list[Pod] = []
+        for b in self._bursts:
+            if node_name is None:
+                rows = (r for r in range(len(b.names)) if r not in b.dead)
+            else:
+                tid = b.table_map.get(node_name)
+                if tid is None:
+                    continue
+                rows = (int(r) for r in np.nonzero(b.node_ids == tid)[0]
+                        if int(r) not in b.dead)
+            out.extend(b.materialize(r) for r in rows)
+        return out
+
     def count_pods_all(self) -> dict[str, int]:
         """Bound-pod counts for every node (object pods and burst rows)."""
         with self._lock:
@@ -351,6 +518,11 @@ class ClusterState:
                 for name, c in burst_counts.items():
                     counts[name] = counts.get(name, 0) + c
             return counts
+
+    def bind_pod(self, pod_key: str, node_name: str, now: float | None = None) -> bool:
+        """Bind one pod and stamp its ``Scheduled`` event (``bind_pods``
+        is the single implementation)."""
+        return bool(self.bind_pods(((pod_key, node_name),), now))
 
     def bind_pods(self, assignments, now: float | None = None) -> list[str]:
         """Batch bind: one lock hold moves every pod and stamps its
@@ -376,6 +548,7 @@ class ClusterState:
                 pods[pod_key] = new_pod
                 self._index_add(new_pod)
                 self._sched_version += 1
+                self._note_pod_change_locked(node_name)
                 bound.append(pod_key)
                 self._events.append(Event(
                     namespace=pod.namespace,
@@ -490,7 +663,9 @@ class ClusterState:
         column and stamps ``sched_version`` and resourceVersions exactly
         as per-pod ``bind_pods`` would; Event objects are built only for
         the bounded log's tail (the deque would evict the rest). Returns
-        the bound row indices (ascending = event order)."""
+        the bound row indices (ascending = event order). Like the
+        reference, it leaves ``pod_version`` and the pod-change journal
+        alone: burst rows are bare pods."""
         if now is None:
             now = time.time()
         node_idx = np.asarray(node_idx, dtype=np.int32)

@@ -1,3 +1,17 @@
-from .scheduler import BatchResult, BatchScheduler, BurstResult
+from .scheduler import (
+    BatchResult,
+    BatchScheduler,
+    BurstResult,
+    DripQueue,
+    ScheduleResult,
+    Scheduler,
+)
 
-__all__ = ["BatchResult", "BatchScheduler", "BurstResult"]
+__all__ = [
+    "BatchResult",
+    "BatchScheduler",
+    "BurstResult",
+    "DripQueue",
+    "ScheduleResult",
+    "Scheduler",
+]

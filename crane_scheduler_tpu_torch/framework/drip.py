@@ -1,0 +1,392 @@
+"""Version-cached cluster columns for the per-pod ("drip") fast path.
+
+Counterpart of ``DripColumns`` in ``crane_scheduler_tpu/framework/drip.py``.
+The reference's dirty-name journal consumers (``_apply_dirty``,
+``_patch_dynamic``, the scatter log behind ``dirty_rows_between``) wait for
+the cluster's dirty-name journal; until then every node-version change
+takes the identity sweep, which is the reference's own behaviour on a
+cluster without ``dirty_nodes_since``. ``GangColumns`` comes with the gang
+queue.
+
+The scalar ``Scheduler._schedule_one`` loop is O(plugins x nodes) per
+pod. But the verdicts it computes are almost entirely pod-independent:
+the Dynamic Filter/Score read only node annotations and the clock, and
+ResourceFit reads the free allocatable columns against a per-pod request
+row. ``DripColumns`` computes both once as cluster-wide numpy columns and
+caches them on the versions that can change them:
+
+- **Dynamic column** — keyed on ``(cluster.node_version, store.version,
+  clock bucket)``. Node annotations feed a private ``NodeLoadStore``
+  (bulk, identity-gated: an annotator sweep re-parses only rows whose
+  annotation map object changed), and the columns come from
+  ``scorer.columns.drip_filter_score_columns`` — the same IEEE-double op
+  sequence the parity suite pins to the scalar oracle. The clock bucket
+  bounds staleness of the fail-open freshness windows between store
+  writes (default 0.25 s; fixed-clock tests always hit).
+
+- **Fit column** — keyed on ``(cluster.pod_version,
+  cluster.node_version)``. ``FitTracker.free_matrix`` hands back aligned
+  *copies* of the free-allocatable rows, so the scheduler's own binds fold
+  in place (subtract the request row) under the same stamp discipline
+  ``Scheduler._note_bind`` uses for the snapshot cache: fold only when
+  ``pod_version`` moved exactly from the pre-bind stamp to pre+1 (our own
+  bump), drop on any interleaved writer or pod re-placement.
+
+Per-pod work is then one ``free >= request`` broadcast, one mask AND and
+one argmax (or an O(log n) ``SegMaxTree`` read) with no Python per-node
+loop. Everything the columns cannot express (daemonset bypass, degraded
+mode, third-party plugins, scalar extended resources) falls back to the
+scalar loop, which stays the bit-identical parity oracle.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from ..fit.tracker import fail_code_reason, row_fail_reason, rows_fail_codes
+from ..loadstore.store import NodeLoadStore
+from ..policy.compile import compile_policy
+from ..scorer.columns import (
+    drip_filter_score_columns,
+    fail_metric_name,
+    fail_metric_names,
+)
+from ..scorer.topk import SegMaxTree
+
+__all__ = ["DripColumns"]
+
+_I64_MIN = np.int64(np.iinfo(np.int64).min)
+
+# distinct request shapes worth keeping incremental trees for; beyond
+# this the per-fold maintenance would outweigh the argmax it replaces
+_MAX_TREES = 8
+
+
+class DripColumns:
+    """Owns the cached Filter/Score columns for one ``Scheduler``.
+
+    Not thread-safe — same single-loop contract as the Scheduler that
+    owns it (concurrent cluster writers are detected via the version keys
+    and trigger rebuilds, never torn reads: the private store is only ever
+    written by ``ensure`` on the scheduling thread).
+    """
+
+    def __init__(
+        self,
+        cluster,
+        dyn,
+        dyn_weight: int = 1,
+        order=("dyn",),
+        fit_tracker=None,
+        bucket_seconds: float = 0.25,
+    ):
+        self.cluster = cluster
+        self._dyn = dyn
+        self._dyn_weight = int(dyn_weight)
+        # Filter evaluation order ("fit" / "dyn"), registration order —
+        # reconstructing the scalar loop's first-failing-plugin reason
+        # depends on it
+        self._order = tuple(order)
+        self._tracker = fit_tracker
+        self._tensors = compile_policy(dyn.policy)
+        self._store = NodeLoadStore(self._tensors)
+        self._bucket_s = float(bucket_seconds)
+
+        # snapshot-order node names; identity is a cache key for the
+        # tracker's aligned-row gather, so the list object is only
+        # replaced when membership/order actually changes
+        self.names: list[str] = []
+        self._node_ver = -1  # cluster.node_version the ingest reflects
+
+        # dynamic columns (aligned with self.names)
+        self._store_ver = -1
+        self._bucket: int | None = None
+        self._gather: tuple | None = None  # (layout_version, ids)
+        self.schedulable: np.ndarray | None = None  # bool [N]
+        self.fail_entry: np.ndarray | None = None  # int32 [N]
+        self.score: np.ndarray | None = None  # int64 [N] raw (0..100)
+        self.weighted: np.ndarray | None = None  # int64 [N]
+        # build epoch of the dynamic columns: the device column cache keys
+        # freshness on it beside array identity
+        self.col_epoch = 0
+
+        # fit columns (aligned with self.names; free is OUR copy). Keyed on
+        # the tracker's alloc_version, not node_version: an annotation
+        # patch bumps the node fence but cannot change allocatable
+        # capacity, so the O(n) free_matrix copy is skipped unless capacity
+        # rows actually moved.
+        self._fit_pod_ver = -1
+        self._fit_node_ver = -1
+        self._fit_alloc_ver = -1
+        self._fit_names = None  # names list identity the fit rows align to
+        self.bounded: np.ndarray | None = None  # bool [N]
+        self.free: np.ndarray | None = None  # int64 [N, 4]
+
+        # incremental first-argmax trees, one per distinct request vec
+        # (scorer.topk.SegMaxTree): valid only for the exact column arrays
+        # they were built over — identity-keyed, since rebuilds always
+        # replace arrays
+        self._trees: dict[bytes, tuple] = {}
+        self._trees_cols: tuple | None = None
+
+        self.stats = {
+            "hits": 0, "rebuilds": 0, "folds": 0, "drops": 0,
+            "topk_builds": 0, "topk_updates": 0, "full_sweeps": 0,
+        }
+
+    # -- cache maintenance -------------------------------------------------
+
+    def ensure(self, now: float) -> None:
+        """Bring every column up to date for scheduling time ``now``: one
+        identity sweep per node-version change, a dynamic rebuild per
+        store-version change or clock-bucket roll, a fit rebuild per
+        pod-version change that moved capacity."""
+        rebuilt = False
+        cluster = self.cluster
+        nv = cluster.node_version
+        if nv != self._node_ver:
+            self._full_ingest(cluster)
+            self._node_ver = nv
+        bucket = int(now / self._bucket_s) if self._bucket_s > 0 else 0
+        sv = self._store.version
+        if self.weighted is None or sv != self._store_ver or bucket != self._bucket:
+            self._rebuild_dynamic(now)
+            self._store_ver = sv
+            self._bucket = bucket
+            rebuilt = True
+            self.stats["rebuilds"] += 1
+        if self._tracker is not None:
+            pv = cluster.pod_version
+            stale = (
+                self.free is None
+                or pv != self._fit_pod_ver
+                or nv != self._fit_node_ver
+            )
+            if stale:
+                self._tracker.refresh()
+                av = self._tracker.alloc_version
+                if (
+                    self.free is not None
+                    and av == self._fit_alloc_ver
+                    and pv == self._fit_pod_ver
+                    and self._fit_names is self.names
+                ):
+                    # capacity rows and bound-pod state are both unchanged
+                    # (an annotation patch moved the node fence): the
+                    # aligned copies are still exact
+                    self._fit_node_ver = nv
+                else:
+                    self.bounded, self.free = self._tracker.free_matrix(self.names)
+                    self._fit_pod_ver = pv
+                    self._fit_node_ver = nv
+                    self._fit_alloc_ver = av
+                    self._fit_names = self.names
+                    rebuilt = True
+                    self.stats["rebuilds"] += 1
+        if not rebuilt:
+            self.stats["hits"] += 1
+
+    def _full_ingest(self, cluster) -> None:
+        """The identity sweep: list every node, identity-gate every row."""
+        nodes = cluster.list_nodes()
+        names = [n.name for n in nodes]
+        # identity-gated: unchanged annotation maps are skipped, so an
+        # annotator sweep costs O(changed rows), not O(nodes)
+        self._store.bulk_ingest((n.name, n.annotations) for n in nodes)
+        if len(self._store) != len(names):
+            self._store.prune_absent(names)
+        if names != self.names:
+            self.names = names
+            self._gather = None
+            self._fit_node_ver = -1  # fit rows must realign
+            self._fit_names = None
+        self.stats["full_sweeps"] += 1
+
+    def _ensure_gather(self):
+        store = self._store
+        gather = self._gather
+        lv = store.layout_version
+        if gather is None or gather[0] != lv:
+            node_id = store.node_id
+            ids = np.fromiter(
+                (node_id(nm) for nm in self.names), dtype=np.int64, count=len(self.names)
+            )
+            gather = self._gather = (lv, ids)
+        return gather[1]
+
+    def _rebuild_dynamic(self, now: float) -> None:
+        store = self._store
+        ids = self._ensure_gather()
+        self.schedulable, self.fail_entry, score = drip_filter_score_columns(
+            self._tensors,
+            store.values[ids],
+            store.ts[ids],
+            store.hot_value[ids],
+            store.hot_ts[ids],
+            now,
+        )
+        self.score = score.astype(np.int64)
+        self.weighted = self.score * self._dyn_weight
+        self.col_epoch += 1
+
+    def note_bind(self, best_i: int, vec: np.ndarray, pre_pod: int, was_bound: bool) -> None:
+        """Fold our own bind into the fit column (same discipline as
+        ``Scheduler._note_bind``): valid only when pod_version moved
+        exactly pre_pod -> pre_pod+1 by our bind and the pod was not
+        re-placed; anything else drops the column for a rebuild."""
+        if self._tracker is None or self.free is None:
+            return
+        if (
+            was_bound
+            or self._fit_pod_ver != pre_pod
+            or self.cluster.pod_version != pre_pod + 1
+        ):
+            self.drop_fit()
+            return
+        self.fold_row(best_i, vec)
+        self._fit_pod_ver = pre_pod + 1
+
+    def fold_row(self, best_i: int, vec: np.ndarray) -> None:
+        """Unchecked single fold. ``note_bind`` validates the version
+        stamp per pod; the batch dispatch window validates pre ->
+        pre+n_bound once and then replays the kernel's sequential folds row
+        by row (so infeasible-pod reasons later in the window read the same
+        free state the per-pod path would have)."""
+        self.free[best_i] -= vec
+        self.stats["folds"] += 1
+        if self._trees:
+            self._update_trees(best_i)
+
+    def commit_folds(self, pod_ver: int) -> None:
+        """Stamp the fit column after a batch window's folds."""
+        self._fit_pod_ver = int(pod_ver)
+
+    def drop_fit(self) -> None:
+        """Invalidate the fit column (interleaved writer / re-placement /
+        partial window bind) — the next ``ensure`` rebuilds from the
+        tracker."""
+        self.free = None
+        self.bounded = None
+        self._fit_pod_ver = -1
+        self.stats["drops"] += 1
+        self._trees.clear()
+
+    def _update_trees(self, best_i: int) -> None:
+        """O(log n) per cached tree: re-mask only the folded row."""
+        sched_i = bool(self.schedulable[best_i])
+        bnd_i = bool(self.bounded[best_i]) if self.bounded is not None else False
+        w_i = int(self.weighted[best_i])
+        free_i = self.free[best_i] if self.free is not None else None
+        for tree, tvec in self._trees.values():
+            if tvec is None:
+                continue  # no fit dimension in this tree's mask
+            feas = sched_i and not (bnd_i and bool(((tvec > 0) & (free_i < tvec)).any()))
+            tree.update(best_i, w_i, feas)
+            self.stats["topk_updates"] += 1
+
+    # -- per-pod reads -----------------------------------------------------
+
+    def feasible_mask(self, vec: np.ndarray) -> np.ndarray:
+        """Combined Filter verdict for a pod with request row ``vec``."""
+        mask = self.schedulable
+        if self._tracker is not None:
+            fit_fail = self.bounded & ((vec > 0) & (self.free < vec)).any(axis=1)
+            mask = mask & ~fit_fail
+        return mask
+
+    def mask_closure(self, vec: np.ndarray | None):
+        """Lazy ``feasible_mask`` capturing the current column arrays:
+        result closures may run after later folds or drops, and rebuilds
+        replace arrays (never resize), so the captured objects always stay
+        mutually aligned. The O(n) mask is paid only when read."""
+        schedulable = self.schedulable
+        bounded = self.bounded
+        free = self.free
+        has_fit = self._tracker is not None and vec is not None
+
+        def _mask():
+            m = schedulable
+            if has_fit and bounded is not None and free is not None:
+                m = m & ~(bounded & ((vec > 0) & (free < vec)).any(axis=1))
+            return m
+
+        return _mask
+
+    def topk_for(self, vec: np.ndarray | None) -> SegMaxTree:
+        """Incremental first-argmax tree for request row ``vec`` — O(n)
+        vectorized build on first sight of a (columns, vec) pair, then
+        O(log n) maintenance per fold. The tree reproduces every selection
+        read bit-identically: first-max argmax, feasible count, tie count,
+        r-th tie."""
+        cols = (id(self.weighted), id(self.free))
+        if self._trees_cols != cols:
+            self._trees.clear()
+            self._trees_cols = cols
+        key = b"" if vec is None else vec.tobytes()
+        ent = self._trees.get(key)
+        if ent is not None:
+            return ent[0]
+        mask = self.feasible_mask(vec)
+        values = np.where(mask, self.weighted, _I64_MIN)
+        tree = SegMaxTree(values, mask)
+        if len(self._trees) >= _MAX_TREES:
+            self._trees.pop(next(iter(self._trees)))
+        self._trees[key] = (
+            tree, None if vec is None or self._tracker is None else vec.copy()
+        )
+        self.stats["topk_builds"] += 1
+        return tree
+
+    def reason_for(self, i: int, vec: np.ndarray) -> str:
+        """The scalar loop's Filter failure message for node row ``i`` —
+        first failing plugin in registration order, exact wording."""
+        name = self.names[i]
+        for kind in self._order:
+            if kind == "fit":
+                if self.bounded is not None and self.bounded[i]:
+                    reason = row_fail_reason(self.free[i], vec)
+                    if reason:
+                        return f"Node {name} fit failure: {reason}"
+            else:
+                entry = int(self.fail_entry[i])
+                if entry >= 0:
+                    metric = fail_metric_name(self._tensors, entry)
+                    return f"Load[{metric}] of node[{name}] is too high"
+        return ""
+
+    def reason_counts(self, mask: np.ndarray, vec: np.ndarray) -> dict:
+        """Filter-reason histogram over infeasible nodes, in node-index
+        order so dict insertion order matches the scalar loop: one
+        ``rows_fail_codes`` pass over the infeasible fit rows plus the
+        cached ``fail_entry`` column give each node's first-failing
+        (plugin, code) pair with no per-row Python but the formatting."""
+        idx = np.flatnonzero(~mask)
+        if idx.size == 0:
+            return {}
+        entries = self.fail_entry[idx]
+        has_fit = "fit" in self._order and self.bounded is not None and vec is not None
+        if has_fit:
+            fit_codes = rows_fail_codes(self.free[idx], vec)
+            fit_codes[~self.bounded[idx]] = -1
+        else:
+            fit_codes = np.full((idx.size,), -1, dtype=np.int8)
+        # first failing plugin in registration order, per node
+        if self._order and self._order[0] == "fit":
+            use_fit = fit_codes >= 0
+            use_dyn = ~use_fit & (entries >= 0)
+        else:
+            use_dyn = entries >= 0
+            use_fit = ~use_dyn & (fit_codes >= 0)
+        kinds = np.where(use_dyn, 1, np.where(use_fit, 2, 0))
+        metric_table = fail_metric_names(self._tensors)
+        fit_table = [fail_code_reason(c) for c in range(4)]
+        names = self.names
+        counts: dict[str, int] = {}
+        for p in np.flatnonzero(kinds):
+            i = int(idx[p])
+            if kinds[p] == 1:
+                reason = f"Load[{metric_table[int(entries[p])]}] of node[{names[i]}] is too high"
+            else:
+                reason = f"Node {names[i]} fit failure: {fit_table[int(fit_codes[p])]}"
+            counts[reason] = counts.get(reason, 0) + 1
+        return counts

@@ -1,15 +1,17 @@
-"""Burst scheduling on one GPU: bulk refresh -> fused score -> gang assign.
+"""The scheduling loops: burst scheduling on one GPU, and the per-pod path.
 
-Counterpart of ``BatchScheduler`` in ``crane_scheduler_tpu/framework/
-scheduler.py``, for the main path: ``refresh`` (the object path, or
-nothing in direct mode, where the annotator writes a shared store),
-``_prepare`` (resident-snapshot hit, column-write replay, row delta, full
-upload), ``schedule_batch`` and ``schedule_batches_pipelined`` over
-``Pod`` objects, and the columnar ``schedule_pod_burst`` /
-``schedule_bursts_pipelined``. Both pipelined loops can overlap the
-refresh (``_OverlappedRefresh``) and the binds (``_BindFlushQueue``) with
-the next cycle; those workers touch the store and the cluster, never a
-tensor. Placements are bit-identical to the reference: the same solver,
+Counterpart of ``crane_scheduler_tpu/framework/scheduler.py``.
+``Scheduler`` (at the end of this module) is the per-pod ("drip") path:
+the scalar plugin loop, the columnar fast path and the batched windows of
+``schedule_queue`` / ``DripQueue``. ``BatchScheduler`` is the main path:
+``refresh`` (the object path, or nothing in direct mode, where the
+annotator writes a shared store), ``_prepare`` (resident-snapshot hit,
+column-write replay, row delta, full upload), ``schedule_batch`` and
+``schedule_batches_pipelined`` over ``Pod`` objects, and the columnar
+``schedule_pod_burst`` / ``schedule_bursts_pipelined``. Both pipelined
+loops can overlap the refresh (``_OverlappedRefresh``) and the binds
+(``_BindFlushQueue``) with the next cycle; those workers touch the store
+and the cluster, never a tensor. Placements are bit-identical to the reference: the same solver,
 the same ``_expand_counts`` order.
 
 The Dynamic score is pod-independent, so a burst of non-DaemonSet pods
@@ -37,6 +39,7 @@ from ..parallel.step import EPOCH_REBASE_SECONDS, PackedFetch, ScheduleStep
 from ..policy.compile import compile_policy
 from ..policy.types import DynamicSchedulerPolicy
 from ..utils.logging import verbosity, vlog
+from .types import CycleState, NodeInfo
 
 # stages of one burst cycle, in order (see ``BatchScheduler.burst_stage_ms``)
 BURST_STAGES = ("refresh", "prepare", "dispatch", "add_pod_burst", "wait", "expand", "bind")
@@ -726,3 +729,739 @@ class BatchScheduler:
             schedulable={names[i]: bool(schedulable[i]) for i in range(n)},
             now=now,
         )
+
+
+# -- the per-pod (drip) path ---------------------------------------------------
+
+
+class ScheduleResult:
+    """One drip placement outcome. ``scores`` materializes lazily: the
+    columnar path hands over closures instead of building a 50k-entry dict
+    per pod nobody may read — reading ``.scores`` (or asking for
+    ``top_scores``) pays the cost only on demand."""
+
+    __slots__ = (
+        "pod_key", "node", "feasible", "reason",
+        "_scores", "_lazy_scores", "_lazy_topk", "_reasons_fn",
+    )
+
+    def __init__(self, pod_key: str, node: str | None, feasible: int, reason: str = "",
+                 scores: dict | None = None, lazy_scores=None, lazy_topk=None):
+        self.pod_key = pod_key
+        self.node = node
+        self.feasible = feasible
+        self.reason = reason
+        self._scores = scores
+        self._lazy_scores = lazy_scores
+        self._lazy_topk = lazy_topk
+        self._reasons_fn = None  # lazy filter-reason histogram (columnar)
+
+    @property
+    def scores(self) -> dict:
+        if self._scores is None:
+            lazy = self._lazy_scores
+            self._scores = {} if lazy is None else lazy()
+        return self._scores
+
+    def top_scores(self, k: int = 5) -> list:
+        """Top-k ``(node, score)`` pairs, highest score first, name
+        ascending among ties — the order of ``sorted(scores.items(),
+        key=(-score, name))[:k]`` without the full sort, and without
+        materializing the score dict on the columnar path."""
+        import heapq
+
+        if self._scores is None and self._lazy_topk is not None:
+            return self._lazy_topk(k)
+        return heapq.nsmallest(k, self.scores.items(), key=lambda kv: (-kv[1], kv[0]))
+
+    def filter_reasons(self) -> dict:
+        """Filter-failure histogram over the infeasible nodes (columnar
+        results; empty for the scalar loop's)."""
+        return {} if self._reasons_fn is None else self._reasons_fn()
+
+    def __repr__(self) -> str:
+        return (
+            f"ScheduleResult(pod_key={self.pod_key!r}, node={self.node!r}, "
+            f"feasible={self.feasible}, reason={self.reason!r})"
+        )
+
+
+@dataclass
+class _WeightedPlugin:
+    plugin: object
+    weight: int = 1
+
+
+class _Hooks:
+    """Per-registration resolution of the plugin extension points, so the
+    scalar loop pays no ``getattr`` per plugin per node. Rebuilt whenever
+    ``register`` changes the plugin list."""
+
+    __slots__ = ("pre_filter", "filter", "score", "reserve", "pre_bind", "unreserve")
+
+    def __init__(self, plugins: list[_WeightedPlugin]):
+        def hooks(name):
+            return [h for wp in plugins if (h := getattr(wp.plugin, name, None)) is not None]
+
+        self.pre_filter = hooks("pre_filter")
+        self.filter = hooks("filter")
+        self.score = [
+            (h, wp.weight) for wp in plugins
+            if (h := getattr(wp.plugin, "score", None)) is not None
+        ]
+        self.reserve = hooks("reserve")
+        self.pre_bind = hooks("pre_bind")
+        self.unreserve = hooks("unreserve")
+
+
+class Scheduler:
+    """Plugin-driven single-pod scheduler (the reference-shaped path).
+
+    Counterpart of ``Scheduler`` in ``crane_scheduler_tpu/framework/
+    scheduler.py``: the scalar plugin loop (``columnar=False``; the parity
+    oracle and the fallback for daemonset pods, degraded mode, scalar
+    extended-resource requests and unknown plugins), the columnar fast
+    path over ``framework.drip.DripColumns``, and the batched windows of
+    ``schedule_queue`` / ``open_queue`` through ``scorer.drip_batch``.
+    Host selection takes the max weighted score, the lowest snapshot index
+    among ties, or a seeded-random tie with ``tie_break_seed``.
+
+    Not thread-safe: one Scheduler serves one scheduling loop (concurrent
+    cluster writers are fine; the version fences detect their writes)."""
+
+    def __init__(
+        self,
+        cluster: ClusterState,
+        clock=time.time,
+        telemetry=None,
+        tie_break_seed: int | None = None,
+        columnar: bool = True,
+        mesh=None,
+        device=None,
+    ):
+        """``tie_break_seed``: seeded-random choice among exactly tied
+        hosts (the stock kube-scheduler's behaviour); default off = lowest
+        snapshot index. ``columnar``: use the version-cached column fast
+        path whenever the plugin set and the pod allow it; placements are
+        identical to the scalar loop. ``device``: where the batched window
+        runs; ``None`` means the GPU (raises without one), tests pass
+        ``"cpu"``. ``telemetry`` and ``mesh`` must be None: spans and
+        counters, and the shard-parallel window, are not ported yet."""
+        import random
+
+        if telemetry is not None:
+            raise NotImplementedError("telemetry is not ported; pass telemetry=None")
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh= is not ported: the shard-parallel drip window comes "
+                "with the multi-GPU slice"
+            )
+        self.cluster = cluster
+        self.device = resolve_device(device)
+        self._clock = clock
+        self._plugins: list[_WeightedPlugin] = []
+        self._tie_rng = random.Random(tie_break_seed) if tie_break_seed is not None else None
+        self._cache: tuple[int, list] | None = None  # (sched_version, snapshot)
+        self._columnar = bool(columnar)
+        self._hooks: _Hooks | None = None
+        self._drip = None  # DripColumns once plugins are recognized
+        # plugin recognition for the columnar path: False = not yet
+        # computed, None = unrecognized set (scalar forever)
+        self._recognized: tuple | None | bool = False
+        self._unrecognized_reason = "unknown_plugin"
+        self._fallbacks: dict[str, int] = {}
+        # bind-plane backpressure: an optional callable that blocks while
+        # a downstream bind-flush queue is over its watermark, so window
+        # admission pauses instead of queueing binds without bound
+        self.bind_backpressure = None
+        # the batched window (scorer.drip_batch), created at first use
+        self._batch_kernel = None
+        self._batch = {
+            "dispatches": 0, "pods": 0, "replays": 0,
+            "batch_sizes": [], "kernel_seconds": [], "conflicts": 0,
+        }
+        # optimistic multi-scheduler mode: re-check the pod_version fence
+        # after the window and before the bind POSTs, dropping and
+        # retrying the window when another binder moved it
+        self.conflict_retry = False
+        self.conflict_cb = None  # callable(outcome: str) | None
+        self.max_window_retries = 4
+
+    def register(self, plugin, weight: int = 1) -> None:
+        """Order matters like the scheduler-config plugin list."""
+        self._plugins.append(_WeightedPlugin(plugin, weight))
+        # hook lists, plugin recognition and the column cache all key off
+        # the registration list — rebuilt lazily on next use
+        self._hooks = None
+        self._drip = None
+        self._recognized = False
+
+    def drip_stats(self) -> dict:
+        """Column-cache counters (hits/rebuilds/folds/drops/topk_*), the
+        per-reason scalar-fallback histogram and the batch windows'
+        distributions."""
+        out = {"hits": 0, "rebuilds": 0, "folds": 0, "drops": 0,
+               "topk_builds": 0, "topk_updates": 0}
+        if self._drip is not None:
+            out.update(self._drip.stats)
+        out["fallbacks"] = dict(self._fallbacks)
+        b = self._batch
+        out["batch"] = {
+            "dispatches": b["dispatches"],
+            "pods": b["pods"],
+            "replays": b["replays"],
+            "conflicts": b["conflicts"],
+            "batch_sizes": list(b["batch_sizes"]),
+            "kernel_seconds": list(b["kernel_seconds"]),
+        }
+        return out
+
+    def _recognition(self):
+        """Columnar eligibility of the registered plugin set: exactly one
+        ``DynamicPlugin`` plus at most one ``ResourceFitPlugin`` (order
+        free). Anything else — subclasses included, which may override
+        hooks — is unrecognized and pins the scalar loop."""
+        rec = self._recognized
+        if rec is not False:
+            return rec
+        from ..fit.plugin import ResourceFitPlugin
+        from ..plugins.dynamic import DynamicPlugin
+
+        dyn = None
+        dyn_weight = 1
+        tracker = None
+        order: list[str] = []
+        for wp in self._plugins:
+            p = wp.plugin
+            if type(p) is DynamicPlugin and dyn is None:
+                dyn, dyn_weight = p, wp.weight
+                order.append("dyn")
+            elif type(p) is ResourceFitPlugin and tracker is None:
+                tracker = p.tracker
+                order.append("fit")
+            else:
+                self._recognized = None
+                self._unrecognized_reason = "unknown_plugin"
+                return None
+        if dyn is None:
+            self._recognized = None
+            self._unrecognized_reason = "no_dynamic_plugin"
+            return None
+        self._recognized = (dyn, dyn_weight, tracker, tuple(order))
+        return self._recognized
+
+    def _count_fallback(self, reason: str) -> None:
+        self._fallbacks[reason] = self._fallbacks.get(reason, 0) + 1
+
+    def snapshot(self) -> list:
+        """Informer-style snapshot (``NodeInfo`` per node), cached on
+        ``cluster.sched_version``: our own binds fold in through
+        ``_note_bind`` instead of a rebuild per pod."""
+        v = self.cluster.sched_version
+        if self._cache is not None and self._cache[0] == v:
+            return self._cache[1]
+        pods_by_node: dict[str, list[Pod]] = {}
+        for pod in self.cluster.list_pods():
+            if pod.node_name:
+                pods_by_node.setdefault(pod.node_name, []).append(pod)
+        snap = [
+            NodeInfo(node=node, pods=pods_by_node.get(node.name, []))
+            for node in self.cluster.list_nodes()
+        ]
+        self._cache = (v, snap)
+        return snap
+
+    def _note_bind(self, pod_key: str, node_name: str, pre_version: int, was_bound: bool) -> None:
+        """Fold our own bind into the cached snapshot. Valid only when
+        ``pre_version`` (read just before binding) still matches the
+        cache's version: a concurrent writer's interleaved bump drops the
+        cache instead. A clean fold stamps ``pre_version + 1`` (our bind's
+        bump). A re-placement (``was_bound``) also drops it: the pod's old
+        entry would linger on its former node."""
+        cache = self._cache
+        if cache is None:
+            return
+        if cache[0] != pre_version or was_bound:
+            self._cache = None
+            return
+        bound = self.cluster.get_pod(pod_key)
+        if bound is None:
+            return
+        for node_info in cache[1]:
+            if node_info.node is not None and node_info.node.name == node_name:
+                node_info.pods.append(bound)
+                break
+        self._cache = (pre_version + 1, cache[1])
+
+    def schedule_one(self, pod: Pod) -> ScheduleResult:
+        """Columnar fast path when the plugin set and the pod qualify,
+        the scalar loop (the parity oracle) otherwise."""
+        if self._columnar:
+            rec = self._recognition()
+            if rec is None:
+                self._count_fallback(self._unrecognized_reason)
+            else:
+                fallback = self._columnar_ineligible(pod, rec)
+                if fallback is None:
+                    return self._schedule_one_columnar(pod, rec)
+                self._count_fallback(fallback)
+        return self._schedule_one_scalar(pod)
+
+    @staticmethod
+    def _columnar_ineligible(pod: Pod, rec) -> str | None:
+        """Per-pod reasons the cached columns cannot express."""
+        dyn, _w, tracker, _order = rec
+        if pod.is_daemonset_pod():
+            return "daemonset"  # Dynamic Filter bypass is per-pod
+        if dyn.degraded is not None and dyn.degraded.active:
+            return "degraded"  # spread scoring reads per-node pod lists
+        if tracker is not None:
+            from ..fit.tracker import pod_fit_request
+
+            if pod_fit_request(pod).scalar_resources:
+                return "scalar_request"  # extended resources: dict path
+        return None
+
+    def _hook_lists(self) -> _Hooks:
+        hooks = self._hooks
+        if hooks is None:
+            hooks = self._hooks = _Hooks(self._plugins)
+        return hooks
+
+    def _schedule_one_scalar(self, pod: Pod) -> ScheduleResult:
+        state = CycleState()
+        nodes = self.snapshot()
+        hooks = self._hook_lists()
+
+        for pre in hooks.pre_filter:
+            status = pre(state, pod)
+            if not status.ok():
+                return ScheduleResult(pod.key(), None, 0, status.reason)
+
+        feasible = []
+        last_reason = ""
+        filters = hooks.filter
+        for node_info in nodes:
+            verdict = None
+            for flt in filters:
+                status = flt(state, pod, node_info)
+                if not status.ok():
+                    verdict = status
+                    break
+            if verdict is None:
+                feasible.append(node_info)
+            else:
+                last_reason = verdict.reason
+        if not feasible:
+            return ScheduleResult(pod.key(), None, 0, last_reason or "no feasible nodes")
+
+        # Score: weighted sum over score plugins
+        totals: dict[str, int] = {}
+        for node_info in feasible:
+            total = 0
+            for scr, weight in hooks.score:
+                try:
+                    value, status = scr(state, pod, node_info)
+                except TypeError:
+                    value, status = scr(state, pod, node_info.node.name)
+                if not status.ok():
+                    value = 0
+                total += value * weight
+            totals[node_info.node.name] = total
+
+        # max score, first (snapshot order) among ties, or seeded-random
+        # among ties when tie_break_seed is set
+        best = max(feasible, key=lambda ni: totals[ni.node.name])
+        if self._tie_rng is not None:
+            top = totals[best.node.name]
+            ties = [ni for ni in feasible if totals[ni.node.name] == top]
+            if len(ties) > 1:
+                best = ties[self._tie_rng.randrange(len(ties))]
+        best_name = best.node.name
+
+        for rsv in hooks.reserve:
+            status = rsv(state, pod, best_name)
+            if not status.ok():
+                self._unreserve(state, pod, best_name)
+                return ScheduleResult(pod.key(), None, len(feasible), status.reason)
+        for pb in hooks.pre_bind:
+            status = pb(state, pod, best_name)
+            if not status.ok():
+                self._unreserve(state, pod, best_name)
+                return ScheduleResult(pod.key(), None, len(feasible), status.reason)
+
+        if verbosity() >= 3:
+            vlog(3, f"schedule_one {pod.key()}: {len(feasible)} feasible, "
+                    f"picked {best_name} score {totals[best_name]}")
+        prev = self.cluster.get_pod(pod.key())
+        was_bound = prev is not None and bool(prev.node_name)
+        pre_version = self.cluster.sched_version
+        if not self.cluster.bind_pod(pod.key(), best_name, self._clock()):
+            # a failed bind must not stamp the snapshot cache: a phantom
+            # pod at pre_version+1 would poison it
+            self._unreserve(state, pod, best_name)
+            return ScheduleResult(pod.key(), None, len(feasible), "bind failed")
+        self._note_bind(pod.key(), best_name, pre_version, was_bound)
+        return ScheduleResult(pod.key(), best_name, len(feasible), scores=totals)
+
+    def _unreserve(self, state, pod: Pod, node_name: str) -> None:
+        for un in self._hook_lists().unreserve:
+            un(state, pod, node_name)
+
+    def _ensure_drip(self, rec):
+        from .drip import DripColumns
+
+        drip = self._drip
+        if drip is None:
+            dyn, dyn_weight, tracker, order = rec
+            drip = self._drip = DripColumns(self.cluster, dyn, dyn_weight, order,
+                                            fit_tracker=tracker)
+        return drip
+
+    @staticmethod
+    def _lazy_views(drip, vec):
+        """Closures over the current columns: a lazy mask (materialized
+        only when read) feeding the score dict, top-k and filter-reason
+        builders."""
+        names = drip.names
+        weighted = drip.weighted
+        mask_fn = drip.mask_closure(vec)
+
+        def lazy_scores():
+            return {names[int(i)]: int(weighted[i]) for i in np.flatnonzero(mask_fn())}
+
+        def lazy_topk(k):
+            import heapq
+
+            return heapq.nsmallest(
+                k,
+                ((names[int(i)], int(weighted[i])) for i in np.flatnonzero(mask_fn())),
+                key=lambda kv: (-kv[1], kv[0]),
+            )
+
+        def reasons():
+            return drip.reason_counts(mask_fn(), vec)
+
+        return lazy_scores, lazy_topk, reasons
+
+    @staticmethod
+    def _result(views, key, node, feasible, reason="") -> ScheduleResult:
+        """A result over ``views`` (``_lazy_views``): the columns as they
+        were when the views were taken."""
+        lazy_scores, lazy_topk, reasons_fn = views
+        if node is None:
+            result = ScheduleResult(key, None, feasible, reason)
+        else:
+            result = ScheduleResult(key, node, feasible,
+                                    lazy_scores=lazy_scores, lazy_topk=lazy_topk)
+        result._reasons_fn = reasons_fn
+        return result
+
+    def _schedule_one_columnar(self, pod: Pod, rec) -> ScheduleResult:
+        """Vectorized drip placement over the cached cluster columns: an
+        incremental segment-max read with the scalar loop's host selection
+        — the tree's first-max descent matches ``np.argmax``, and the
+        seeded tie-break consumes the RNG exactly like the scalar path, one
+        ``randrange`` per real tie, selecting the r-th tie in snapshot
+        order."""
+        dyn, _dyn_weight, tracker, _order = rec
+        drip = self._ensure_drip(rec)
+        # the Dynamic plugin's own clock: the scalar oracle stamps
+        # freshness with dyn._clock(), and parity pins to that
+        drip.ensure(dyn._clock())
+        names = drip.names
+        n = len(names)
+        vec = None
+        if tracker is not None:
+            from ..fit.tracker import pod_fit_request, request_vec
+
+            vec = request_vec(pod_fit_request(pod))
+        tree = drip.topk_for(vec)
+        count = tree.feasible_count
+        key = pod.key()
+        # taken before the bind: a re-placement drops the fit column, and
+        # the views keep reading the columns this decision was made on
+        views = self._lazy_views(drip, vec)
+        if count == 0:
+            # scalar parity: the reported reason is the last infeasible
+            # node's verdict in snapshot order
+            reason = drip.reason_for(n - 1, vec) if n else ""
+            return self._result(views, key, None, 0, reason or "no feasible nodes")
+
+        best_i = tree.argmax_first()
+        if self._tie_rng is not None:
+            n_ties = tree.tie_count
+            if n_ties > 1:
+                best_i = tree.select_tie(self._tie_rng.randrange(n_ties))
+        best_name = names[best_i]
+        if verbosity() >= 3:
+            vlog(3, f"schedule_one {key}: {count} feasible, "
+                    f"picked {best_name} score {int(drip.weighted[best_i])}")
+
+        prev = self.cluster.get_pod(key)
+        was_bound = prev is not None and bool(prev.node_name)
+        pre_version = self.cluster.sched_version
+        pre_pod = self.cluster.pod_version
+        if not self.cluster.bind_pod(key, best_name, self._clock()):
+            # same contract as the scalar loop: no snapshot stamp, no fold
+            return self._result(views, key, None, count, "bind failed")
+        self._note_bind(key, best_name, pre_version, was_bound)
+        drip.note_bind(best_i, vec, pre_pod, was_bound)
+        return self._result(views, key, best_name, count)
+
+    # -- the batched window ----------------------------------------------
+
+    def _window_fence(self) -> tuple:
+        cluster = self.cluster
+        return (cluster.sched_version, cluster.pod_version, cluster.node_version)
+
+    def _queue_fallback(self, pod: Pod, rec) -> str | None:
+        """Why ``pod`` cannot join a window: a columnar fallback reason, or
+        "rebind" for a re-placement, which moves load off a node mid-window
+        (the per-pod path handles it and drops the fit column)."""
+        fallback = self._columnar_ineligible(pod, rec)
+        if fallback is None:
+            prev = self.cluster.get_pod(pod.key())
+            if prev is not None and prev.node_name:
+                fallback = "rebind"
+        return fallback
+
+    @staticmethod
+    def _request_row(pod: Pod, rec):
+        from ..fit.tracker import pod_fit_request, request_vec
+
+        return request_vec(pod_fit_request(pod)) if rec[2] is not None else None
+
+    def schedule_queue(self, pods, window: int = 32) -> list[ScheduleResult]:
+        """Batched drip: coalesce pending pods into dispatch windows for
+        ``scorer.drip_batch`` — one window of K dependent steps, one
+        device-to-host copy, one bulk ``bind_pods`` — and route everything
+        the columns cannot express (daemonset / degraded / scalar request /
+        unrecognized plugin set / re-placement) through ``schedule_one`` at
+        its queue position.
+
+        Placements are identical to ``schedule_one`` per pod in order: a
+        window only spans pods that observed identical cluster versions
+        (an interleaved write flushes the open window first), the window
+        folds sequentially so later pods see earlier binds, and under a
+        seeded tie-break any window whose results report a real tie is
+        replayed through the per-pod columnar path, consuming the RNG call
+        for call."""
+        results: list[ScheduleResult] = []
+        rec = self._recognition() if self._columnar and window > 1 else None
+        if rec is None:
+            for pod in pods:
+                results.append(self.schedule_one(pod))
+            return results
+        buf: list = []  # (pod, request vec) rows of the open window
+        fence = None  # cluster versions the open window observed
+        for pod in pods:
+            fallback = self._queue_fallback(pod, rec)
+            if buf and (fallback is not None or self._window_fence() != fence):
+                self._dispatch_window(buf, rec, results)
+                buf = []
+            if fallback is not None:
+                # schedule_one re-derives and counts the fallback itself
+                results.append(self.schedule_one(pod))
+                continue
+            if not buf:
+                fence = self._window_fence()
+            buf.append((pod, self._request_row(pod, rec)))
+            if len(buf) >= window:
+                self._dispatch_window(buf, rec, results)
+                buf = []
+        if buf:
+            self._dispatch_window(buf, rec, results)
+        return results
+
+    def _dispatch_window(self, buf, rec, results, _retry: int = 0) -> None:
+        """One coalesced window: dispatch, then either accept (bulk bind +
+        sequential host folds under the pre -> pre+n_bound stamp
+        discipline) or replay per-pod (seeded tie in the window). The
+        window is pure with respect to the host columns, so rejecting it
+        costs only its own time.
+
+        Under ``conflict_retry`` the window re-reads the pod_version fence
+        after the window and before the bind POSTs: a competing binder
+        moving it means the placements were computed over stale free
+        columns, so the window drops and retries at queue position
+        (``_retry`` bounds the loop; exhaustion falls back to the per-pod
+        path)."""
+        from ..scorer.drip_batch import DripBatchKernel
+
+        dyn, _dyn_weight, tracker, _order = rec
+        if self.bind_backpressure is not None:
+            self.bind_backpressure()
+        k = len(buf)
+        drip = self._ensure_drip(rec)
+        drip.ensure(dyn._clock())
+        names = drip.names
+        n = len(names)
+        vecs = np.zeros((k, 4), dtype=np.int64)
+        if tracker is not None:
+            for i, (_pod, vec) in enumerate(buf):
+                vecs[i] = vec
+        kern = self._batch_kernel
+        if kern is None:
+            kern = self._batch_kernel = DripBatchKernel(device=self.device)
+        chosen, feasible, ties = kern.dispatch(
+            drip.schedulable, drip.weighted, drip.bounded, drip.free, vecs,
+            want_ties=self._tie_rng is not None, col_version=drip.col_epoch,
+        )
+        b = self._batch
+        b["dispatches"] += 1
+        b["pods"] += k
+        if len(b["batch_sizes"]) < 4096:
+            b["batch_sizes"].append(k)
+            b["kernel_seconds"].append(kern.last_kernel_seconds)
+
+        if (
+            self.conflict_retry
+            and tracker is not None
+            and drip.free is not None
+            and self.cluster.pod_version != drip._fit_pod_ver
+        ):
+            # nothing was POSTed (the window is pure): drop it and retry
+            # the pods at queue position over rebuilt columns; after
+            # max_window_retries take the serialized per-pod path
+            kern.mark_desynced()
+            drip.drop_fit()
+            b["conflicts"] += 1
+            if self.conflict_cb is not None:
+                self.conflict_cb("stale_window")
+            if _retry < self.max_window_retries:
+                self._dispatch_window(buf, rec, results, _retry + 1)
+            else:
+                for pod, _vec in buf:
+                    results.append(self.schedule_one(pod))
+            return
+
+        if self._tie_rng is not None and bool((ties > 1).any()):
+            # a real tie consumes seeded RNG the window cannot replay —
+            # re-run the whole window per-pod against the untouched host
+            # columns: identical placements and RNG consumption
+            kern.mark_desynced()
+            b["replays"] += 1
+            for pod, _vec in buf:
+                results.append(self.schedule_one(pod))
+            return
+
+        pairs = [
+            (pod.key(), names[int(chosen[i])])
+            for i, (pod, _vec) in enumerate(buf)
+            if chosen[i] >= 0
+        ]
+        pre_pod = self.cluster.pod_version
+        bound = self.cluster.bind_pods(pairs, self._clock()) if pairs else []
+        bound_set = set(bound)
+        n_bound = len(bound)
+        # fold discipline, checked once for the window: the fit column must
+        # still be at the pre-bind stamp and pod_version must have moved
+        # exactly by our own n_bound binds — then the window's sequential
+        # folds replay row by row on the host copy (so an infeasible pod's
+        # reason later in the window reads the free state the per-pod path
+        # would have seen)
+        ok_folds = (
+            tracker is not None
+            and drip.free is not None
+            and drip._fit_pod_ver == pre_pod
+            and self.cluster.pod_version == pre_pod + n_bound
+            and n_bound == len(pairs)
+        )
+        for i, (pod, vec) in enumerate(buf):
+            key = pod.key()
+            ci = int(chosen[i])
+            if ci < 0:
+                reason = drip.reason_for(n - 1, vec) if n else ""
+                result = self._result(self._lazy_views(drip, vec), key, None, 0,
+                                      reason or "no feasible nodes")
+            elif key in bound_set:
+                if ok_folds:
+                    drip.fold_row(ci, vec)
+                result = self._result(self._lazy_views(drip, vec), key, names[ci],
+                                      int(feasible[i]))
+            else:
+                result = self._result(self._lazy_views(drip, vec), key, None,
+                                      int(feasible[i]), "bind failed")
+            results.append(result)
+        if tracker is not None:
+            if ok_folds:
+                drip.commit_folds(pre_pod + n_bound)
+                # the host replayed the window's exact integer folds, so
+                # the device carry mirrors the host column bit for bit
+                kern.mark_synced(drip.free)
+            else:
+                drip.drop_fit()
+                kern.mark_desynced()
+
+    def open_queue(self, window: int = 32) -> "DripQueue":
+        """An incremental front end to ``schedule_queue`` for a serving
+        loop: pods arrive one at a time (``offer``), windows fire under the
+        batched path's fence and fallback discipline, and ``drain()``
+        flushes a half-filled window on demand (the SIGTERM hook)."""
+        return DripQueue(self, window)
+
+
+class DripQueue:
+    """Incremental drip window over a ``Scheduler`` (``open_queue``).
+
+    ``offer(pod)`` buffers columnar-eligible pods and dispatches a window
+    when it fills, when the cluster version fence moves, or when a
+    fallback pod interleaves — the window semantics of one
+    ``schedule_queue`` call spread across arrivals, so placements equal
+    the batched path's over the same pod sequence. ``drain()`` dispatches
+    whatever is buffered. Not thread-safe — one serving loop owns it."""
+
+    def __init__(self, scheduler: Scheduler, window: int = 32):
+        self._s = scheduler
+        self.window = max(1, int(window))
+        self.results: list[ScheduleResult] = []
+        self._buf: list = []  # (pod, request vec) rows of the open window
+        self._fence = None
+        self._rec = None  # recognition tuple the open window captured
+
+    def __len__(self) -> int:
+        return len(self._buf)
+
+    @property
+    def pending(self) -> list:
+        """Keys buffered in the open window (oldest first)."""
+        return [pod.key() for pod, _vec in self._buf]
+
+    def offer(self, pod) -> None:
+        s = self._s
+        rec = s._recognition() if s._columnar and self.window > 1 else None
+        if rec is None:
+            # scalar-pinned plugin set: nothing may sit buffered behind a
+            # per-pod decision (ordering), so flush, then go scalar
+            self.drain()
+            self.results.append(s.schedule_one(pod))
+            return
+        fallback = s._queue_fallback(pod, rec)
+        if self._buf and (
+            fallback is not None or s._window_fence() != self._fence or rec is not self._rec
+        ):
+            self.drain()
+        if fallback is not None:
+            # schedule_one re-derives and counts the fallback itself
+            self.results.append(s.schedule_one(pod))
+            return
+        if not self._buf:
+            self._fence = s._window_fence()
+            self._rec = rec
+        self._buf.append((pod, s._request_row(pod, rec)))
+        if len(self._buf) >= self.window:
+            self.drain()
+
+    def drain(self) -> int:
+        """Dispatch the open window (no-op when empty). Returns how many
+        buffered pods were dispatched."""
+        if not self._buf:
+            return 0
+        buf, self._buf = self._buf, []
+        self._s._dispatch_window(buf, self._rec, self.results)
+        return len(buf)
+
+    def take_results(self) -> list[ScheduleResult]:
+        out, self.results = self.results, []
+        return out

@@ -191,6 +191,9 @@ class NodeLoadStore:
     def __len__(self) -> int:
         return self._n
 
+    def node_id(self, name: str) -> int:
+        return self._index[name]
+
     @property
     def node_names(self) -> tuple[str, ...]:
         return tuple(self._names)

@@ -1,0 +1,72 @@
+"""Device mirrors of host numpy columns, keyed on identity, shape and version.
+
+Counterpart of ``DeviceColumnCache`` in ``crane_scheduler_tpu/parallel/
+sharded.py``, for one device. The drip batch kernel (``scorer.drip_batch``)
+dispatches against the same cluster columns for many windows in a row;
+re-uploading 50k-node columns per window would cost more than the window.
+Column rebuilds always replace the host arrays (``framework.drip`` never
+resizes in place), so object identity plus the caller's version is a sound
+cache key. The slot pins the host array, so an ``id()`` cannot be recycled
+while its key is live. ``prepare`` (e.g. a dtype cast) runs only on upload.
+
+Every upload copies, also on the CPU, so a device column never aliases the
+host array it mirrors. The reference's row-scatter ``delta_rows`` path and
+its mesh partitions wait for the dirty-name journal and the multi-GPU
+slice; ``set_partition`` takes the single-device token only.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+SINGLE_DEVICE = ("single",)
+
+
+def upload(host: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A private device copy of ``host`` (never a view of its memory)."""
+    return torch.from_numpy(np.ascontiguousarray(host)).to(device, copy=True)
+
+
+class DeviceColumnCache:
+    def __init__(self, device: torch.device):
+        self._device = device
+        self._slots: dict[str, tuple] = {}
+        self.uploads = 0
+        self._partition_token = None
+
+    def set_partition(self, token) -> bool:
+        """Declare the partitioning the cached columns are placed for.
+        Returns True (and drops every slot) when it changed from an
+        earlier token."""
+        if token != SINGLE_DEVICE:
+            raise NotImplementedError(
+                "only the single-device partition is ported (multi-GPU "
+                "placement meshes come with the multi-GPU slice)"
+            )
+        if token == self._partition_token:
+            return False
+        changed = self._partition_token is not None
+        self._partition_token = token
+        if changed:
+            self._slots.clear()
+        return changed
+
+    def put(self, name: str, arr: np.ndarray, version=0, prepare=None) -> torch.Tensor:
+        """Device tensor for ``arr``, uploading only when the ``(identity,
+        shape, version)`` key changed since the last call."""
+        key = (id(arr), arr.shape, version)
+        slot = self._slots.get(name)
+        if slot is not None and slot[0] == key:
+            return slot[1]
+        host = arr if prepare is None else prepare(arr)
+        dev = upload(host, self._device)
+        self._slots[name] = (key, dev, arr)
+        self.uploads += 1
+        return dev
+
+    def drop(self, name: str | None = None) -> None:
+        if name is None:
+            self._slots.clear()
+        else:
+            self._slots.pop(name, None)

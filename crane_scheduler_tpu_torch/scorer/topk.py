@@ -1,8 +1,9 @@
 """Gang (burst) scheduling: batched top-k with hot-value feedback.
 
 Counterpart of ``crane_scheduler_tpu/scorer/topk.py``: the numpy helpers
-are copies; ``GangScheduler`` is PyTorch, and its dense level totals go
-through ``gang_kernel.gang_totals`` (the CUDA kernel on CUDA tensors).
+and the drip path's ``SegMaxTree`` are copies; ``GangScheduler`` is
+PyTorch, and its dense level totals go through ``gang_kernel.gang_totals``
+(the CUDA kernel on CUDA tensors).
 
 The reference scheduler places one pod per cycle: Filter, Score, pick the
 best node (ref: k8s scheduleOne; the Dynamic score is pod-independent).
@@ -459,3 +460,132 @@ class GangScheduler:
             unassigned.to(torch.int32),
             waterline.to(torch.int32),
         )
+
+
+# ---------------------------------------------------------------------------
+# Incremental first-argmax: segment-max tree over a masked score column.
+# ---------------------------------------------------------------------------
+
+_SEG_MIN = np.int64(np.iinfo(np.int64).min)
+
+
+class SegMaxTree:
+    """Segment-max tree over a masked weighted-score column.
+
+    Copy of ``SegMaxTree`` in ``crane_scheduler_tpu/scorer/topk.py``.
+
+    The drip fast path picks ``argmax(where(mask, weighted, INT64_MIN))``
+    per pod — O(n) even when only one node changed since the last pod
+    (the previous bind's ``free -= request`` fold). This tree makes the
+    common drip cadence O(log n): build once per (column, request-vec)
+    pair, then each bind updates exactly the folded leaf.
+
+    Per heap node it keeps ``(max, count-of-max, feasible-count)`` over
+    the subtree, which is enough to reproduce every read the scalar
+    oracle's selection makes:
+
+    - ``argmax_first()`` — leftmost leaf attaining the root max, i.e.
+      exactly ``np.argmax``'s first-maximum rule (snapshot order).
+    - ``tie_count`` — how many *feasible* leaves attain the root max:
+      the seeded tie-break's ``ties.size`` without materializing ties.
+    - ``select_tie(r)`` — the r-th (0-based, snapshot order) leaf
+      attaining the root max: ``ties[r]`` without flatnonzero.
+    - ``feasible_count`` — ``count_nonzero(mask)``.
+
+    Build is O(n) vectorized (bottom-up level merges); ``update`` is
+    O(log n) Python scalars. Infeasible leaves carry ``INT64_MIN`` with
+    zero counts, so an all-infeasible (sub)tree reports max=INT64_MIN,
+    counts 0 — callers gate on ``feasible_count`` before selecting.
+    """
+
+    __slots__ = ("n", "_size", "_mx", "_cnt", "_feas")
+
+    def __init__(self, values: np.ndarray, feasible: np.ndarray):
+        """``values``: int64[n], already masked (INT64_MIN where the
+        node is infeasible). ``feasible``: bool[n]."""
+        n = int(len(values))
+        self.n = n
+        size = 1 << max(0, n - 1).bit_length() if n > 1 else 1
+        self._size = size
+        mx = np.full(2 * size, _SEG_MIN, dtype=np.int64)
+        cnt = np.zeros(2 * size, dtype=np.int64)
+        feas = np.zeros(2 * size, dtype=np.int64)
+        mx[size:size + n] = values
+        f = feasible.astype(np.int64)
+        cnt[size:size + n] = f
+        feas[size:size + n] = f
+        k = size
+        while k > 1:
+            k //= 2
+            lm, rm = mx[2 * k:4 * k:2], mx[2 * k + 1:4 * k:2]
+            lc, rc = cnt[2 * k:4 * k:2], cnt[2 * k + 1:4 * k:2]
+            right_wins = rm > lm
+            mx[k:2 * k] = np.where(right_wins, rm, lm)
+            cnt[k:2 * k] = np.where(
+                right_wins, rc, np.where(lm > rm, lc, lc + rc)
+            )
+            feas[k:2 * k] = feas[2 * k:4 * k:2] + feas[2 * k + 1:4 * k:2]
+        self._mx, self._cnt, self._feas = mx, cnt, feas
+
+    @property
+    def feasible_count(self) -> int:
+        return int(self._feas[1])
+
+    @property
+    def max_value(self) -> int:
+        return int(self._mx[1])
+
+    @property
+    def tie_count(self) -> int:
+        """Feasible leaves attaining the root max (0 when none are)."""
+        return int(self._cnt[1])
+
+    def argmax_first(self) -> int:
+        """Leftmost leaf index attaining the root max — bit-identical to
+        ``np.argmax`` over the masked column."""
+        mx = self._mx
+        m = mx[1]
+        i = 1
+        size = self._size
+        while i < size:
+            i *= 2
+            if mx[i] != m:
+                i += 1
+        return i - size
+
+    def select_tie(self, r: int) -> int:
+        """Index of the r-th (0-based, ascending) feasible leaf attaining
+        the root max — ``np.flatnonzero(ties)[r]`` without the scan."""
+        mx, cnt = self._mx, self._cnt
+        m = mx[1]
+        i = 1
+        size = self._size
+        while i < size:
+            i *= 2
+            c = cnt[i] if mx[i] == m else 0
+            if r >= c:
+                r -= int(c)
+                i += 1
+        return i - size
+
+    def update(self, i: int, value: int, feasible: bool) -> None:
+        """Point update of leaf ``i`` (O(log n)) — the drip fold's only
+        column maintenance: re-mask the bound node, leave n-1 alone."""
+        mx, cnt, feas = self._mx, self._cnt, self._feas
+        j = self._size + int(i)
+        f = 1 if feasible else 0
+        mx[j] = value if feasible else _SEG_MIN
+        cnt[j] = f
+        feas[j] = f
+        j //= 2
+        while j >= 1:
+            l, r = 2 * j, 2 * j + 1
+            lm, rm = mx[l], mx[r]
+            if lm > rm:
+                mx[j], cnt[j] = lm, cnt[l]
+            elif rm > lm:
+                mx[j], cnt[j] = rm, cnt[r]
+            else:
+                mx[j], cnt[j] = lm, cnt[l] + cnt[r]
+            feas[j] = feas[l] + feas[r]
+            j //= 2

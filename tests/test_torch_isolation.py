@@ -110,3 +110,32 @@ def test_kernel_wrappers_take_plain_version_only_on_cpu():
     totals = gang_kernel.gang_totals(scores, z, z + 3, z, g, 1, 102)
     assert totals.shape == (102,) and int(totals[0]) == 3 * n
     assert (score_kernel.KERNEL.launches, gang_kernel.KERNEL.launches) == before
+
+
+def test_drip_entry_points_without_device_need_cuda(monkeypatch):
+    from crane_scheduler_tpu_torch.cluster import ClusterState
+    from crane_scheduler_tpu_torch.config import (
+        SchedulerConfiguration,
+        SchedulerProfile,
+        build_scheduler_from_config,
+    )
+    from crane_scheduler_tpu_torch.framework.scheduler import Scheduler
+    from crane_scheduler_tpu_torch.policy import DEFAULT_POLICY
+    from crane_scheduler_tpu_torch.scorer.drip_batch import DripBatchKernel
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    config = SchedulerConfiguration(profiles=(SchedulerProfile(),))
+    for make in (lambda: Scheduler(ClusterState()), DripBatchKernel,
+                 lambda: build_scheduler_from_config(ClusterState(), config,
+                                                     policy=DEFAULT_POLICY)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    with pytest.raises(NotImplementedError, match="telemetry"):
+        Scheduler(ClusterState(), telemetry=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="mesh"):
+        Scheduler(ClusterState(), mesh=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="mesh"):
+        DripBatchKernel(mesh=object(), device="cpu")
+    # the CPU is used only when asked for
+    assert Scheduler(ClusterState(), device="cpu").device.type == "cpu"
+    assert DripBatchKernel(device="cpu").device.type == "cpu"
