@@ -84,10 +84,31 @@ non-zero without printing a result.
    (``columnar=False``) and ``schedule_queue`` on a scheduler from
    ``build_scheduler_from_config`` place alike, unseeded and with a seeded
    tie-break, where windows with ties replay per-pod (``replays > 0``) and
-   consume the seeded RNG as the scalar loop does.
+   consume the seeded RNG as the scalar loop does;
+15. telemetry: the burst path at full width (50,000 nodes, 100,000-pod
+   bursts, ``dtype=torch.float32``) on two schedulers over one cluster and
+   one clock, one with ``Telemetry()`` and one without, eleven bursts each
+   (one cold, ten warm), interleaved. Every burst passes
+   ``check_placement_parity`` and both place alike; the span trace holds the
+   burst's stages, the exposition parses in both formats, the registry's
+   ``crane_refresh_path_total`` equals ``refresh_stats``, and each burst
+   left one decision trace. Three more traced bursts run under
+   ``utils.profiling.torch_trace`` and ``chrome_trace`` (written under
+   ``crane_scheduler_tpu_torch/_build/telemetry/``), and the device trace
+   must hold both kernels (the profiler may drop a session's first device
+   records). Then the drip storm of drip_queue with
+   ``Telemetry(decision_sample_every=128)`` and without, each on its own
+   cluster: both place as drip_queue did, the registry counts 4,096
+   scheduled decisions and one window observation per dispatched window;
+   the storm again with decision traces sampled out, and the time of one
+   drip decision's build; then one window traced at a stride of 1 (every pod's decision, with its
+   top-5 over the feasible nodes) runs under
+   ``torch.cuda.set_sync_debug_mode("error")``, beside an untraced window.
+   The line carries the median warm burst and ms per pod with telemetry on
+   and off.
 
-Before each path (main path, delta, column, overlap, hybrid scorer, and the
-drip queue, serve and scalar phases) the kernels' launch counters are set
+Before each path (main path, delta, column, overlap, hybrid scorer, the
+drip queue, serve and scalar phases, and telemetry) the kernels' launch counters are set
 to 0, and after it each kernel the path runs must have launched; the
 ``kernels`` line lists the counts per path (the drip path runs neither
 kernel).
@@ -148,7 +169,9 @@ from crane_scheduler_tpu_torch.scorer.batched import BatchedScorer, PolicyConsta
 from crane_scheduler_tpu_torch.scorer.hybrid import HybridScorer
 from crane_scheduler_tpu_torch.scorer.parity import check_placement_parity
 from crane_scheduler_tpu_torch.scorer.topk import hot_penalty_steps
+from crane_scheduler_tpu_torch.telemetry import DecisionTraceBuffer, Telemetry, expfmt
 from crane_scheduler_tpu_torch.utils import format_local_time
+from crane_scheduler_tpu_torch.utils.profiling import chrome_trace, torch_trace
 
 SEED = 0
 N_NODES = 50_000
@@ -169,6 +192,12 @@ DRIP_PROFILED_WINDOWS = 3  # windows per torch.profiler session (about 2,000 eve
 DRIP_TIMED_DISPATCHES = 10
 DRIP_SCALAR_NODES = 2_000  # the scalar loop is O(plugins x nodes) per pod
 DRIP_SCALAR_PODS = 64
+TELEMETRY_BURSTS = 10  # warm bursts with telemetry on, and as many off
+TELEMETRY_TRACED_BURSTS = 3  # the profiler may drop a session's first device records
+TELEMETRY_DRIP_STRIDE = 128  # decision sampling stride of the traced drip storm
+TELEMETRY_OUT = "crane_scheduler_tpu_torch/_build/telemetry"  # span trace and torch trace
+BURST_SPANS = ("ingest", "prepare", "dispatch", "d2h_wait", "bind_flush", "h2d_prepare",
+               "risk_rescan")
 DRIP_ALLOCATABLE = {"cpu": "16", "memory": "64Gi", "ephemeral-storage": "100Gi", "pods": "110"}
 
 # H100 SXM published rates (NVIDIA data sheet; dense, non-tensor paths)
@@ -988,7 +1017,8 @@ def drip_scheduler(cluster: ClusterState, dev, **kw) -> Scheduler:
     """ResourceFit weight 1 and Dynamic weight 3 on a fixed clock."""
     clock = lambda: NOW  # noqa: E731
     sched = Scheduler(cluster, clock=clock, device=dev, **kw)
-    sched.register(ResourceFitPlugin(FitTracker(cluster)), weight=1)
+    tracker = FitTracker(cluster, telemetry=kw.get("telemetry"))
+    sched.register(ResourceFitPlugin(tracker), weight=1)
     sched.register(DynamicPlugin(DEFAULT_POLICY, clock=clock), weight=3)
     return sched
 
@@ -1141,6 +1171,206 @@ def phase_drip_scalar(dev) -> dict:
     return launches
 
 
+# -- telemetry on both paths ------------------------------------------------------
+
+def span_counts(tel: Telemetry) -> dict:
+    counts: dict = {}
+    for e in tel.export_chrome_trace()["traceEvents"]:
+        if e["ph"] == "X":
+            counts[e["name"]] = counts.get(e["name"], 0) + 1
+    return counts
+
+
+def check_exposition(tel: Telemetry) -> int:
+    """Both renders pass the strict parser; returns the family count."""
+    families = expfmt.parse_exposition(tel.render_prometheus())
+    expfmt.parse_exposition(tel.render_prometheus(openmetrics=True))
+    return len(families)
+
+
+def phase_telemetry_burst(annos) -> tuple:
+    """Interleaved warm bursts with telemetry on and off, on one cluster
+    and one clock; then one traced burst under ``torch_trace``."""
+    import pathlib
+
+    tel = Telemetry()
+    clock = Clock(NOW)
+    cluster = build_cluster(annos)
+    scheds = {
+        "on": BatchScheduler(cluster, DEFAULT_POLICY, dtype=torch.float32, clock=clock,
+                             telemetry=tel),
+        "off": BatchScheduler(cluster, DEFAULT_POLICY, dtype=torch.float32, clock=clock),
+    }
+    if scheds["off"]._telemetry is not None:
+        raise AssertionError("the scheduler without telemetry picked one up")
+    reset_launches()
+    ms = {"on": [], "off": []}
+    for k in range(TELEMETRY_BURSTS + 1):  # burst 0 is cold on both
+        clock.t = NOW + 12.0 * k
+        placed = {}
+        for mode in (("on", "off") if k % 2 == 0 else ("off", "on")):
+            sched = scheds[mode]
+            names = [f"tel-{mode}{k}-{i}" for i in range(BURST_PODS)]
+            t0 = time.perf_counter()
+            result = sched.schedule_pod_burst("telemetry", names)
+            ms[mode].append((time.perf_counter() - t0) * 1e3)
+            parity_check(sched, result, BURST_PODS)
+            if result.n_assigned != BURST_PODS:
+                raise AssertionError(f"telemetry {mode} burst {k}: {result.n_assigned} placed")
+            placed[mode] = np.asarray(result.node_idx)
+        if not np.array_equal(placed["on"], placed["off"]):
+            raise AssertionError(f"telemetry burst {k}: placements differ with telemetry on")
+    spans = span_counts(tel)
+    missing = [name for name in BURST_SPANS if not spans.get(name)]
+    if missing:
+        raise AssertionError(f"the span trace lacks {missing}: {spans}")
+    families = check_exposition(tel)
+    snap = tel.registry.snapshot()
+    stats = scheds["on"].refresh_stats
+    paths = sum(v for key, v in snap.items() if key.startswith("crane_refresh_path_total"))
+    if paths != sum(stats[p] for p in ("hit", "columns", "delta", "full")):
+        raise AssertionError(f"crane_refresh_path_total {paths} != refresh_stats {stats}")
+    decisions = tel.decisions.snapshot()
+    if len(decisions) != TELEMETRY_BURSTS + 1 or any(
+            d["source"] != "burst" or len(d["top_scores"]) != 5 for d in decisions):
+        raise AssertionError(f"{len(decisions)} decision traces for {TELEMETRY_BURSTS + 1} bursts")
+
+    # more traced bursts under torch.profiler, with the span trace beside them
+    out_dir = pathlib.Path(TELEMETRY_OUT)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for old in out_dir.glob("*.json"):
+        old.unlink()
+    traced_ms = []
+    before = {name: kernel.launches for name, kernel in KERNELS.items()}
+    with chrome_trace(tel.spans, str(out_dir / "spans.json")):
+        with torch_trace(str(out_dir)) as prof:
+            for k in range(TELEMETRY_TRACED_BURSTS):
+                clock.t += 12.0
+                names = [f"tel-traced{k}-{i}" for i in range(BURST_PODS)]
+                t0 = time.perf_counter()
+                scheds["on"].schedule_pod_burst("telemetry", names)
+                traced_ms.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+    (trace_file,) = out_dir.glob("*.pt.trace.json")
+    device_trace = json.loads(trace_file.read_text())["traceEvents"]
+    kernels_seen = {
+        name: sum(1 for e in device_trace if e.get("cat") == "kernel" and name in e.get("name", ""))
+        for name in ("score_nodes_kernel", "gang_totals_kernel")
+    }
+    traced_launches = {name: kernel.launches - before[name] for name, kernel in KERNELS.items()}
+    if not all(kernels_seen.values()):
+        raise AssertionError(f"the torch trace lacks a kernel: {kernels_seen}, "
+                             f"launched {traced_launches}")
+    launches = read_launches("telemetry")
+    warm = {mode: ms[mode][1:] for mode in ms}
+    med = {mode: statistics.median(warm[mode]) for mode in warm}
+    out = {
+        "nodes": N_NODES, "pods_per_burst": BURST_PODS, "bursts_each": TELEMETRY_BURSTS + 1,
+        "parity": "ok", "placements_equal_on_off": True,
+        "warm_median_ms_on": med["on"], "warm_median_ms_off": med["off"],
+        "overhead_ms": med["on"] - med["off"],
+        "pairwise_overhead_median_ms": statistics.median(
+            a - b for a, b in zip(warm["on"], warm["off"])),
+        "ms_per_burst_on": ms["on"], "ms_per_burst_off": ms["off"],
+        "spans": spans, "families": families, "decisions": len(decisions),
+        "refresh_stats": dict(stats), "traced_burst_ms": traced_ms,
+        "trace_files": sorted(p.name for p in out_dir.glob("*.json")),
+        "device_trace_kernels": kernels_seen, "traced_launches": traced_launches,
+        "device_trace_events": len(device_trace),
+        "profiled_device_us": {
+            e.key[:40]: e.self_device_time_total for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and ("score_nodes" in e.key or "gang_totals" in e.key)
+        },
+        "launches": launches,
+    }
+    log("telemetry_burst", **out)
+    return out, launches
+
+
+def drip_storm_ms(dev, annos, tel) -> tuple:
+    """config 15's storm after its warm-up window, on a fresh cluster:
+    (scheduler, cluster, results, wall ms of the storm)."""
+    cluster = drip_cluster(annos)
+    sched = drip_scheduler(cluster, dev, telemetry=tel)
+    sched.schedule_queue(storm(cluster, "warm", DRIP_WINDOW, cpu="100000"), window=DRIP_WINDOW)
+    pods = storm(cluster, "drip", DRIP_PODS)
+    t0 = time.perf_counter()
+    results = sched.schedule_queue(pods, window=DRIP_WINDOW)
+    return sched, cluster, results, (time.perf_counter() - t0) * 1e3
+
+
+def window_ms(sched: Scheduler, cluster: ClusterState, tag: str) -> float:
+    pods = storm(cluster, tag, DRIP_WINDOW)
+    t0 = time.perf_counter()
+    results = sched.schedule_queue(pods, window=DRIP_WINDOW)
+    wall = (time.perf_counter() - t0) * 1e3
+    if sum(r.node is not None for r in results) != DRIP_WINDOW:
+        raise AssertionError(f"{tag}: a pod of the window was not placed")
+    return wall
+
+
+def phase_telemetry_drip(dev, annos, queue_placements) -> dict:
+    """The drip storm with telemetry at a stride of 128 and without, then
+    one window traced at a stride of 1 under the sync debug mode."""
+    off, off_cluster, off_results, off_ms = drip_storm_ms(dev, annos, None)
+    tel = Telemetry(decision_sample_every=TELEMETRY_DRIP_STRIDE)
+    on, on_cluster, on_results, on_ms = drip_storm_ms(dev, annos, tel)
+    # the same with decision traces sampled out (only the first offer, a
+    # warm-up pod's, is built): the lifecycle, spans and counters alone
+    _, _, bare_results, bare_ms = drip_storm_ms(
+        dev, annos, Telemetry(decision_sample_every=1 << 30))
+    for mode, results in (("off", off_results), ("on", on_results), ("bare", bare_results)):
+        if placements(results) != queue_placements:
+            raise AssertionError(f"telemetry drip ({mode}): placements != drip_queue's")
+    # one decision entry of the storm's last pod, built five times
+    build = Scheduler._decision_builder(on_results[-1])
+    build_ms = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        entry = build()
+        build_ms.append((time.perf_counter() - t0) * 1e3)
+    if len(entry["top_scores"]) != 5:
+        raise AssertionError(f"a drip decision holds {entry['top_scores']}")
+    snap = tel.registry.snapshot()
+    scheduled = snap.get('crane_drip_decisions_total{outcome="scheduled"}')
+    windows = on.drip_stats()["batch"]["dispatches"]
+    observed = snap.get("crane_drip_batch_pods_count")
+    if scheduled != DRIP_PODS or observed != windows or windows != DRIP_PODS // DRIP_WINDOW + 1:
+        raise AssertionError(f"drip telemetry: {scheduled} scheduled, {observed} window "
+                             f"observations for {windows} windows")
+    storm_decisions = tel.decisions.stats()
+    families = check_exposition(tel)
+    # every pod's decision traced: the stride the reference defaults to
+    stride128 = tel.decisions
+    tel.decisions = DecisionTraceBuffer(capacity=DRIP_WINDOW, sample_every=1)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        stride1_ms = window_ms(on, on_cluster, "stride1")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    traced = tel.decisions.stats()["recorded"]
+    if traced != DRIP_WINDOW:
+        raise AssertionError(f"the stride-1 window traced {traced} decisions")
+    tel.decisions = stride128
+    out = {
+        "nodes": len(annos), "pods": DRIP_PODS, "window": DRIP_WINDOW,
+        "stride": TELEMETRY_DRIP_STRIDE, "placements_equal_to_drip_queue": True,
+        "ms_per_pod_on": on_ms / DRIP_PODS, "ms_per_pod_off": off_ms / DRIP_PODS,
+        "ms_per_pod_on_no_decisions": bare_ms / DRIP_PODS,
+        "wall_ms_on": on_ms, "wall_ms_off": off_ms, "windows": windows,
+        "decision_build_ms": build_ms,
+        "scheduled_decisions": scheduled, "storm_decisions": storm_decisions,
+        "families": families, "spans": span_counts(tel),
+        "stride1_window_ms": stride1_ms, "stride1_no_host_sync": True,
+        "stride128_window_ms": window_ms(on, on_cluster, "stride128"),
+        "off_window_ms": window_ms(off, off_cluster, "offwin"),
+    }
+    log("telemetry_drip", **out)
+    return out
+
+
 # per kernel in the `kernels` line: `ms` is the kernel's own device time
 KERNEL_KEYS = ("ms", "plain_ms", "bound_ms", "bound_by", "device_us", "bound_us",
                "pct_of_bound", "host_launch_ms", "device_launches_seen")
@@ -1180,6 +1410,8 @@ def main() -> int:
     _, queue_placed, by_path["drip_queue"] = phase_drip_queue(dev, drip_annos)
     _, by_path["drip_serve"] = phase_drip_serve(dev, drip_annos, queue_placed)
     by_path["drip_scalar"] = phase_drip_scalar(dev)
+    _, by_path["telemetry"] = phase_telemetry_burst(drip_annos)
+    phase_telemetry_drip(dev, drip_annos, queue_placed)
 
     kernels = [
         {

@@ -5,9 +5,10 @@ Counterpart of ``crane_scheduler_tpu/fit/tracker.py`` for the drip path:
 and ``alloc_version``, and the request/reason helpers. Allocatable rows
 refresh by a full identity sweep on every node-version change (the
 reference patches only journal-named nodes when the cluster keeps a
-dirty-name journal; the port's cluster does not yet). The gang solver's
-``free_copy_counts`` / ``copy_counts_rows`` and telemetry come with the
-slices that read them.
+dirty-name journal; the port's cluster does not yet, so the
+``crane_dirty_rows_total{consumer="fit"}`` counter is registered and
+stays 0). The gang solver's ``free_copy_counts`` / ``copy_counts_rows``
+come with the slice that reads them.
 
 ref: k8s.io/kubernetes/pkg/scheduler/framework/plugins/noderesources —
 the fit math (effective pod request = max(sum of containers, max over
@@ -139,7 +140,7 @@ class FitTracker:
     lookup.
     """
 
-    def __init__(self, cluster):
+    def __init__(self, cluster, telemetry=None):
         self._cluster = cluster
         self._lock = threading.Lock()
         self._node_ver = -1
@@ -167,6 +168,25 @@ class FitTracker:
         self._index_ver = 0
         self._aligned: list[tuple] = []  # (names_ref, index_ver, rows, known)
         self.mask_builds = 0  # aligned-gather rebuilds (regression gate)
+        self._telemetry = telemetry
+        if telemetry is not None:
+            reg = telemetry.registry
+            self._m_refresh = reg.counter(
+                "crane_fit_refresh_total",
+                "Fit-tracker requested-column refreshes by kind.",
+                ("kind",),
+            )
+            self._m_nodes = reg.gauge(
+                "crane_fit_tracked_nodes",
+                "Nodes with reported allocatable under fit accounting.",
+            )
+            # moves only with the dirty-name journal's O(dirty) patches
+            reg.counter(
+                "crane_dirty_rows_total",
+                "Rows patched via the dirty-name journal instead of a "
+                "full identity sweep, by consumer",
+                ("consumer",),
+            )
 
     # -- refresh -----------------------------------------------------------
 
@@ -197,12 +217,16 @@ class FitTracker:
             if changed is None:
                 self._recount_all_locked()
                 self._full_recounts += 1
+                if self._telemetry is not None:
+                    self._m_refresh.labels(kind="full").inc()
             else:
                 for name in changed:
                     i = self._index.get(name)
                     if i is not None:
                         self._recount_node_locked(name, i)
                 self._incremental_recounts += 1
+                if self._telemetry is not None:
+                    self._m_refresh.labels(kind="incremental").inc()
             self._req_dirty = False
             self._pod_ver = pv
 
@@ -279,6 +303,8 @@ class FitTracker:
                 changed += 1
         if changed:
             self.alloc_version += 1
+        if self._telemetry is not None:
+            self._m_nodes.set(int(self._has_alloc.sum()))
 
     def _recount_node_locked(self, name: str, i: int) -> None:
         row = np.zeros((_N_DIMS,), dtype=np.int64)

@@ -5,8 +5,8 @@ The reference's dirty-name journal consumers (``_apply_dirty``,
 ``_patch_dynamic``, the scatter log behind ``dirty_rows_between``) wait for
 the cluster's dirty-name journal; until then every node-version change
 takes the identity sweep, which is the reference's own behaviour on a
-cluster without ``dirty_nodes_since``. ``GangColumns`` comes with the gang
-queue.
+cluster without ``dirty_nodes_since`` (and ``crane_dirty_rows_total
+{consumer="drip"}`` stays 0). ``GangColumns`` comes with the gang queue.
 
 The scalar ``Scheduler._schedule_one`` loop is O(plugins x nodes) per
 pod. But the verdicts it computes are almost entirely pod-independent:
@@ -52,6 +52,7 @@ from ..scorer.columns import (
     fail_metric_names,
 )
 from ..scorer.topk import SegMaxTree
+from ..telemetry import maybe_span
 
 __all__ = ["DripColumns"]
 
@@ -78,6 +79,7 @@ class DripColumns:
         dyn_weight: int = 1,
         order=("dyn",),
         fit_tracker=None,
+        telemetry=None,
         bucket_seconds: float = 0.25,
     ):
         self.cluster = cluster
@@ -88,6 +90,7 @@ class DripColumns:
         # depends on it
         self._order = tuple(order)
         self._tracker = fit_tracker
+        self._telemetry = telemetry
         self._tensors = compile_policy(dyn.policy)
         self._store = NodeLoadStore(self._tensors)
         self._bucket_s = float(bucket_seconds)
@@ -133,6 +136,25 @@ class DripColumns:
             "hits": 0, "rebuilds": 0, "folds": 0, "drops": 0,
             "topk_builds": 0, "topk_updates": 0, "full_sweeps": 0,
         }
+        self._m_hits = self._m_rebuilds = None
+        if telemetry is not None:
+            reg = telemetry.registry
+            self._m_hits = reg.counter(
+                "crane_drip_column_hits_total",
+                "schedule_one calls served entirely from cached columns",
+            )
+            self._m_rebuilds = reg.counter(
+                "crane_drip_column_rebuilds_total",
+                "Drip column rebuilds by column family",
+                ("column",),
+            )
+            # moves only with the dirty-name journal's O(dirty) patches
+            reg.counter(
+                "crane_dirty_rows_total",
+                "Rows patched via the dirty-name journal instead of a "
+                "full identity sweep, by consumer",
+                ("consumer",),
+            )
 
     # -- cache maintenance -------------------------------------------------
 
@@ -150,11 +172,14 @@ class DripColumns:
         bucket = int(now / self._bucket_s) if self._bucket_s > 0 else 0
         sv = self._store.version
         if self.weighted is None or sv != self._store_ver or bucket != self._bucket:
-            self._rebuild_dynamic(now)
+            with maybe_span(self._telemetry, "drip_column_rebuild", column="dynamic"):
+                self._rebuild_dynamic(now)
             self._store_ver = sv
             self._bucket = bucket
             rebuilt = True
             self.stats["rebuilds"] += 1
+            if self._m_rebuilds is not None:
+                self._m_rebuilds.labels(column="dynamic").inc()
         if self._tracker is not None:
             pv = cluster.pod_version
             stale = (
@@ -163,28 +188,38 @@ class DripColumns:
                 or nv != self._fit_node_ver
             )
             if stale:
-                self._tracker.refresh()
-                av = self._tracker.alloc_version
-                if (
-                    self.free is not None
-                    and av == self._fit_alloc_ver
-                    and pv == self._fit_pod_ver
-                    and self._fit_names is self.names
-                ):
-                    # capacity rows and bound-pod state are both unchanged
-                    # (an annotation patch moved the node fence): the
-                    # aligned copies are still exact
-                    self._fit_node_ver = nv
-                else:
-                    self.bounded, self.free = self._tracker.free_matrix(self.names)
-                    self._fit_pod_ver = pv
-                    self._fit_node_ver = nv
-                    self._fit_alloc_ver = av
-                    self._fit_names = self.names
-                    rebuilt = True
-                    self.stats["rebuilds"] += 1
+                with maybe_span(self._telemetry, "drip_column_rebuild", column="fit"):
+                    rebuilt = self._refresh_fit(pv, nv) or rebuilt
         if not rebuilt:
             self.stats["hits"] += 1
+            if self._m_hits is not None:
+                self._m_hits.inc()
+
+    def _refresh_fit(self, pv: int, nv: int) -> bool:
+        """Refresh the tracker and, when capacity or bound pods moved, the
+        aligned fit columns; returns whether they were rebuilt."""
+        self._tracker.refresh()
+        av = self._tracker.alloc_version
+        if (
+            self.free is not None
+            and av == self._fit_alloc_ver
+            and pv == self._fit_pod_ver
+            and self._fit_names is self.names
+        ):
+            # capacity rows and bound-pod state are both unchanged (an
+            # annotation patch moved the node fence): the aligned copies
+            # are still exact
+            self._fit_node_ver = nv
+            return False
+        self.bounded, self.free = self._tracker.free_matrix(self.names)
+        self._fit_pod_ver = pv
+        self._fit_node_ver = nv
+        self._fit_alloc_ver = av
+        self._fit_names = self.names
+        self.stats["rebuilds"] += 1
+        if self._m_rebuilds is not None:
+            self._m_rebuilds.labels(column="fit").inc()
+        return True
 
     def _full_ingest(self, cluster) -> None:
         """The identity sweep: list every node, identity-gate every row."""

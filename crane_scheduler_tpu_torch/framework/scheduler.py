@@ -14,6 +14,15 @@ loops can overlap the refresh (``_OverlappedRefresh``) and the binds
 and the cluster, never a tensor. Placements are bit-identical to the reference: the same solver,
 the same ``_expand_counts`` order.
 
+Both schedulers take ``telemetry=`` (``crane_scheduler_tpu_torch.telemetry``)
+and fall back to the process-global instance (``telemetry.active()``,
+which honours ``CRANE_TELEMETRY=1``); with none, every hook is one
+attribute check. With it, the stages record spans (host enqueue time:
+no span waits on the device except ``d2h_wait`` and ``d2h_fetch``, which
+hold the fetch's own wait), ``refresh_stats`` mirrors into registry
+counters, each burst or drip decision offers a sampled trace, and a
+prefix of each burst's pods (every drip pod) is lifecycle-tracked.
+
 The Dynamic score is pod-independent, so a burst of non-DaemonSet pods
 shares one score vector; placement spreads via the in-batch hot-value
 penalty (see ``scorer.topk``). DaemonSet pods bypass Filter per the
@@ -38,6 +47,8 @@ from ..loadstore.store import NodeLoadStore
 from ..parallel.step import EPOCH_REBASE_SECONDS, PackedFetch, ScheduleStep
 from ..policy.compile import compile_policy
 from ..policy.types import DynamicSchedulerPolicy
+from ..telemetry import active as active_telemetry
+from ..telemetry import maybe_span, tracing
 from ..utils.logging import verbosity, vlog
 from .types import CycleState, NodeInfo
 
@@ -45,17 +56,45 @@ from .types import CycleState, NodeInfo
 BURST_STAGES = ("refresh", "prepare", "dispatch", "add_pod_burst", "wait", "expand", "bind")
 
 
-def _submit_fetch(pool, fetch: PackedFetch) -> Future:
+def _submit_fetch(pool, fetch: PackedFetch, telemetry=None) -> Future:
     """Future of a started device->host fetch: waited on the pool's worker
     when pipelining (the done-callback retrieves any exception, so an
-    abandoned generator leaves none unread), inline at depth 1."""
+    abandoned generator leaves none unread), inline at depth 1. With
+    telemetry the worker's wait is a ``d2h_fetch`` span on its own track."""
     if pool is None:
         fut = Future()
         fut.set_result(fetch.result())
         return fut
-    fut = pool.submit(fetch.result)
+    if telemetry is None:
+        fut = pool.submit(fetch.result)
+    else:
+        def _fetch():
+            with telemetry.spans.span("d2h_fetch"):
+                return fetch.result()
+
+        fut = pool.submit(_fetch)
     fut.add_done_callback(lambda f: f.cancelled() or f.exception())
     return fut
+
+
+class _MirroredStats(dict):
+    """``refresh_stats`` that folds each increment into a registry counter
+    (the positive deltas: counters only rise) and stays a plain dict for
+    every reader. The overlap worker's writes go through the same dict."""
+
+    __slots__ = ("_counters",)
+
+    def __init__(self, init: dict, counters: dict):
+        super().__init__(init)
+        self._counters = counters
+
+    def __setitem__(self, key, value):
+        counter = self._counters.get(key)
+        if counter is not None:
+            delta = value - self.get(key, 0)
+            if delta > 0:
+                counter.inc(delta)
+        super().__setitem__(key, value)
 
 
 @dataclass
@@ -141,6 +180,17 @@ class _OverlappedRefresh:
         self._pool.shutdown(wait=False, cancel_futures=True)
 
 
+def _burst_posted_pairs(tracked, node_idx, table):
+    """``(key, node)`` pairs for the lifecycle-tracked prefix of a burst
+    whose rows got a node (after reconciling with what bound)."""
+    pairs = []
+    for i, key in enumerate(tracked):
+        idx = int(node_idx[i])
+        if idx >= 0:
+            pairs.append((key, table[idx]))
+    return pairs
+
+
 class _BindFlushQueue:
     """Coalescing, overlapped bind flush for the pipelined loops: binds
     accumulate for up to a small time/size window, each window flushes as
@@ -163,23 +213,35 @@ class _BindFlushQueue:
         self._drained = threading.Condition(self._lock)
         self._error: BaseException | None = None
         self.stats = {"windows": 0, "flushed_pods": 0, "max_window_pods": 0}
+        tel = scheduler._telemetry
+        self._m_window_pods = self._m_window_seconds = None
+        if tel is not None:
+            reg = tel.registry
+            self._m_window_pods = reg.histogram(
+                "crane_bind_flush_window_pods",
+                "Pods coalesced into one bind flush window",
+            )
+            self._m_window_seconds = reg.histogram(
+                "crane_bind_flush_window_seconds",
+                "Open time of each bind flush window",
+            )
         self._worker = threading.Thread(target=self._run, daemon=True, name="bind-flush")
         self._worker.start()
 
     # -- producer side (scheduling thread) --------------------------------
 
-    def submit_batch(self, result: "BatchResult", now: float) -> None:
+    def submit_batch(self, result: "BatchResult", now: float, tracked=()) -> None:
         with self._lock:
             self._outstanding += 1
             self._outstanding_pods += len(result.assignments)
-        self._q.put(("batch", result, now))
+        self._q.put(("batch", result, now, tracked))
 
     def submit_burst(self, namespace: str, names: list, node_table, node_idx,
-                     result: "BurstResult", now: float) -> None:
+                     result: "BurstResult", now: float, tracked=()) -> None:
         with self._lock:
             self._outstanding += 1
             self._outstanding_pods += len(names)
-        self._q.put(("burst", namespace, names, node_table, node_idx, result, now))
+        self._q.put(("burst", namespace, names, node_table, node_idx, result, now, tracked))
 
     def wait_below(self, watermark: int) -> None:
         """Backpressure: block the producer until the un-flushed pod depth
@@ -242,7 +304,9 @@ class _BindFlushQueue:
     def _flush_window(self, window: list, open_seconds: float) -> None:
         count = sum(self._item_pods(i) for i in window)
         try:
-            self._flush_window_inner(window)
+            with maybe_span(self._scheduler._telemetry, "bind_flush", pods=count,
+                            cycles=len(window)):
+                self._flush_window_inner(window)
         except BaseException as exc:  # noqa: BLE001 — surfaced by flush()
             with self._lock:
                 self._error = exc
@@ -252,6 +316,9 @@ class _BindFlushQueue:
             self.stats["max_window_pods"] = max(self.stats["max_window_pods"], count)
             vlog(1, f"bind flush window: {count} pods across {len(window)} "
                     f"cycles, open {open_seconds * 1e3:.1f} ms")
+            if self._m_window_pods is not None:
+                self._m_window_pods.observe(count)
+                self._m_window_seconds.observe(open_seconds)
             with self._drained:
                 self._outstanding -= len(window)
                 self._outstanding_pods = max(0, self._outstanding_pods - count)
@@ -259,25 +326,30 @@ class _BindFlushQueue:
 
     def _flush_window_inner(self, window: list) -> None:
         cluster = self._scheduler.cluster
+        lc = self._scheduler._lifecycle
         batches = [i for i in window if i[0] == "batch"]
         bursts = [i for i in window if i[0] == "burst"]
+        posted = []  # (key, node) of the tracked pods that bound
         if batches:
             # one merged bind transaction for the window's batch results
             merged: dict = {}
-            for _, result, _now in batches:
+            for _, result, _now, _tr in batches:
                 merged.update(result.assignments)
             bound = set(cluster.bind_pods(merged, batches[-1][2]))
-            for _, result, _now in batches:
+            for _, result, _now, tracked in batches:
                 failed = [k for k in result.assignments if k not in bound]
                 for k in failed:
                     del result.assignments[k]
                 result.unassigned.extend(failed)
+                posted.extend((k, result.assignments[k]) for k in tracked
+                              if k in result.assignments)
         if bursts:
             # creations first (a bind of an uncreated pod is refused)
             handles = [cluster.add_pod_burst(ns, names)
-                       for _, ns, names, _t, _i, _r, _n in bursts]
+                       for _, ns, names, _t, _i, _r, _n, _tr in bursts]
             now = bursts[-1][6]
-            for handle, (_, _ns, _names, table, node_idx, result, _now) in zip(handles, bursts):
+            for handle, (_, _ns, _names, table, node_idx, result, _now, tracked) in zip(
+                    handles, bursts):
                 bound = cluster.bind_burst(handle, table, node_idx, now)
                 result.bound_rows = bound
                 node_idx = np.asarray(result.node_idx)
@@ -285,6 +357,9 @@ class _BindFlushQueue:
                     mask = np.zeros((len(node_idx),), dtype=bool)
                     mask[bound] = True
                     result.node_idx = np.where(mask, node_idx, -1).astype(np.int32)
+                posted.extend(_burst_posted_pairs(tracked, np.asarray(result.node_idx), table))
+        if posted:
+            lc.posted_batch(posted)
 
 
 class BatchScheduler:
@@ -310,10 +385,8 @@ class BatchScheduler:
         ``refresh_from_cluster=False`` and ``refresh`` re-ingests nothing;
         the store's versions still drive the device snapshot.
         ``device``: ``None`` means the GPU (raises without one); tests pass
-        ``"cpu"``. ``telemetry`` must be None: spans and counters are not
-        part of this port yet."""
-        if telemetry is not None:
-            raise NotImplementedError("telemetry is not ported; pass telemetry=None")
+        ``"cpu"``. ``telemetry``: a ``Telemetry`` bundle, else the
+        process-global one (``telemetry.active()``), else none."""
         self.cluster = cluster
         self.policy = policy
         self.tensors = compile_policy(policy)
@@ -327,14 +400,15 @@ class BatchScheduler:
         self._clock = clock
         self._bucket = snapshot_bucket
         self.device = resolve_device(device)
+        tel = self._telemetry = telemetry if telemetry is not None else active_telemetry()
         self._step = ScheduleStep(
-            self.tensors, dtype=dtype or torch.float64, device=self.device
+            self.tensors, dtype=dtype or torch.float64, device=self.device, telemetry=tel
         )
         self._hybrid = self._step.hybrid
         self.scorer = self._step.scorer
         self.gang = self._step.gang
         # which upload path served each _prepare call
-        self.refresh_stats = {
+        stats = {
             "hit": 0,  # unchanged store, resident snapshot reused
             "columns": 0,  # column-log replay ([N] vectors per column)
             "delta": 0,  # row-delta scatter
@@ -344,7 +418,25 @@ class BatchScheduler:
             # pipelined cycles served without waiting for an in-flight
             # background refresh (overlap_refresh)
             "overlap_hits": 0,
+            # refreshes from a kube mirror's decoded LIST columns, and those
+            # narrowed to its dirty-name journal: 0 until the port's
+            # cluster keeps either
+            "columnar_ingest": 0,
+            "dirty_ingest": 0,
         }
+        self.refresh_stats = stats if tel is None else _MirroredStats(
+            stats, self._stats_counters(tel.registry)
+        )
+        self._last_refresh_wall = 0.0  # decision-trace staleness anchor
+        # newest hot-value timestamp in the store: which annotator sync fed
+        # the scores a cycle consumed (lifecycle records carry it)
+        self.last_anno_ts: float | None = None
+        self._lifecycle = tel.lifecycle if tel is not None else None
+        # the allocatable accounting behind the gang solver's capacity floor
+        # (read from the gang queue on), on this scheduler's registry
+        from ..fit.tracker import FitTracker
+
+        self._fit = FitTracker(cluster, telemetry=tel)
         self._prepared = None  # resident PreparedSnapshot
         self._prepared_key = None  # store version it was built from
         self._prepared_layout = None  # store layout version it was built from
@@ -362,6 +454,35 @@ class BatchScheduler:
         # overlap_bind (``_BindFlushQueue.stats``), else None
         self.bind_flush_stats = None
 
+    @staticmethod
+    def _stats_counters(reg) -> dict:
+        """The registry counter each ``refresh_stats`` key folds into."""
+        path = reg.counter(
+            "crane_refresh_path_total", "Which upload path served each _prepare call",
+            ("path",),
+        )
+        counters = {k: path.labels(path=k) for k in ("hit", "columns", "delta", "full")}
+        counters["ingest_ms"] = reg.counter(
+            "crane_refresh_ingest_ms_total", "Host milliseconds spent in refresh() bulk ingest",
+        )
+        counters["risk_rescan_rows"] = reg.counter(
+            "crane_risk_rescan_rows_total", "Rows the hybrid f64 risk rescan touched",
+        )
+        counters["overlap_hits"] = reg.counter(
+            "crane_overlap_hits_total",
+            "Pipelined cycles served without blocking on an in-flight background refresh",
+        )
+        counters["columnar_ingest"] = reg.counter(
+            "crane_refresh_columnar_ingest_total",
+            "Store refreshes served straight from decoded LIST columns "
+            "(no Node-object round-trip)",
+        )
+        counters["dirty_ingest"] = reg.counter(
+            "crane_refresh_dirty_ingest_total",
+            "Columnar ingests narrowed to the dirty-name journal",
+        )
+        return counters
+
     def _stage(self, name: str, t0: float) -> float:
         t = time.perf_counter()
         self.burst_stage_ms[name] += (t - t0) * 1e3
@@ -371,12 +492,28 @@ class BatchScheduler:
         """Bulk re-ingest node annotations (the store is a cache). A
         direct-mode store skips this: the annotator keeps it current."""
         if not self._refresh_from_cluster:
+            self._update_anno_ts()  # the annotator owns the store
             return
         t0 = time.perf_counter()
-        nodes = self.cluster.list_nodes()
-        self.store.bulk_ingest((n.name, n.annotations) for n in nodes)
-        self.store.prune_absent(n.name for n in nodes)
+        with maybe_span(self._telemetry, "ingest"):
+            nodes = self.cluster.list_nodes()
+            self.store.bulk_ingest((n.name, n.annotations) for n in nodes)
+            self.store.prune_absent(n.name for n in nodes)
         self.refresh_stats["ingest_ms"] += (time.perf_counter() - t0) * 1e3
+        self._update_anno_ts()
+        self._last_refresh_wall = self._clock()
+
+    def _update_anno_ts(self) -> None:
+        """Track the newest hot-value timestamp in the store (the
+        annotator stamps one per sweep): one max over the host column,
+        only with telemetry."""
+        if self._telemetry is None:
+            return
+        n = len(self.store)
+        if n:
+            ts = float(self.store.hot_ts[:n].max())
+            if ts > float("-inf"):
+                self.last_anno_ts = ts
 
     def _note_rescan(self) -> None:
         """Fold the latest override refresh's scanned rows into
@@ -492,19 +629,45 @@ class BatchScheduler:
         return self._prepared
 
     def schedule_batch(self, pods: list[Pod], bind: bool = True) -> BatchResult:
+        tel = self._telemetry
+        lc = self._lifecycle
         now = self._clock()
-        self.refresh()
-        prepared = self._prepare(now)
-        # the cycle's single device->host fetch
-        packed = self._step.packed(prepared, len(pods), now=now).result()
-        keys = [pod.key() for pod in pods]
-        result = self._build_result(packed, keys, now=now)
-        if bind:
-            self._apply_binds(result, now)
+        ctx = tracing.new_context() if tel is not None else None
+        with tracing.use(ctx):
+            self.refresh()
+            with maybe_span(tel, "prepare"):
+                prepared = self._prepare(now)
+            with maybe_span(tel, "exec_fetch", pods=len(pods)):
+                # the cycle's single device->host fetch
+                packed = self._step.packed(prepared, len(pods), now=now).result()
+            keys = [pod.key() for pod in pods]
+            tracked = lc.seen_batch(keys) if lc is not None else ()
+            result = self._build_result(packed, keys, now=now)
+            self._mark_scored(tracked, ctx)
+            if bind:
+                with maybe_span(tel, "bind_flush"):
+                    self._apply_binds(result, now)
+                self._mark_posted_batch(tracked, result)
         if verbosity() >= 2:
             vlog(2, f"batch cycle: {len(result.assignments)}/{len(pods)} "
                     f"assigned, {len(result.unassigned)} unassigned")
         return result
+
+    def _mark_scored(self, tracked, ctx) -> None:
+        """Lifecycle ``scored`` for a cycle's tracked pods, with the cycle's
+        trace id and the annotator sync that fed its scores."""
+        if tracked:
+            self._lifecycle.stage_batch(
+                tracked, "scored",
+                cycle_trace=ctx.trace_id if ctx is not None else None,
+                anno_ts=self.last_anno_ts,
+            )
+
+    def _mark_posted_batch(self, tracked, result: BatchResult) -> None:
+        if tracked:
+            self._lifecycle.posted_batch(
+                [(k, result.assignments[k]) for k in tracked if k in result.assignments]
+            )
 
     def _apply_binds(self, result: BatchResult, now: float) -> None:
         """Bind the batch; keys ``bind_pods`` could not bind move to
@@ -544,24 +707,36 @@ class BatchScheduler:
             bind_window_s, bind_watermark_pods,
         )
 
-    def _dispatch_batch(self, pool, item, now: float, t: float, bind: bool, bindq):
+    def _dispatch_batch(self, pool, item, now: float, t: float, bind: bool, bindq, ctx):
         _, pods = item
-        prepared = self._prepare(now)
+        tel = self._telemetry
+        with maybe_span(tel, "prepare"):
+            prepared = self._prepare(now)
         t = self._stage("prepare", t)
-        fetch = self._step.packed(prepared, len(pods), now=now)
+        with maybe_span(tel, "dispatch", pods=len(pods)):
+            fetch = self._step.packed(prepared, len(pods), now=now)
         self._stage("dispatch", t)
-        return (_submit_fetch(pool, fetch), [pod.key() for pod in pods], now,
-                self._prepared_names, self._prepared_n)
+        keys = [pod.key() for pod in pods]
+        lc = self._lifecycle
+        tracked = lc.seen_batch(keys) if lc is not None else ()
+        return (_submit_fetch(pool, fetch, tel), keys, now,
+                self._prepared_names, self._prepared_n, tracked, ctx)
 
     def _drain_pipelined(self, pending, bind: bool, bindq=None) -> BatchResult:
-        fut, keys, now, names, n = pending
-        packed = fut.result()  # the only synchronization point
-        result = self._build_result(packed, keys, now=now, names=names, n=n)
-        if bind:
-            if bindq is not None:
-                bindq.submit_batch(result, now)
-            else:
-                self._apply_binds(result, now)
+        fut, keys, now, names, n, tracked, ctx = pending
+        tel = self._telemetry
+        with tracing.use(ctx):
+            with maybe_span(tel, "d2h_wait"):
+                packed = fut.result()  # the only synchronization point
+            result = self._build_result(packed, keys, now=now, names=names, n=n)
+            self._mark_scored(tracked, ctx)
+            if bind:
+                if bindq is not None:
+                    bindq.submit_batch(result, now, tracked)
+                else:
+                    with maybe_span(tel, "bind_flush"):
+                        self._apply_binds(result, now)
+                    self._mark_posted_batch(tracked, result)
         return result
 
     # -- columnar bursts (pods as rows, binds as one array transaction) ----
@@ -590,18 +765,28 @@ class BatchScheduler:
             overlap_refresh, overlap_bind, bind_window_s, bind_watermark_pods,
         )
 
-    def _dispatch_burst(self, pool, item, now: float, t: float, bind: bool, bindq):
+    def _dispatch_burst(self, pool, item, now: float, t: float, bind: bool, bindq, ctx):
         namespace, names = item
-        prepared = self._prepare(now)
+        tel = self._telemetry
+        with maybe_span(tel, "prepare"):
+            prepared = self._prepare(now)
         t = self._stage("prepare", t)
-        fetch = self._step.packed(prepared, len(names), now=now)
+        with maybe_span(tel, "dispatch", pods=len(names)):
+            fetch = self._step.packed(prepared, len(names), now=now)
         t = self._stage("dispatch", t)
         # with a bind queue the creation rides the flush worker, ordered
         # before the bind on its FIFO
         handle = self.cluster.add_pod_burst(namespace, names) if bind and bindq is None else None
         self._stage("add_pod_burst", t)
-        return (_submit_fetch(pool, fetch), namespace, names, handle, now,
-                self._prepared_names, self._prepared_n)
+        # a prefix sample is lifecycle-tracked; tracked[i] is row i
+        lc = self._lifecycle
+        tracked = (
+            lc.seen_batch([f"{namespace}/{nm}" for nm in names[:lc.batch_sample]],
+                          source="burst")
+            if lc is not None else ()
+        )
+        return (_submit_fetch(pool, fetch, tel), namespace, names, handle, now,
+                self._prepared_names, self._prepared_n, tracked, ctx)
 
     def _pipelined(self, items, dispatch, drain, bind: bool, depth: int,
                    overlap_refresh: bool, overlap_bind: bool,
@@ -618,23 +803,30 @@ class BatchScheduler:
         )
         bindq = _BindFlushQueue(self, window_s=bind_window_s) if bind and overlap_bind else None
         pending = deque()
+        # the prefix names the worker's span track ("d2h-prefetch_0")
         pool = (
-            ThreadPoolExecutor(max_workers=1, thread_name_prefix="d2h-fetch")
+            ThreadPoolExecutor(max_workers=1, thread_name_prefix="d2h-prefetch")
             if depth > 1 else None
         )
         self.bind_flush_stats = bindq.stats if bindq is not None else None
+        tel = self._telemetry
         try:
             for item in items:
                 if bindq is not None and bind_watermark_pods:
                     bindq.wait_below(bind_watermark_pods)
                 now = self._clock()
                 t = time.perf_counter()
-                if refresher is not None:
-                    refresher.tick()
-                else:
-                    self.refresh()
-                t = self._stage("refresh", t)
-                pending.append(dispatch(pool, item, now, t, bind, bindq))
+                # one trace per cycle: lifecycle records join the cycle
+                # that scored them (``cycle_trace``)
+                ctx = tracing.new_context() if tel is not None else None
+                with tracing.use(ctx):
+                    with maybe_span(tel, "refresh_tick"):
+                        if refresher is not None:
+                            refresher.tick()
+                        else:
+                            self.refresh()
+                    t = self._stage("refresh", t)
+                    pending.append(dispatch(pool, item, now, t, bind, bindq, ctx))
                 if len(pending) >= depth:
                     yield drain(pending.popleft(), bind, bindq)
             while pending:
@@ -648,47 +840,57 @@ class BatchScheduler:
                 pool.shutdown(wait=False, cancel_futures=True)
 
     def _drain_burst(self, item, bind: bool, bindq=None) -> BurstResult:
-        fut, namespace, names, handle, now, node_names, n = item
-        t = time.perf_counter()
-        packed = fut.result()  # the only synchronization point
-        t = self._stage("wait", t)
-        schedulable, scores, counts, _unassigned, _ = ScheduleStep.unpack(packed, n)
-        scores = np.asarray(scores)
-        counts = np.asarray(counts)
-        # same stable score-descending expansion as _expand_counts, kept
-        # columnar: order[i] is pod-row i's node row
-        by_score = np.argsort(-scores, kind="stable")
-        order = np.repeat(by_score, counts[by_score]).astype(np.int32)
-        node_idx = np.full((len(names),), -1, dtype=np.int32)
-        k = min(len(order), len(names))
-        node_idx[:k] = order[:k]
-        table = self._burst_node_table(node_names, n)
-        t = self._stage("expand", t)
-        bound = None
-        if bind and handle is not None:
-            bound = self.cluster.bind_burst(handle, table, node_idx, now)
-            if len(bound) != int((node_idx >= 0).sum()):
-                # reconcile with what actually bound (rows deleted between
-                # dispatch and drain)
-                mask = np.zeros((len(names),), dtype=bool)
-                mask[bound] = True
-                node_idx = np.where(mask, node_idx, -1).astype(np.int32)
-        result = BurstResult(
-            namespace=namespace,
-            names=names,
-            node_idx=node_idx,
-            node_table=table,
-            bound_rows=bound,
-            scores_row=scores,
-            schedulable_row=np.asarray(schedulable),
-            now=now,
-        )
-        if bind and bindq is not None:
-            # creation + bind run on the flush worker; bound_rows and
-            # node_idx settle when the window flushes
-            bindq.submit_burst(namespace, names, table, node_idx, result, now)
-        self._stage("bind", t)
-        return result
+        fut, namespace, names, handle, now, node_names, n, tracked, ctx = item
+        tel = self._telemetry
+        with tracing.use(ctx):
+            t = time.perf_counter()
+            with maybe_span(tel, "d2h_wait"):
+                packed = fut.result()  # the only synchronization point
+            t = self._stage("wait", t)
+            schedulable, scores, counts, _unassigned, _ = ScheduleStep.unpack(packed, n)
+            scores = np.asarray(scores)
+            counts = np.asarray(counts)
+            # same stable score-descending expansion as _expand_counts, kept
+            # columnar: order[i] is pod-row i's node row
+            by_score = np.argsort(-scores, kind="stable")
+            order = np.repeat(by_score, counts[by_score]).astype(np.int32)
+            node_idx = np.full((len(names),), -1, dtype=np.int32)
+            k = min(len(order), len(names))
+            node_idx[:k] = order[:k]
+            table = self._burst_node_table(node_names, n)
+            if tel is not None:
+                self._trace_batch_decision(tel, scores, schedulable, counts, n, node_names,
+                                           len(names), now, source="burst")
+            self._mark_scored(tracked, ctx)
+            t = self._stage("expand", t)
+            bound = None
+            if bind and handle is not None:
+                with maybe_span(tel, "bind_flush"):
+                    bound = self.cluster.bind_burst(handle, table, node_idx, now)
+                if len(bound) != int((node_idx >= 0).sum()):
+                    # reconcile with what actually bound (rows deleted between
+                    # dispatch and drain)
+                    mask = np.zeros((len(names),), dtype=bool)
+                    mask[bound] = True
+                    node_idx = np.where(mask, node_idx, -1).astype(np.int32)
+                if tracked:
+                    self._lifecycle.posted_batch(_burst_posted_pairs(tracked, node_idx, table))
+            result = BurstResult(
+                namespace=namespace,
+                names=names,
+                node_idx=node_idx,
+                node_table=table,
+                bound_rows=bound,
+                scores_row=scores,
+                schedulable_row=np.asarray(schedulable),
+                now=now,
+            )
+            if bind and bindq is not None:
+                # creation + bind run on the flush worker; bound_rows and
+                # node_idx settle when the window flushes
+                bindq.submit_burst(namespace, names, table, node_idx, result, now, tracked)
+            self._stage("bind", t)
+            return result
 
     def _burst_node_table(self, node_names, n: int) -> tuple:
         """The burst's node table as a stable, immutable tuple cached on
@@ -714,6 +916,37 @@ class BatchScheduler:
         unassigned = list(keys[len(order):])
         return assignments, unassigned
 
+    def _trace_batch_decision(self, tel, scores, schedulable, counts, n, names, num_pods,
+                              now, source: str) -> None:
+        """Offer one sampled decision trace for a whole batch or burst (its
+        pods are interchangeable: the cycle is the decision): the top-5
+        scores with their placement counts, the feasible-node count and the
+        age of the last completed ingest. Reads the unpacked host arrays
+        only; the argpartition runs only when the stride keeps the entry."""
+
+        def _build():
+            body = np.asarray(scores[:n])
+            k = min(5, n)
+            idx = np.argpartition(-body, k - 1)[:k] if n > k else np.arange(n)
+            idx = idx[np.argsort(-body[idx], kind="stable")]
+            assigned = int(np.asarray(counts[:n]).sum())
+            return {
+                "pod": f"{source}[{num_pods}]",
+                "node": None,
+                "reason": "" if assigned >= num_pods else f"{num_pods - assigned} unassigned",
+                "feasible": int(np.asarray(schedulable[:n]).sum()),
+                "top_scores": [(names[int(i)], int(body[int(i)])) for i in idx],
+                "staleness_seconds": (
+                    now - self._last_refresh_wall if self._last_refresh_wall else -1.0
+                ),
+                "source": source,
+                "counts_top": {
+                    names[int(i)]: int(counts[int(i)]) for i in idx if int(counts[int(i)])
+                },
+            }
+
+        tel.decisions.offer(_build)
+
     def _build_result(self, packed, keys, now: float, names=None, n=None) -> BatchResult:
         """Host result of one batch; ``names``/``n`` default to the current
         prepared snapshot (the pipelined loop passes the values captured
@@ -721,6 +954,9 @@ class BatchScheduler:
         if names is None:
             names, n = self._prepared_names, self._prepared_n
         schedulable, scores, counts, _unassigned, _ = ScheduleStep.unpack(packed, n)
+        if self._telemetry is not None:
+            self._trace_batch_decision(self._telemetry, scores, schedulable, counts, n, names,
+                                       len(keys), now, source="batch")
         assignments, unassigned = self._expand_counts(scores, counts, names, keys)
         return BatchResult(
             assignments=assignments,
@@ -845,12 +1081,11 @@ class Scheduler:
         path whenever the plugin set and the pod allow it; placements are
         identical to the scalar loop. ``device``: where the batched window
         runs; ``None`` means the GPU (raises without one), tests pass
-        ``"cpu"``. ``telemetry`` and ``mesh`` must be None: spans and
-        counters, and the shard-parallel window, are not ported yet."""
+        ``"cpu"``. ``telemetry``: a ``Telemetry`` bundle, else the
+        process-global one (``telemetry.active()``), else none. ``mesh``
+        must be None: the shard-parallel window is not ported yet."""
         import random
 
-        if telemetry is not None:
-            raise NotImplementedError("telemetry is not ported; pass telemetry=None")
         if mesh is not None:
             raise NotImplementedError(
                 "mesh= is not ported: the shard-parallel drip window comes "
@@ -886,6 +1121,25 @@ class Scheduler:
         self.conflict_retry = False
         self.conflict_cb = None  # callable(outcome: str) | None
         self.max_window_retries = 4
+        tel = self._telemetry = telemetry if telemetry is not None else active_telemetry()
+        self._m_decisions = self._m_fallback = self._m_batch_pods = self._m_kernel_s = None
+        if tel is not None:
+            reg = tel.registry
+            self._m_decisions = reg.counter(
+                "crane_drip_decisions_total", "schedule_one outcomes", ("outcome",),
+            )
+            self._m_fallback = reg.counter(
+                "crane_drip_fallback_total",
+                "schedule_one calls that took the scalar fallback", ("reason",),
+            )
+            self._m_batch_pods = reg.histogram(
+                "crane_drip_batch_pods", "Pods per drip dispatch window",
+                buckets=(1, 2, 4, 8, 16, 32, 64, 128, 256),
+            )
+            self._m_kernel_s = reg.histogram(
+                "crane_drip_kernel_seconds", "Drip batch-kernel wall seconds per dispatch",
+                buckets=(0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 1.0),
+            )
 
     def register(self, plugin, weight: int = 1) -> None:
         """Order matters like the scheduler-config plugin list."""
@@ -952,6 +1206,8 @@ class Scheduler:
 
     def _count_fallback(self, reason: str) -> None:
         self._fallbacks[reason] = self._fallbacks.get(reason, 0) + 1
+        if self._m_fallback is not None:
+            self._m_fallback.labels(reason=reason).inc()
 
     def snapshot(self) -> list:
         """Informer-style snapshot (``NodeInfo`` per node), cached on
@@ -994,6 +1250,45 @@ class Scheduler:
         self._cache = (pre_version + 1, cache[1])
 
     def schedule_one(self, pod: Pod) -> ScheduleResult:
+        tel = self._telemetry
+        if tel is None:
+            return self._schedule_one(pod, None)
+        reasons: dict[str, int] = {}
+        # first-seen mints the pod's trace; the schedule_one span (and
+        # everything under it) parents to that root context
+        lc = tel.lifecycle
+        ctx = lc.seen(pod.key(), source="drip")
+        with tel.spans.span("schedule_one", ctx=ctx):
+            result = self._schedule_one(pod, reasons, lc=lc)
+        if result.node:
+            lc.posted(pod.key(), node=result.node)
+        self._m_decisions.labels(outcome="scheduled" if result.node else "failed").inc()
+        tel.decisions.offer(self._decision_builder(result, reasons))
+        return result
+
+    @staticmethod
+    def _decision_builder(result: ScheduleResult, reasons=None):
+        """The lazy decision-trace entry of one drip placement: runs only
+        when the sampling stride keeps it, and reads host columns only
+        (the columnar path's reason histogram is a closure; the scalar
+        loop's is the ``reasons`` dict it filled)."""
+
+        def build():
+            fr = result._reasons_fn() if result._reasons_fn is not None else (reasons or {})
+            return dict(
+                pod=result.pod_key,
+                node=result.node,
+                reason=result.reason,
+                feasible=result.feasible,
+                top_scores=result.top_scores(5),
+                staleness_seconds=-1.0,  # drip reads the live cluster mirror
+                source="drip",
+                filter_reasons=fr,
+            )
+
+        return build
+
+    def _schedule_one(self, pod: Pod, reasons: dict | None, lc=None) -> ScheduleResult:
         """Columnar fast path when the plugin set and the pod qualify,
         the scalar loop (the parity oracle) otherwise."""
         if self._columnar:
@@ -1003,9 +1298,9 @@ class Scheduler:
             else:
                 fallback = self._columnar_ineligible(pod, rec)
                 if fallback is None:
-                    return self._schedule_one_columnar(pod, rec)
+                    return self._schedule_one_columnar(pod, rec, lc=lc)
                 self._count_fallback(fallback)
-        return self._schedule_one_scalar(pod)
+        return self._schedule_one_scalar(pod, reasons, lc=lc)
 
     @staticmethod
     def _columnar_ineligible(pod: Pod, rec) -> str | None:
@@ -1028,7 +1323,8 @@ class Scheduler:
             hooks = self._hooks = _Hooks(self._plugins)
         return hooks
 
-    def _schedule_one_scalar(self, pod: Pod) -> ScheduleResult:
+    def _schedule_one_scalar(self, pod: Pod, reasons: dict | None = None,
+                             lc=None) -> ScheduleResult:
         state = CycleState()
         nodes = self.snapshot()
         hooks = self._hook_lists()
@@ -1052,8 +1348,12 @@ class Scheduler:
                 feasible.append(node_info)
             else:
                 last_reason = verdict.reason
+                if reasons is not None:
+                    reasons[verdict.reason] = reasons.get(verdict.reason, 0) + 1
         if not feasible:
             return ScheduleResult(pod.key(), None, 0, last_reason or "no feasible nodes")
+        if lc is not None:
+            lc.stage(pod.key(), "filtered")
 
         # Score: weighted sum over score plugins
         totals: dict[str, int] = {}
@@ -1093,6 +1393,10 @@ class Scheduler:
         if verbosity() >= 3:
             vlog(3, f"schedule_one {pod.key()}: {len(feasible)} feasible, "
                     f"picked {best_name} score {totals[best_name]}")
+        # stage marks land before the bind: a confirming watch event may
+        # finalize the record as soon as the bind is accepted
+        if lc is not None:
+            lc.stage(pod.key(), "scored", node=best_name)
         prev = self.cluster.get_pod(pod.key())
         was_bound = prev is not None and bool(prev.node_name)
         pre_version = self.cluster.sched_version
@@ -1115,7 +1419,7 @@ class Scheduler:
         if drip is None:
             dyn, dyn_weight, tracker, order = rec
             drip = self._drip = DripColumns(self.cluster, dyn, dyn_weight, order,
-                                            fit_tracker=tracker)
+                                            fit_tracker=tracker, telemetry=self._telemetry)
         return drip
 
     @staticmethod
@@ -1157,7 +1461,7 @@ class Scheduler:
         result._reasons_fn = reasons_fn
         return result
 
-    def _schedule_one_columnar(self, pod: Pod, rec) -> ScheduleResult:
+    def _schedule_one_columnar(self, pod: Pod, rec, lc=None) -> ScheduleResult:
         """Vectorized drip placement over the cached cluster columns: an
         incremental segment-max read with the scalar loop's host selection
         — the tree's first-max descent matches ``np.argmax``, and the
@@ -1187,6 +1491,8 @@ class Scheduler:
             # node's verdict in snapshot order
             reason = drip.reason_for(n - 1, vec) if n else ""
             return self._result(views, key, None, 0, reason or "no feasible nodes")
+        if lc is not None:
+            lc.stage(key, "filtered")
 
         best_i = tree.argmax_first()
         if self._tie_rng is not None:
@@ -1198,6 +1504,8 @@ class Scheduler:
             vlog(3, f"schedule_one {key}: {count} feasible, "
                     f"picked {best_name} score {int(drip.weighted[best_i])}")
 
+        if lc is not None:
+            lc.stage(key, "scored", node=best_name)
         prev = self.cluster.get_pod(key)
         was_bound = prev is not None and bool(prev.node_name)
         pre_version = self.cluster.sched_version
@@ -1294,26 +1602,33 @@ class Scheduler:
             self.bind_backpressure()
         k = len(buf)
         drip = self._ensure_drip(rec)
-        drip.ensure(dyn._clock())
-        names = drip.names
-        n = len(names)
-        vecs = np.zeros((k, 4), dtype=np.int64)
-        if tracker is not None:
-            for i, (_pod, vec) in enumerate(buf):
-                vecs[i] = vec
-        kern = self._batch_kernel
-        if kern is None:
-            kern = self._batch_kernel = DripBatchKernel(device=self.device)
-        chosen, feasible, ties = kern.dispatch(
-            drip.schedulable, drip.weighted, drip.bounded, drip.free, vecs,
-            want_ties=self._tie_rng is not None, col_version=drip.col_epoch,
-        )
+        tel = self._telemetry
+        now = dyn._clock()
+        with maybe_span(tel, "drip_dispatch", pods=k):
+            drip.ensure(now)
+            names = drip.names
+            n = len(names)
+            vecs = np.zeros((k, 4), dtype=np.int64)
+            if tracker is not None:
+                for i, (_pod, vec) in enumerate(buf):
+                    vecs[i] = vec
+            kern = self._batch_kernel
+            if kern is None:
+                kern = self._batch_kernel = DripBatchKernel(device=self.device)
+            chosen, feasible, ties = kern.dispatch(
+                drip.schedulable, drip.weighted, drip.bounded, drip.free, vecs,
+                want_ties=self._tie_rng is not None, col_version=drip.col_epoch,
+            )
+        dt = kern.last_kernel_seconds
         b = self._batch
         b["dispatches"] += 1
         b["pods"] += k
         if len(b["batch_sizes"]) < 4096:
             b["batch_sizes"].append(k)
-            b["kernel_seconds"].append(kern.last_kernel_seconds)
+            b["kernel_seconds"].append(dt)
+        if self._m_batch_pods is not None:
+            self._m_batch_pods.observe(k)
+            self._m_kernel_s.observe(dt)
 
         if (
             self.conflict_retry
@@ -1346,6 +1661,15 @@ class Scheduler:
                 results.append(self.schedule_one(pod))
             return
 
+        lc = tel.lifecycle if tel is not None else None
+        if lc is not None:
+            # stage marks precede the bind (as on the per-pod path)
+            for i, (pod, _vec) in enumerate(buf):
+                key = pod.key()
+                lc.seen(key, source="drip")
+                if chosen[i] >= 0:
+                    lc.stage(key, "filtered")
+                    lc.stage(key, "scored", node=names[int(chosen[i])])
         pairs = [
             (pod.key(), names[int(chosen[i])])
             for i, (pod, _vec) in enumerate(buf)
@@ -1378,11 +1702,16 @@ class Scheduler:
             elif key in bound_set:
                 if ok_folds:
                     drip.fold_row(ci, vec)
+                if lc is not None:
+                    lc.posted(key, node=names[ci])
                 result = self._result(self._lazy_views(drip, vec), key, names[ci],
                                       int(feasible[i]))
             else:
                 result = self._result(self._lazy_views(drip, vec), key, None,
                                       int(feasible[i]), "bind failed")
+            if tel is not None:
+                self._m_decisions.labels(outcome="scheduled" if result.node else "failed").inc()
+                tel.decisions.offer(self._decision_builder(result))
             results.append(result)
         if tracker is not None:
             if ok_folds:

@@ -24,8 +24,13 @@ SINGLE_DEVICE = ("single",)
 
 
 def upload(host: np.ndarray, device: torch.device) -> torch.Tensor:
-    """A private device copy of ``host`` (never a view of its memory)."""
-    return torch.from_numpy(np.ascontiguousarray(host)).to(device, copy=True)
+    """A private device copy of ``host`` (never a view of its memory). On
+    CUDA it goes through a pinned staging copy, non-blocking: the host
+    does not wait for it (a pageable copy would synchronise the stream)."""
+    t = torch.from_numpy(np.ascontiguousarray(host))
+    if device.type == "cpu":
+        return t.clone()
+    return t.pin_memory().to(device, non_blocking=True)
 
 
 class DeviceColumnCache:

@@ -28,6 +28,7 @@ variants, and so no out-of-range index.
 from __future__ import annotations
 
 import dataclasses
+import time
 from dataclasses import dataclass
 from typing import Any
 
@@ -39,6 +40,7 @@ from ..policy.compile import PolicyTensors
 from ..scorer.batched import BatchedScorer
 from ..scorer.hybrid import compute_overrides_incremental
 from ..scorer.topk import GangScheduler
+from ..telemetry import maybe_span
 
 # compact packed layout (single source of truth for pack AND unpack):
 # per-node uint32 = counts(COMPACT_COUNT_BITS) | score | schedulable(msb).
@@ -119,12 +121,17 @@ class PackedFetch:
 class ScheduleStep:
     """score + gang-assign on one device."""
 
-    def __init__(self, tensors: PolicyTensors, dtype=torch.float32, device=None):
+    def __init__(self, tensors: PolicyTensors, dtype=torch.float32, device=None,
+                 telemetry=None):
         """A float32 step is hybrid: every prepared snapshot carries
         host-computed f64 rescue rows (scorer.hybrid) that the step
         substitutes, giving bit-for-bit Go/f64 placement parity at f32
-        throughput. A float64 step is the parity mode itself."""
+        throughput. A float64 step is the parity mode itself.
+        ``telemetry``: optional spans for the uploads (``h2d_prepare``,
+        ``h2d_delta``, ``h2d_columns``) and the hybrid ``risk_rescan``;
+        they time the host's enqueue, never a device wait."""
         self.device = resolve_device(device)
+        self.telemetry = telemetry
         self.tensors = tensors
         self.hybrid = dtype != torch.float64
         self.scorer = BatchedScorer(tensors, dtype=dtype, device=self.device)
@@ -195,6 +202,10 @@ class ScheduleStep:
         once per refresh; the step then reruns against the resident
         tensors for any pod batch. Capacity is unbounded (1 << 30 per
         node) and offsets are zero: the plain Dynamic-score domain."""
+        with maybe_span(self.telemetry, "h2d_prepare", n=int(snapshot.n_nodes)):
+            return self._prepare_impl(snapshot, now)
+
+    def _prepare_impl(self, snapshot, now: float) -> PreparedSnapshot:
         np_dtype = self._np_dtype()
         ts = np.asarray(snapshot.ts, np.float64)
         hot_ts = np.asarray(snapshot.hot_ts, np.float64)
@@ -258,6 +269,17 @@ class ScheduleStep:
         timestamps are re-uploaded rebased around ``now``."""
         if not self.hybrid or (not force and prepared.ovr_now == float(now)):
             return prepared
+        tel = self.telemetry
+        if tel is None:
+            return self._with_overrides_impl(prepared, snapshot, now, force, dirty_rows)
+        t0 = time.perf_counter()
+        out = self._with_overrides_impl(prepared, snapshot, now, force, dirty_rows)
+        tel.spans.record("risk_rescan", t0, time.perf_counter(),
+                         args={"rows": int(out.ovr_rescan_rows)})
+        return out
+
+    def _with_overrides_impl(self, prepared: PreparedSnapshot, snapshot, now: float,
+                             force: bool, dirty_rows) -> PreparedSnapshot:
         age = abs(float(now) - prepared.epoch)
         if age > EPOCH_REBASE_SECONDS:  # hybrid is always non-f64
             np_dtype = np.float32
@@ -323,6 +345,13 @@ class ScheduleStep:
         k = len(rows)
         if k == 0:
             return prepared
+        with maybe_span(self.telemetry, "h2d_delta", rows=int(k)):
+            return self._apply_delta_impl(
+                prepared, rows, values_rows, ts_rows, hot_rows, hot_ts_rows
+            )
+
+    def _apply_delta_impl(self, prepared, rows, values_rows, ts_rows, hot_rows,
+                          hot_ts_rows) -> PreparedSnapshot:
         np_dtype = self._np_dtype()
         up = self._upload
         idx = up(np.asarray(rows, dtype=np.int64))
@@ -345,6 +374,10 @@ class ScheduleStep:
         verdicts equal a full ``prepare`` of the updated store at the same
         epoch; pad rows may differ (a uniform timestamp stamps them too,
         a whole hot-value write pads with NaN), and they never score."""
+        with maybe_span(self.telemetry, "h2d_columns", entries=int(len(entries))):
+            return self._apply_columns_impl(prepared, entries, n)
+
+    def _apply_columns_impl(self, prepared: PreparedSnapshot, entries, n: int) -> PreparedSnapshot:
         np_dtype = self._np_dtype()
         up = self._upload
         npad = int(prepared.capacity.shape[0])

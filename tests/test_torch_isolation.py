@@ -82,9 +82,16 @@ def test_batch_scheduler_without_device_needs_cuda(monkeypatch):
         BatchScheduler(ClusterState(), DEFAULT_POLICY)
     with pytest.raises(ValueError, match="unsupported device"):
         BatchScheduler(ClusterState(), DEFAULT_POLICY, device="meta")
-    # the CPU is used only when asked for
+    # the CPU is used only when asked for, with telemetry too
     sched = BatchScheduler(ClusterState(), DEFAULT_POLICY, device="cpu")
     assert sched.device.type == "cpu" and sched.gang.device.type == "cpu"
+    from crane_scheduler_tpu_torch.telemetry import Telemetry
+
+    tel = Telemetry()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        BatchScheduler(ClusterState(), DEFAULT_POLICY, telemetry=tel)
+    sched = BatchScheduler(ClusterState(), DEFAULT_POLICY, telemetry=tel, device="cpu")
+    assert sched._telemetry is tel and sched.device.type == "cpu"
 
 
 def test_kernel_wrappers_take_plain_version_only_on_cpu():
@@ -130,8 +137,14 @@ def test_drip_entry_points_without_device_need_cuda(monkeypatch):
                                                      policy=DEFAULT_POLICY)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
-    with pytest.raises(NotImplementedError, match="telemetry"):
-        Scheduler(ClusterState(), telemetry=object(), device="cpu")
+    # the port's Telemetry is accepted, and still only the CPU asked for
+    # runs without a GPU
+    from crane_scheduler_tpu_torch.telemetry import Telemetry
+
+    tel = Telemetry()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Scheduler(ClusterState(), telemetry=tel)
+    assert Scheduler(ClusterState(), telemetry=tel, device="cpu")._telemetry is tel
     with pytest.raises(NotImplementedError, match="mesh"):
         Scheduler(ClusterState(), mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="mesh"):
