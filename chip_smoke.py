@@ -105,11 +105,42 @@ non-zero without printing a result.
    top-5 over the feasible nodes) runs under
    ``torch.cuda.set_sync_debug_mode("error")``, beside an untraced window.
    The line carries the median warm burst and ms per pod with telemetry on
-   and off.
+   and off;
+16. drip_dirty: drip_queue's storm (counters on, decision traces sampled
+   out) with one ``patch_node_annotation`` every 8 windows on the node the
+   last pod went to (a low usage value, so it stays schedulable): equal pod
+   for pod to a twin's per-pod ``schedule_one`` with the same patches
+   before the same pods; no identity sweep after the warm-up window,
+   ``dirty_patches`` and ``dirty_rows`` equal to the patch count,
+   ``crane_dirty_rows_total{consumer="drip"}`` above 0, and after each patch
+   the window's column cache scatters the two dynamic columns and uploads
+   nothing. The line carries ms per pod beside drip_queue's;
+17. gang_queue: config 22 at 50,000 nodes (8 annotation variants, the drip
+   allocatable, 24 gangs cycling six request shapes, 224 pods, Dynamic
+   weight 3, topology weight 2). A sequential ``schedule_gang(bind=True)``
+   loop on a ``BatchScheduler(dtype=torch.float32)`` launches K1 and K2 once
+   per gang; on a twin cluster, one warm-up window of 8 infeasible gangs,
+   then ``schedule_gang_queue(window=8)`` over the same gangs launches K2
+   once per gang, with no fallback and every outcome from a window. Every
+   pod is placed, node for node the same across the sequential loop, the
+   window, ``gang_window_host`` and the window's plain version on CPU
+   tensors over the engine's own columns (capacity un-folded by hand), and
+   ``gang_assign_oracle`` for the first two gangs. Then one named patch's
+   ``ensure()`` (journal, ``dirty_patches`` + 1) against the same patch
+   after ``forget_dirty_names()`` (the identity sweep); one more window
+   under ``torch.cuda.set_sync_debug_mode("error")`` and one under
+   ``torch.profiler`` (device kernels, launches and busy us per window, idle
+   share, K2 launches per gang); and one ``schedule_batch_mixed`` burst of
+   the 224 pods as pending pods, float32 hybrid equal to float64. The line
+   carries ms per gang of each leg, dispatch host ms per window,
+   ``kernel_dispatches``, ``free_uploads`` and both ``ensure()`` times.
+   (config 22's wire leg waits for the kube mirror; clusters are built
+   with ``add_node``.)
 
 Before each path (main path, delta, column, overlap, hybrid scorer, the
-drip queue, serve and scalar phases, and telemetry) the kernels' launch counters are set
-to 0, and after it each kernel the path runs must have launched; the
+drip queue, serve, scalar and dirty phases, telemetry, and the gang
+sequential, window and mixed legs) the kernels' launch counters are set to
+0, and after it each kernel the path runs must have launched; the
 ``kernels`` line lists the counts per path (the drip path runs neither
 kernel).
 
@@ -198,6 +229,11 @@ TELEMETRY_DRIP_STRIDE = 128  # decision sampling stride of the traced drip storm
 TELEMETRY_OUT = "crane_scheduler_tpu_torch/_build/telemetry"  # span trace and torch trace
 BURST_SPANS = ("ingest", "prepare", "dispatch", "d2h_wait", "bind_flush", "h2d_prepare",
                "risk_rescan")
+DRIP_DIRTY_EVERY = 8  # windows between the drip_dirty phase's annotation patches
+GANG_SHAPES = ((500, 12), (1000, 8), (250, 16), (1500, 6), (750, 10), (2000, 4)) * 4
+GANG_WINDOW = 8
+GANG_DYN_W, GANG_TOPO_W = 3, 2  # Dynamic x3, topology x2: the deploy-config weights
+GANG_ORACLE_GANGS = 2  # the sequential oracle is O(pods x nodes) Python per gang
 DRIP_ALLOCATABLE = {"cpu": "16", "memory": "64Gi", "ephemeral-storage": "100Gi", "pods": "110"}
 
 # H100 SXM published rates (NVIDIA data sheet; dense, non-tensor paths)
@@ -1371,6 +1407,346 @@ def phase_telemetry_drip(dev, annos, queue_placements) -> dict:
     return out
 
 
+# -- the dirty-name journal and the gang queue ----------------------------------
+
+def phase_drip_dirty(dev, annos, queue_placements, queue_ms_per_pod: float) -> tuple:
+    """drip_queue's storm with one named annotation patch every 8 windows,
+    on a node among those filling up, against a twin's per-pod columnar
+    ``schedule_one`` with the same patches before the same pods. Each patch
+    must ride the dirty-name journal: no identity sweep after the first
+    window, one dirty row per patch, and the dynamic columns reach the
+    device as row scatters, not uploads."""
+    tel = Telemetry(decision_sample_every=1 << 30)  # counters only, no decision traces
+    cluster = drip_cluster(annos)
+    sched = drip_scheduler(cluster, dev, telemetry=tel)
+    sched.schedule_queue(storm(cluster, "warm", DRIP_WINDOW, cpu="100000"), window=DRIP_WINDOW)
+    pre = sched.drip_stats()
+    kern = sched._batch_kernel
+    pods = storm(cluster, "drip", DRIP_PODS)
+    chunk = DRIP_DIRTY_EVERY * DRIP_WINDOW
+    metric = compile_policy(DEFAULT_POLICY).metric_names[0]
+    value = f"0.10000,{format_local_time(NOW - 30.0)}"  # low usage: stays schedulable
+    patches, results, cache = [], [], []
+    reset_launches()
+    t0 = time.perf_counter()
+    for start in range(0, DRIP_PODS, chunk):
+        if start:
+            node = results[-1].node  # the node the last pod went to: filling up
+            cluster.patch_node_annotation(node, metric, value)
+            patches.append((start, node))
+            before = (kern._cols.uploads, kern._cols.scatters)
+        results.extend(sched.schedule_queue(pods[start:start + chunk], window=DRIP_WINDOW))
+        if start:
+            cache.append({"uploads": kern._cols.uploads - before[0],
+                          "scatters": kern._cols.scatters - before[1]})
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = read_launches("drip dirty", need=())
+    stats = sched.drip_stats()
+
+    twin = drip_cluster(annos)
+    twin_sched = drip_scheduler(twin, dev)
+    twin_pods = storm(twin, "drip", DRIP_PODS)
+    todo = dict(patches)
+    want = []
+    for i, pod in enumerate(twin_pods):
+        if i in todo:
+            twin.patch_node_annotation(todo[i], metric, value)
+        want.append(twin_sched.schedule_one(pod))
+    if placements(results) != placements(want):
+        raise AssertionError("drip dirty: schedule_queue placements != per-pod placements")
+    n_patch = len(patches)
+    dirty_metric = tel.registry.snapshot().get('crane_dirty_rows_total{consumer="drip"}', 0)
+    if stats["full_sweeps"] != pre["full_sweeps"]:
+        raise AssertionError(f"drip dirty: {stats['full_sweeps'] - pre['full_sweeps']} "
+                             "identity sweeps during the storm")
+    if stats["dirty_patches"] != n_patch or stats["dirty_rows"] != n_patch or dirty_metric <= 0:
+        raise AssertionError(f"drip dirty: {n_patch} patches, dirty_patches "
+                             f"{stats['dirty_patches']}, dirty_rows {stats['dirty_rows']}, "
+                             f"crane_dirty_rows_total {dirty_metric}")
+    if any(c["uploads"] != 0 or c["scatters"] != 2 for c in cache):
+        raise AssertionError(f"drip dirty: the dynamic columns did not scatter: {cache}")
+    if sum(r.node is not None for r in results) != DRIP_PODS:
+        raise AssertionError("drip dirty: a pod of the storm was not placed")
+    out = {"nodes": len(annos), "pods": DRIP_PODS, "window": DRIP_WINDOW,
+           "patches": n_patch, "patched_nodes": [p[1] for p in patches],
+           "equal_to_perpod": True, "differs_from_drip_queue": placements(results) != queue_placements,
+           "full_sweeps_during_storm": 0, "dirty_patches": stats["dirty_patches"],
+           "dirty_rows": stats["dirty_rows"], "crane_dirty_rows_total_drip": dirty_metric,
+           "column_cache_per_patch": cache, "free_uploads": kern.free_uploads,
+           "ms_per_pod": wall_ms / DRIP_PODS, "drip_queue_ms_per_pod": queue_ms_per_pod,
+           "wall_ms": wall_ms, "windows": stats["batch"]["dispatches"] - pre["batch"]["dispatches"],
+           "telemetry": "counters and spans on, decision traces sampled out",
+           "launches": launches}
+    log("drip_dirty", **out)
+    return out, launches
+
+
+def time_methods(obj, names) -> dict:
+    """Wrap each named method of ``obj`` (on the instance) to sum its host
+    ms into the returned dict."""
+    spent = dict.fromkeys(names, 0.0)
+
+    def wrap(name, fn):
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                spent[name] += (time.perf_counter() - t0) * 1e3
+        return timed
+
+    for name in names:
+        setattr(obj, name, wrap(name, getattr(obj, name)))
+    return spent
+
+
+def gang_cluster(n: int) -> ClusterState:
+    """config 22's cluster: 8 annotation variants, one allocatable."""
+    ts = format_local_time(NOW - 20.0)
+    metrics = compile_policy(DEFAULT_POLICY).metric_names
+    variants = [{m: f"{0.20 + 0.01 * ((j + k) % 11):.5f},{ts}" for k, m in enumerate(metrics)}
+                for j in range(8)]
+    cluster = ClusterState()
+    for i in range(n):
+        cluster.add_node(Node(name=f"node-{i:05d}", annotations=variants[i % 8],
+                              allocatable=DRIP_ALLOCATABLE))
+    return cluster
+
+
+def gang_template(name: str, cpu_milli: int) -> Pod:
+    return Pod(name=name, containers=(Container("c", ResourceRequirements(
+        requests={"cpu": f"{cpu_milli}m", "memory": "256Mi"})),))
+
+
+def gang_requests(tag: str) -> list:
+    return [(gang_template(f"g22-{tag}-{j:03d}", cpu), count)
+            for j, (cpu, count) in enumerate(GANG_SHAPES)]
+
+
+def gang_scheduler(cluster: ClusterState, dev, dtype=torch.float32) -> BatchScheduler:
+    return BatchScheduler(cluster, DEFAULT_POLICY, dtype=dtype, clock=lambda: NOW, device=dev)
+
+
+def counts_of(assignments: dict, pos: dict, n: int) -> np.ndarray:
+    got = np.zeros(n, np.int64)
+    for node in assignments.values():
+        got[pos[node]] += 1
+    return got
+
+
+def phase_gang_queue(dev) -> tuple:
+    """config 22 at 50,000 nodes: 24 heterogeneous gangs through a
+    sequential ``schedule_gang`` loop (K1 and K2 per gang), the same gangs
+    through ``schedule_gang_queue(window=8)`` on a twin (K2 per gang of a
+    device window), each window gang through ``gang_window_host`` and the
+    window's own plain version on CPU tensors, the first two through
+    ``gang_assign_oracle``; one named patch's ``ensure()`` against the
+    identity sweep; one profiled window; a ``schedule_batch_mixed`` burst of
+    the same pods as pending pods, float32 hybrid against float64."""
+    from crane_scheduler_tpu_torch.fit.tracker import (
+        copy_counts_rows, pod_fit_request, request_vec)
+    from crane_scheduler_tpu_torch.scorer import gang_batch
+    from crane_scheduler_tpu_torch.scorer.topk import gang_assign_oracle
+
+    total = sum(c for _, c in GANG_SHAPES)
+    max_offset = 100 * GANG_TOPO_W
+    by_path = {}
+    # -- sequential: one schedule_gang per gang, its stages timed
+    t0 = time.perf_counter()
+    seq = gang_scheduler(gang_cluster(N_NODES), dev)
+    build_ms = (time.perf_counter() - t0) * 1e3
+    seq_stage_ms = time_methods(seq, ("refresh", "_prepare", "_fit_capacity", "_build_result",
+                                      "_bind_gang_with_recovery"))
+    reset_launches()
+    t0 = time.perf_counter()
+    seq_out = []
+    for t, c in gang_requests("g"):
+        r = seq.schedule_gang(t, c, bind=True, dynamic_weight=GANG_DYN_W,
+                              topology_weight=GANG_TOPO_W)
+        if r.unassigned:
+            raise AssertionError(f"sequential gang {t.name}: {len(r.unassigned)} unplaced")
+        seq_out.append(dict(r.assignments))
+    seq_ms = (time.perf_counter() - t0) * 1e3
+    seq_stage_ms["rest"] = seq_ms - sum(seq_stage_ms.values())
+    by_path["gang_seq"] = read_launches("gang sequential")
+    if by_path["gang_seq"] != {"score": len(GANG_SHAPES), "gang": len(GANG_SHAPES)}:
+        raise AssertionError(f"gang sequential: {by_path['gang_seq']} launches for "
+                             f"{len(GANG_SHAPES)} gangs")
+
+    # -- window: a warm-up window of infeasible gangs, then the storm
+    cluster = gang_cluster(N_NODES)
+    win = gang_scheduler(cluster, dev)
+    warm = [(gang_template(f"g22-warm-{i}", 100_000 + 1000 * i), 1) for i in range(GANG_WINDOW)]
+    t0 = time.perf_counter()
+    warm_out = win.schedule_gang_queue(warm, window=GANG_WINDOW, dynamic_weight=GANG_DYN_W,
+                                       topology_weight=GANG_TOPO_W)
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    if any(o.assignments for o in warm_out):
+        raise AssertionError("a warm-up gang was placed")
+    pre = win.gang_stats()
+    reqs = gang_requests("g")
+    reset_launches()
+    t0 = time.perf_counter()
+    win_out = win.schedule_gang_queue(reqs, window=GANG_WINDOW, dynamic_weight=GANG_DYN_W,
+                                      topology_weight=GANG_TOPO_W)
+    win_ms = (time.perf_counter() - t0) * 1e3
+    by_path["gang_window"] = read_launches("gang window", need=("gang",))
+    stats = win.gang_stats()
+    if stats["fallbacks"] or any(o.source != "window" for o in win_out):
+        raise AssertionError(f"gang window fell back: {stats['fallbacks']}")
+    placed = sum(len(o.assignments) for o in win_out)
+    if placed != total or [dict(o.assignments) for o in win_out] != seq_out:
+        raise AssertionError(f"gang window: {placed}/{total} placed, or placements != "
+                             "the sequential loop's")
+    if by_path["gang_window"]["gang"] != len(GANG_SHAPES):
+        raise AssertionError(f"gang window: {by_path['gang_window']} launches")
+
+    # -- oracle: the engine's own columns, capacity un-folded by hand
+    eng = win._gang_engine
+    cols = eng["cols"]
+    cols.ensure(NOW)
+    names = cols.names
+    pos = {name: i for i, name in enumerate(names)}
+    free0 = cols.free.copy()
+    vecs = [request_vec(pod_fit_request(t)) for t, _ in reqs]
+    for o, vec in zip(win_out, vecs):
+        for node in o.assignments.values():
+            free0[pos[node]] += vec
+    gangs = [(c, vec, None) for (_, c), vec in zip(reqs, vecs)]
+    hv = win.tensors.hv_count
+    t0 = time.perf_counter()
+    host, _ = gang_batch.gang_window_host(cols.score, cols.schedulable, cols.bounded, free0,
+                                          gangs, hv, dynamic_weight=GANG_DYN_W,
+                                          max_offset=max_offset)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    # the window's plain version: the same loop on CPU tensors (the gang
+    # totals kernel's plain version), three windows with the carry kept
+    plain = gang_batch.GangBatchKernel(hv, GANG_DYN_W, max_offset, device="cpu")
+    free_p = free0.copy()
+    plain_counts = []
+    t0 = time.perf_counter()
+    for w0 in range(0, len(gangs), GANG_WINDOW):
+        part = gangs[w0:w0 + GANG_WINDOW]
+        classes = {}
+        cid = [classes.setdefault(v.tobytes(), len(classes)) for _, v, _ in part]
+        cvecs = np.stack([np.frombuffer(k, np.int64) for k in classes])
+        counts_m, _u, _w = plain.dispatch(cols.score, cols.schedulable, cols.bounded, free_p,
+                                          cvecs, None, np.asarray(cid, np.int32),
+                                          np.asarray([c for c, _, _ in part], np.int64))
+        for j, (_, vec, _) in enumerate(part):
+            free_p = free_p - counts_m[j].astype(np.int64)[:, None] * vec[None, :]
+        plain.mark_synced(free_p)
+        plain_counts.extend(counts_m)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    free_c = free0.copy()
+    oracle_ms = []
+    for j, (o, (c, vec, _)) in enumerate(zip(win_out, gangs)):
+        got = counts_of(o.assignments, pos, len(names))
+        if not (np.array_equal(got, host[j].counts) and np.array_equal(got, plain_counts[j])):
+            raise AssertionError(f"gang {j}: the window != gang_window_host / its plain version")
+        if j < GANG_ORACLE_GANGS:
+            t0 = time.perf_counter()
+            orc = gang_assign_oracle(cols.score, cols.schedulable, c, hv,
+                                     capacity=copy_counts_rows(free_c, cols.bounded, vec),
+                                     dynamic_weight=GANG_DYN_W, max_offset=max_offset)
+            oracle_ms.append((time.perf_counter() - t0) * 1e3)
+            if not np.array_equal(got, orc.counts):
+                raise AssertionError(f"gang {j}: the window != gang_assign_oracle")
+        free_c -= got[:, None] * vec[None, :]
+
+    # -- dirty: one named patch's ensure() against the identity sweep
+    def patch(name):
+        node = cluster.get_node(name)
+        key = next(iter(node.annotations))
+        cluster.patch_node_annotation(name, key, node.annotations[key].replace("0.2", "0.3", 1))
+
+    pre_cols = dict(cols.stats)
+    dirty_ms = []
+    for name in ("node-00017", "node-00019"):  # the first also recounts the last binds
+        patch(name)
+        t0 = time.perf_counter()
+        cols.ensure(NOW)
+        dirty_ms.append((time.perf_counter() - t0) * 1e3)
+    if cols.stats["dirty_patches"] != pre_cols["dirty_patches"] + 2:
+        raise AssertionError("a named patch did not take the journal path")
+    patch("node-00018")
+    cluster.forget_dirty_names()
+    t0 = time.perf_counter()
+    cols.ensure(NOW)
+    sweep_ms = (time.perf_counter() - t0) * 1e3
+    if cols.stats["full_sweeps"] != pre_cols["full_sweeps"] + 1:
+        raise AssertionError("forget_dirty_names did not force the identity sweep")
+
+    # -- one profiled window, no host synchronisation inside it
+    extra = iter(range(4))
+
+    def one_window():
+        outs = win.schedule_gang_queue(gang_requests(f"p{next(extra)}")[:GANG_WINDOW],
+                                       window=GANG_WINDOW, dynamic_weight=GANG_DYN_W,
+                                       topology_weight=GANG_TOPO_W)
+        if sum(len(o.assignments) for o in outs) != sum(c for _, c in GANG_SHAPES[:GANG_WINDOW]):
+            raise AssertionError("a profiled window left pods unplaced")
+
+    one_window()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        one_window()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    reset_launches()
+    prof = profile_windows(one_window, 1)
+    k2_per_gang = gang_kernel.KERNEL.launches / (2 * GANG_WINDOW)  # warm call + profiled call
+
+    # -- mixed: the same pods as pending pods, one burst, f32 hybrid vs f64
+    mixed = {}
+    for label, dtype in (("f32", torch.float32), ("f64", torch.float64)):
+        mcluster = gang_cluster(N_NODES)
+        msched = gang_scheduler(mcluster, dev, dtype=dtype)
+        pending = [Pod(name=f"{t.name}-{i}", containers=t.containers)
+                   for t, c in gang_requests("m") for i in range(c)]
+        mcluster.add_pods(pending)
+        if label == "f32":
+            reset_launches()
+        t0 = time.perf_counter()
+        r = msched.schedule_batch_mixed(pending, dynamic_weight=GANG_DYN_W,
+                                        topology_weight=GANG_TOPO_W)
+        mixed[label] = ((time.perf_counter() - t0) * 1e3, r)
+        if label == "f32":
+            by_path["gang_mixed"] = read_launches("gang mixed")
+    if mixed["f32"][1].assignments != mixed["f64"][1].assignments or \
+            len(mixed["f32"][1].assignments) != total:
+        raise AssertionError("schedule_batch_mixed: f32 hybrid != float64, or pods unplaced")
+
+    windows = stats["windows"] - pre["windows"]
+    dispatch_s = stats["kernel_seconds"][-windows:]
+    out = {
+        "nodes": N_NODES, "gangs": len(GANG_SHAPES), "pods": total, "window": GANG_WINDOW,
+        "dynamic_weight": GANG_DYN_W, "topology_weight": GANG_TOPO_W,
+        "placements_equal": ["sequential", "window", "gang_window_host", "plain_window",
+                             f"oracle (first {GANG_ORACLE_GANGS})"],
+        "seq_ms_per_gang": seq_ms / len(GANG_SHAPES),
+        "seq_stage_ms_per_gang": {k: v / len(GANG_SHAPES) for k, v in seq_stage_ms.items()},
+        "window_ms_per_gang": win_ms / len(GANG_SHAPES),
+        "host_twin_ms_per_gang": host_ms / len(GANG_SHAPES),
+        "plain_window_cpu_ms_per_gang": plain_ms / len(GANG_SHAPES),
+        "oracle_ms_per_gang": oracle_ms, "warmup_window_ms": warm_ms,
+        "speedup_window_vs_seq": seq_ms / win_ms,
+        "dispatch_host_ms_per_window": [s * 1e3 for s in dispatch_s],
+        "windows": windows, "kernel_dispatches": stats["kernel_dispatches"],
+        "free_uploads": stats["free_uploads"], "columns": stats["columns"],
+        "dirty_ensure_ms": dirty_ms, "swept_ensure_ms": sweep_ms,
+        "profiled_window": {k: prof[k] for k in (
+            "device_us", "wall_us", "device_idle_share", "device_kernels",
+            "cuda_launch_kernel_calls", "device_events_seen", "top_device_us")},
+        "k2_launches_per_gang_in_window": k2_per_gang, "no_host_sync_in_window": True,
+        "mixed_ms": {k: v[0] for k, v in mixed.items()}, "mixed_f32_equal_to_f64": True,
+        "cluster_build_ms": build_ms, "launches": by_path,
+    }
+    log("gang_queue", **out)
+    return out, by_path
+
+
 # per kernel in the `kernels` line: `ms` is the kernel's own device time
 KERNEL_KEYS = ("ms", "plain_ms", "bound_ms", "bound_by", "device_us", "bound_us",
                "pct_of_bound", "host_launch_ms", "device_launches_seen")
@@ -1407,11 +1783,15 @@ def main() -> int:
     # the drip path: no hand-written kernel lies on it, so K1 and K2 show 0
     phase_drip_window(dev)
     drip_annos = cluster_annotations(compile_policy(DEFAULT_POLICY), np.random.default_rng(SEED))
-    _, queue_placed, by_path["drip_queue"] = phase_drip_queue(dev, drip_annos)
+    queue, queue_placed, by_path["drip_queue"] = phase_drip_queue(dev, drip_annos)
     _, by_path["drip_serve"] = phase_drip_serve(dev, drip_annos, queue_placed)
     by_path["drip_scalar"] = phase_drip_scalar(dev)
     _, by_path["telemetry"] = phase_telemetry_burst(drip_annos)
     phase_telemetry_drip(dev, drip_annos, queue_placed)
+    _, by_path["drip_dirty"] = phase_drip_dirty(dev, drip_annos, queue_placed,
+                                                queue["ms_per_pod"])
+    _, gang_paths = phase_gang_queue(dev)
+    by_path.update(gang_paths)
 
     kernels = [
         {

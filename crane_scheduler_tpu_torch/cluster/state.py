@@ -7,10 +7,13 @@ columnar through a lazy overlay, and column groups), pods with containers,
 owner references, init containers and overhead, as objects or as columnar
 bursts, binds that stamp ``Scheduled`` events into a bounded log, the
 ``sched_version``, ``node_version``, ``node_set_version`` and
-``pod_version`` counters, and the pod-change journal behind
-``pod_changes_since``. Event subscriptions, the dirty-name journal, the
-shard fences and the kube mirror's bulk transactions come with the slices
-that read them.
+``pod_version`` counters, the pod-change journal behind
+``pod_changes_since``, and the global dirty-name journal behind
+``dirty_nodes_since`` (every named node write journals its name; a
+name-less columnar sweep resets the floor). Event subscriptions, the
+per-shard journals and fences and the kube mirror's bulk transactions
+(``apply_node_changes``, ``replace_nodes``) come with the slices that read
+them.
 
 The reference coordinates its two processes exclusively through the
 Kubernetes API — the controller JSON-patches node annotations
@@ -129,10 +132,55 @@ class _PodBurst:
         return Pod(name=self.names[row], namespace=self.namespace, node_name=node)
 
 
+class _DirtyJournal:
+    """Bounded (version, name, membership) journal keyed on a node
+    fence. ``since(v)`` replays the tail: the set of names written
+    after ``v`` plus a membership-changed flag, or ``None`` when the
+    interval is not covered — a name-less bulk write (a columnar sweep)
+    reset the floor, the deque overran its cap, or ``v`` predates the
+    journal. ``None`` costs the caller exactly one identity sweep; every
+    covered interval is O(dirty)."""
+
+    __slots__ = ("log", "floor", "overruns", "bulk_marks")
+
+    def __init__(self, cap: int, floor: int = 0):
+        self.log: deque[tuple[int, str, bool]] = deque(maxlen=cap)
+        self.floor = floor  # versions < floor are not covered
+        self.overruns = 0  # cap evictions (bounded-journal overflow)
+        self.bulk_marks = 0  # name-less bulk writes
+
+    def note(self, version: int, name: str, membership: bool = False) -> None:
+        log = self.log
+        if len(log) == log.maxlen:
+            evicted = log[0][0]
+            if evicted > self.floor:
+                self.floor = evicted
+            self.overruns += 1
+        log.append((version, name, membership))
+
+    def mark_bulk(self, version: int) -> None:
+        if version > self.floor:
+            self.floor = version
+        self.bulk_marks += 1
+        self.log.clear()
+
+    def since(self, version: int):
+        if version < self.floor:
+            return None
+        names: set[str] = set()
+        membership = False
+        for v, name, m in self.log:
+            if v > version:
+                names.add(name)
+                if m:
+                    membership = True
+        return (names, membership)
+
+
 class ClusterState:
     """Thread-safe cluster model: nodes, pods, binds and their events."""
 
-    def __init__(self):
+    def __init__(self, dirty_journal_cap: int = 4096):
         self._lock = threading.RLock()
         self._nodes: dict[str, Node] = {}
         # Lazy annotation overlay: columnar patches append segments
@@ -175,6 +223,14 @@ class ClusterState:
         self._pod_version = 0
         self._pod_change_log: deque[tuple[int, str]] = deque(maxlen=_POD_LOG_CAP)
         self._pod_log_floor = 0  # oldest version not fully covered
+        # dirty-name journal (O(dirty) refresh): every named node write
+        # appends (node_version after it, name, membership?); name-less
+        # bulk writes reset the floor instead. Consumers (FitTracker,
+        # DripColumns and the device column cache behind them) replay the
+        # tail to patch only dirty rows; an uncovered interval costs
+        # exactly one identity sweep.
+        self._dirty_cap = int(dirty_journal_cap)
+        self._dirty_global = _DirtyJournal(self._dirty_cap)
 
     @property
     def sched_version(self) -> int:
@@ -209,6 +265,38 @@ class ClusterState:
             if version < self._pod_log_floor:
                 return None
             return {name for v, name in self._pod_change_log if v > version}
+
+    def dirty_nodes_since(self, version: int):
+        """Replay the dirty-name journal: ``(names, membership_changed)``
+        for node writes after node-fence ``version``, or None when the
+        interval is not covered (a columnar sweep, a journal overrun, or a
+        pre-journal version) — the caller then does exactly one identity
+        sweep."""
+        with self._lock:
+            return self._dirty_global.since(version)
+
+    def dirty_journal_stats(self) -> dict:
+        """Journal health for telemetry: cap overruns, name-less bulk
+        floor resets, and current depth."""
+        with self._lock:
+            j = self._dirty_global
+            return {
+                "overruns": j.overruns,
+                "bulk_marks": j.bulk_marks,
+                "depth": len(j.log),
+                "cap": self._dirty_cap,
+            }
+
+    def forget_dirty_names(self) -> None:
+        """Drop dirty-name coverage exactly as a name-less bulk write
+        does: the floor moves to the current fence, so the next consumer
+        refresh pays the one identity-sweep fallback. A hook for measuring
+        that fallback against the O(dirty) path in one process."""
+        with self._lock:
+            self._dirty_global.mark_bulk(self._node_version)
+
+    def _note_dirty_locked(self, version: int, name: str, member: bool = False) -> None:
+        self._dirty_global.note(version, name, member)
 
     @property
     def node_set_version(self) -> int:
@@ -287,18 +375,21 @@ class ClusterState:
             self._nodes[node.name] = node
             self._sched_version += 1
             self._node_version += 1
+            self._note_dirty_locked(self._node_version, node.name, prev is None)
             if prev is None:
                 self._node_set_version += 1
                 self._note_pod_change_locked(node.name)  # new node row
 
     def delete_node(self, name: str) -> None:
         with self._lock:
-            if name in self._nodes:
+            existed = name in self._nodes
+            if existed:
                 self._note_pod_change_locked(name)
             self._nodes.pop(name, None)
             self._drop_overlay_locked(name)
             self._sched_version += 1
             self._node_version += 1
+            self._note_dirty_locked(self._node_version, name, existed)
             self._node_set_version += 1
 
     def get_node(self, name: str) -> Node | None:
@@ -320,6 +411,12 @@ class ClusterState:
             self._fold_overlay_locked()
             return list(self._nodes.values())
 
+    def has_node(self, name: str) -> bool:
+        """Membership test without materializing the node (the dirty
+        journal consumers' add/remove classifier)."""
+        with self._lock:
+            return name in self._nodes
+
     def patch_node_annotation(self, name: str, key: str, value: str) -> bool:
         """The annotator's write primitive: one (node, key) annotation.
         The node's map is replaced, so ``bulk_ingest``'s identity skip
@@ -334,6 +431,7 @@ class ClusterState:
             self._nodes[name] = replace(node, annotations=anno)
             self._sched_version += 1
             self._node_version += 1
+            self._note_dirty_locked(self._node_version, name)
             return True
 
     def patch_node_annotations_bulk(self, per_node: Mapping[str, Mapping[str, str]]) -> int:
@@ -344,6 +442,7 @@ class ClusterState:
         with self._lock:
             nodes = self._nodes
             has_overlay = bool(self._anno_segments)
+            patched_names: list[str] = []
             for name, kv in per_node.items():
                 node = nodes.get(name)
                 if node is None:
@@ -357,8 +456,12 @@ class ClusterState:
                 nodes[name] = replace(node, annotations=anno)
                 self._sched_version += 1
                 patched += 1
+                patched_names.append(name)
             if patched:
                 self._node_version += 1
+                v = self._node_version
+                for name in patched_names:
+                    self._note_dirty_locked(v, name)
         return patched
 
     def patch_node_annotations_columns(
@@ -380,6 +483,9 @@ class ClusterState:
                     self._fold_overlay_locked()
             self._sched_version += len(names)
             self._node_version += 1
+            # the sweep rewrites every listed row: journal coverage would be
+            # the whole cluster, so reset the floor instead
+            self._dirty_global.mark_bulk(self._node_version)
         return len(names)
 
     def patch_node_annotation_groups(self, groups) -> int:

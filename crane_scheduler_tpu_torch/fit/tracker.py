@@ -1,14 +1,13 @@
 """Incremental columnar allocatable/requested accounting.
 
-Counterpart of ``crane_scheduler_tpu/fit/tracker.py`` for the drip path:
-``FitTracker`` with ``refresh``, ``fits``, ``fits_mask``, ``free_matrix``
-and ``alloc_version``, and the request/reason helpers. Allocatable rows
-refresh by a full identity sweep on every node-version change (the
-reference patches only journal-named nodes when the cluster keeps a
-dirty-name journal; the port's cluster does not yet, so the
-``crane_dirty_rows_total{consumer="fit"}`` counter is registered and
-stays 0). The gang solver's ``free_copy_counts`` / ``copy_counts_rows``
-come with the slice that reads them.
+Counterpart of ``crane_scheduler_tpu/fit/tracker.py``: ``FitTracker``
+with ``refresh``, ``fits``, ``fits_mask``, ``free_matrix``,
+``alloc_version``, the gang solver's ``free_copy_counts`` and
+``free_for``, and the request/reason helpers with ``copy_counts_rows``.
+Allocatable rows refresh through the cluster's dirty-name journal: a
+covered interval with unchanged membership identity-checks only the
+journal's names (``crane_dirty_rows_total{consumer="fit"}``), anything
+else takes one identity sweep.
 
 ref: k8s.io/kubernetes/pkg/scheduler/framework/plugins/noderesources —
 the fit math (effective pod request = max(sum of containers, max over
@@ -96,6 +95,23 @@ def request_vec(r: Resource) -> np.ndarray:
     return vec
 
 
+def copy_counts_rows(free: np.ndarray, bounded: np.ndarray, vec: np.ndarray) -> np.ndarray:
+    """``free_copy_counts`` math over an explicit free matrix: how many
+    request rows ``vec`` fit in each row of ``free`` (int64[N,4]),
+    unbounded rows (``~bounded``) coming back UNBOUNDED. The gang window's
+    host twin and its device window both derive capacity this way; it
+    equals the tracker's own ``free_copy_counts`` over the same rows
+    (minus the scalar-resources walk, which columnar callers route to the
+    fallback)."""
+    counts = np.full((free.shape[0],), UNBOUNDED, dtype=np.int64)
+    clipped = np.clip(free, 0, None)
+    for d in range(_N_DIMS):
+        if vec[d] > 0:
+            np.minimum(counts, clipped[:, d] // vec[d], out=counts)
+    counts[~np.asarray(bounded, bool)] = UNBOUNDED
+    return counts
+
+
 def row_fail_reason(free_row, vec) -> str:
     """First failing dimension of a bounded free row against ``vec``,
     in NodeResourcesFit's check order and wording (pods slot first,
@@ -156,6 +172,7 @@ class FitTracker:
         self._scalar_req: dict[str, dict[str, int]] = {}
         self._full_recounts = 0
         self._incremental_recounts = 0
+        self._node_patches = 0  # journal-driven O(dirty) node refreshes
         self._req_dirty = True  # requested columns not yet counted
         # bumps only when capacity state actually moved (membership or
         # an allocatable row) — annotation patches bump node_version
@@ -163,8 +180,9 @@ class FitTracker:
         # O(n) aligned copy entirely
         self.alloc_version = 0
         # name->row gathers cached per (names list identity, index
-        # epoch): the drip column cache re-passes the SAME list object
-        # every call, so steady state is pure fancy indexing
+        # epoch): the drip column cache and the gang solver's capacity
+        # rows re-pass the SAME list object every call, so steady state is
+        # pure fancy indexing
         self._index_ver = 0
         self._aligned: list[tuple] = []  # (names_ref, index_ver, rows, known)
         self.mask_builds = 0  # aligned-gather rebuilds (regression gate)
@@ -180,8 +198,7 @@ class FitTracker:
                 "crane_fit_tracked_nodes",
                 "Nodes with reported allocatable under fit accounting.",
             )
-            # moves only with the dirty-name journal's O(dirty) patches
-            reg.counter(
+            self._m_dirty_rows = reg.counter(
                 "crane_dirty_rows_total",
                 "Rows patched via the dirty-name journal instead of a "
                 "full identity sweep, by consumer",
@@ -196,7 +213,15 @@ class FitTracker:
             nv = self._cluster.node_version
             pv = self._cluster.pod_version
             if nv != self._node_ver:
-                self._rebuild_nodes_locked()
+                dirty = None
+                if self._names and self._node_ver >= 0:
+                    dirty = self._cluster.dirty_nodes_since(self._node_ver)
+                if dirty is not None and not dirty[1]:
+                    # journal-covered, membership unchanged: identity-check
+                    # only the dirty names instead of every node
+                    self._patch_nodes_locked(dirty[0])
+                else:
+                    self._rebuild_nodes_locked()
                 self._node_ver = nv
             if not self._has_alloc.any():
                 # nothing bounded: requested sums can't matter, so skip
@@ -229,6 +254,32 @@ class FitTracker:
                     self._m_refresh.labels(kind="incremental").inc()
             self._req_dirty = False
             self._pod_ver = pv
+
+    def _patch_nodes_locked(self, touched) -> None:
+        """O(dirty) twin of ``_rebuild_nodes_locked``: membership is
+        unchanged, so only the journal's dirty names can have a new
+        allocatable object."""
+        if not touched:
+            return
+        index = self._index
+        get_node = self._cluster.get_node
+        changed = 0
+        for name in touched:
+            i = index.get(name)
+            if i is None:
+                continue
+            node = get_node(name)
+            if node is None:
+                continue
+            if self._apply_alloc_locked(name, i, node):
+                changed += 1
+        self._node_patches += 1
+        if self._telemetry is not None:
+            self._m_dirty_rows.labels(consumer="fit").inc(len(touched))
+        if changed:
+            self.alloc_version += 1
+            if self._telemetry is not None:
+                self._m_nodes.set(int(self._has_alloc.sum()))
 
     def _apply_alloc_locked(self, name: str, i: int, node) -> bool:
         """Identity-gated allocatable row update for one node; returns
@@ -441,6 +492,60 @@ class FitTracker:
             free[known] = self._alloc[kr] - self._req[kr]
             return bounded, free
 
+    def free_copy_counts(self, names: list, request: Resource) -> np.ndarray:
+        """How many copies of ``request`` fit on each node, vectorized and
+        aligned with ``names`` — the gang solver's capacity row.
+        Unreported/unknown nodes are UNBOUNDED; results clip to [0,
+        UNBOUNDED]."""
+        with self._lock:
+            n = len(names)
+            out = np.full((n,), UNBOUNDED, dtype=np.int64)
+            if not self._names:
+                return out
+            rows, known = self._rows_for_locked(names)
+            if not known.any():
+                return out
+            r = rows[known]
+            bounded = self._has_alloc[r]
+            if not bounded.any():
+                return out
+            free = self._alloc[r] - self._req[r]
+            np.clip(free, 0, None, out=free)
+            vec = request_vec(request)
+            counts = np.full((len(r),), UNBOUNDED, dtype=np.int64)
+            for d in range(_N_DIMS):
+                if vec[d] > 0:
+                    np.minimum(counts, free[:, d] // vec[d], out=counts)
+            if request.scalar_resources:
+                # rare path: walk only the known rows' scalar maps
+                for j, nm_i in enumerate(r):
+                    nm = self._names[nm_i]
+                    salloc = self._scalar_alloc.get(nm) or {}
+                    sused = self._scalar_req.get(nm) or {}
+                    for k, v in request.scalar_resources.items():
+                        if v > 0:
+                            cap = max(0, salloc.get(k, 0) - sused.get(k, 0)) // v
+                            if cap < counts[j]:
+                                counts[j] = cap
+            counts[~bounded] = UNBOUNDED
+            out[known] = counts
+            return out
+
+    def free_for(self, node_name: str) -> dict | None:
+        """Free amounts per dimension, or None when the node is unknown or
+        reports no allocatable (unbounded)."""
+        with self._lock:
+            i = self._index.get(node_name)
+            if i is None or not self._has_alloc[i]:
+                return None
+            free = self._alloc[i] - self._req[i]
+            return {
+                CPU: int(free[_DIM_CPU]),
+                MEMORY: int(free[_DIM_MEM]),
+                EPHEMERAL_STORAGE: int(free[_DIM_EPH]),
+                PODS: int(free[_DIM_PODS]),
+            }
+
     def stats(self) -> dict:
         with self._lock:
             return {
@@ -448,6 +553,7 @@ class FitTracker:
                 "bounded_nodes": int(self._has_alloc.sum()),
                 "full_recounts": self._full_recounts,
                 "incremental_recounts": self._incremental_recounts,
+                "node_patches": self._node_patches,
                 "alloc_version": self.alloc_version,
                 "mask_builds": self.mask_builds,
             }

@@ -1,12 +1,15 @@
 """Version-cached cluster columns for the per-pod ("drip") fast path.
 
-Counterpart of ``DripColumns`` in ``crane_scheduler_tpu/framework/drip.py``.
-The reference's dirty-name journal consumers (``_apply_dirty``,
-``_patch_dynamic``, the scatter log behind ``dirty_rows_between``) wait for
-the cluster's dirty-name journal; until then every node-version change
-takes the identity sweep, which is the reference's own behaviour on a
-cluster without ``dirty_nodes_since`` (and ``crane_dirty_rows_total
-{consumer="drip"}`` stays 0). ``GangColumns`` comes with the gang queue.
+Counterpart of ``DripColumns`` and ``GangColumns`` in
+``crane_scheduler_tpu/framework/drip.py``. Node-version changes the
+cluster's dirty-name journal covers re-read only the journal's names
+(``_apply_dirty``) and recompute only their column rows in place
+(``_patch_dynamic``); the scatter log behind ``dirty_rows_between`` carries
+those rows to the device column cache. An uncovered interval (a columnar
+sweep, a journal overrun) takes exactly one identity sweep
+(``full_sweeps``). ``GangColumns`` is the gang engine's subclass: the same
+caches under the ``crane_gang_column_*`` families, plus an interned
+accelerator-type column.
 
 The scalar ``Scheduler._schedule_one`` loop is O(plugins x nodes) per
 pod. But the verdicts it computes are almost entirely pod-independent:
@@ -54,7 +57,7 @@ from ..scorer.columns import (
 from ..scorer.topk import SegMaxTree
 from ..telemetry import maybe_span
 
-__all__ = ["DripColumns"]
+__all__ = ["DripColumns", "GangColumns"]
 
 _I64_MIN = np.int64(np.iinfo(np.int64).min)
 
@@ -72,16 +75,36 @@ class DripColumns:
     written by ``ensure`` on the scheduling thread).
     """
 
+    # metric family names — subclasses (GangColumns) rename the whole
+    # family set while sharing every cache and journal mechanism
+    _HITS_METRIC = (
+        "crane_drip_column_hits_total",
+        "schedule_one calls served entirely from cached columns",
+    )
+    _REBUILDS_METRIC = (
+        "crane_drip_column_rebuilds_total",
+        "Drip column rebuilds by column family",
+    )
+    _DIRTY_CONSUMER = "drip"
+
+    # scatter-log entries kept for the device column cache
+    _SCATTER_LOG_CAP = 64
+
     def __init__(
         self,
         cluster,
-        dyn,
+        dyn=None,
         dyn_weight: int = 1,
         order=("dyn",),
         fit_tracker=None,
         telemetry=None,
         bucket_seconds: float = 0.25,
+        policy=None,
     ):
+        """``policy`` is the plugin-less alternative to ``dyn``: a caller
+        holding a ``DynamicSchedulerPolicy`` but no plugin instance (the
+        gang engine: ``BatchScheduler`` has no plugin registry) passes it
+        directly; exactly one of the two must be given."""
         self.cluster = cluster
         self._dyn = dyn
         self._dyn_weight = int(dyn_weight)
@@ -91,7 +114,7 @@ class DripColumns:
         self._order = tuple(order)
         self._tracker = fit_tracker
         self._telemetry = telemetry
-        self._tensors = compile_policy(dyn.policy)
+        self._tensors = compile_policy(dyn.policy if policy is None else policy)
         self._store = NodeLoadStore(self._tensors)
         self._bucket_s = float(bucket_seconds)
 
@@ -99,6 +122,8 @@ class DripColumns:
         # tracker's aligned-row gather, so the list object is only
         # replaced when membership/order actually changes
         self.names: list[str] = []
+        self._names_set: set[str] = set()
+        self._pos: dict[str, int] | None = None  # name -> row (lazy)
         self._node_ver = -1  # cluster.node_version the ingest reflects
 
         # dynamic columns (aligned with self.names)
@@ -109,9 +134,15 @@ class DripColumns:
         self.fail_entry: np.ndarray | None = None  # int32 [N]
         self.score: np.ndarray | None = None  # int64 [N] raw (0..100)
         self.weighted: np.ndarray | None = None  # int64 [N]
-        # build epoch of the dynamic columns: the device column cache keys
-        # freshness on it beside array identity
+        # dirty-journal bookkeeping: rows touched since the last dynamic
+        # column build (None = coverage lost, the next build is full), and
+        # a monotonically increasing column epoch with a bounded scatter
+        # log, so the device column cache can scatter exactly the patched
+        # rows instead of re-uploading (in-place patches keep array
+        # identity; the epoch is the version identity cannot be)
+        self._pending_rows: set[int] | None = set()
         self.col_epoch = 0
+        self._scatter_log: list[tuple[int, np.ndarray]] = []  # (to_epoch, rows)
 
         # fit columns (aligned with self.names; free is OUR copy). Keyed on
         # the tracker's alloc_version, not node_version: an annotation
@@ -128,28 +159,21 @@ class DripColumns:
         # incremental first-argmax trees, one per distinct request vec
         # (scorer.topk.SegMaxTree): valid only for the exact column arrays
         # they were built over — identity-keyed, since rebuilds always
-        # replace arrays
+        # replace arrays (in-place dynamic patches re-read their rows)
         self._trees: dict[bytes, tuple] = {}
         self._trees_cols: tuple | None = None
 
         self.stats = {
             "hits": 0, "rebuilds": 0, "folds": 0, "drops": 0,
-            "topk_builds": 0, "topk_updates": 0, "full_sweeps": 0,
+            "topk_builds": 0, "topk_updates": 0,
+            "dirty_patches": 0, "dirty_rows": 0, "full_sweeps": 0,
         }
-        self._m_hits = self._m_rebuilds = None
+        self._m_hits = self._m_rebuilds = self._m_dirty_rows = None
         if telemetry is not None:
             reg = telemetry.registry
-            self._m_hits = reg.counter(
-                "crane_drip_column_hits_total",
-                "schedule_one calls served entirely from cached columns",
-            )
-            self._m_rebuilds = reg.counter(
-                "crane_drip_column_rebuilds_total",
-                "Drip column rebuilds by column family",
-                ("column",),
-            )
-            # moves only with the dirty-name journal's O(dirty) patches
-            reg.counter(
+            self._m_hits = reg.counter(*self._HITS_METRIC)
+            self._m_rebuilds = reg.counter(*self._REBUILDS_METRIC, ("column",))
+            self._m_dirty_rows = reg.counter(
                 "crane_dirty_rows_total",
                 "Rows patched via the dirty-name journal instead of a "
                 "full identity sweep, by consumer",
@@ -159,21 +183,45 @@ class DripColumns:
     # -- cache maintenance -------------------------------------------------
 
     def ensure(self, now: float) -> None:
-        """Bring every column up to date for scheduling time ``now``: one
-        identity sweep per node-version change, a dynamic rebuild per
-        store-version change or clock-bucket roll, a fit rebuild per
-        pod-version change that moved capacity."""
+        """Bring every column up to date for scheduling time ``now``.
+
+        Named-write fast path: when the cluster's dirty-name journal
+        covers the interval since the last ingest, only the dirty names'
+        store rows re-parse and only their column rows recompute
+        (scattered in place, logged for the device-side scatter): a 1-node
+        annotation patch is O(1) work however large the cluster. Journal
+        overruns, columnar sweeps, clock-bucket rolls and membership
+        changes the journal cannot localize fall back to exactly one
+        identity sweep (``full_sweeps``)."""
         rebuilt = False
         cluster = self.cluster
         nv = cluster.node_version
         if nv != self._node_ver:
-            self._full_ingest(cluster)
+            dirty = None
+            if self.names and self._node_ver >= 0:
+                dirty = cluster.dirty_nodes_since(self._node_ver)
+            if dirty is not None and not self._apply_dirty(dirty, cluster):
+                dirty = None
+            if dirty is None:
+                self._full_ingest(cluster)
             self._node_ver = nv
         bucket = int(now / self._bucket_s) if self._bucket_s > 0 else 0
         sv = self._store.version
         if self.weighted is None or sv != self._store_ver or bucket != self._bucket:
+            pending = self._pending_rows
+            incremental = (
+                self.weighted is not None
+                and bucket == self._bucket
+                and pending is not None
+                and self._gather is not None
+                and self._gather[0] == self._store.layout_version
+            )
             with maybe_span(self._telemetry, "drip_column_rebuild", column="dynamic"):
-                self._rebuild_dynamic(now)
+                if incremental:
+                    self._patch_dynamic(pending, now)
+                else:
+                    self._rebuild_dynamic(now)
+            self._pending_rows = set()
             self._store_ver = sv
             self._bucket = bucket
             rebuilt = True
@@ -222,7 +270,8 @@ class DripColumns:
         return True
 
     def _full_ingest(self, cluster) -> None:
-        """The identity sweep: list every node, identity-gate every row."""
+        """The identity sweep: list every node, identity-gate every row.
+        Exactly one of these per uncovered journal interval."""
         nodes = cluster.list_nodes()
         names = [n.name for n in nodes]
         # identity-gated: unchanged annotation maps are skipped, so an
@@ -232,10 +281,104 @@ class DripColumns:
             self._store.prune_absent(names)
         if names != self.names:
             self.names = names
+            self._names_set = set(names)
+            self._pos = None
             self._gather = None
             self._fit_node_ver = -1  # fit rows must realign
             self._fit_names = None
+        # charge the name->row map to the sweep (already O(n)), not to the
+        # first O(dirty) patch that would otherwise build it lazily
+        self._pos_map()
+        self._pending_rows = None  # row set unknown: next build is full
         self.stats["full_sweeps"] += 1
+
+    def _pos_map(self) -> dict[str, int]:
+        pos = self._pos
+        if pos is None:
+            pos = self._pos = {n: i for i, n in enumerate(self.names)}
+        return pos
+
+    def _count_dirty_rows(self, n: int) -> None:
+        self.stats["dirty_rows"] += n
+        if self._m_dirty_rows is not None:
+            self._m_dirty_rows.labels(consumer=self._DIRTY_CONSUMER).inc(n)
+
+    def _apply_dirty(self, dirty, cluster) -> bool:
+        """Consume a covered journal interval: re-ingest only the dirty
+        names' rows (and, under a membership change, add or drop exactly
+        the moved names). Returns False when the delta cannot be applied
+        locally and the caller must run the identity sweep."""
+        touched, membership = dirty
+        if not touched:
+            return True
+        get_node = cluster.get_node
+        names_set = self._names_set
+        if not membership:
+            items = []
+            for nm in touched:
+                if nm not in names_set:
+                    continue
+                node = get_node(nm)
+                if node is None:
+                    return False  # membership drifted without the flag
+                items.append((nm, node.annotations))
+            if items:
+                self._note_dirty_rows(items)
+            return True
+        # membership delta: classify each touched name against the
+        # cluster's current membership
+        adds: list[str] = []
+        removes: list[str] = []
+        patch: list[str] = []
+        for nm in touched:
+            present = cluster.has_node(nm)
+            if present and nm not in names_set:
+                adds.append(nm)
+            elif not present and nm in names_set:
+                removes.append(nm)
+            elif present:
+                patch.append(nm)
+        items = []
+        for nm in adds + patch:
+            node = get_node(nm)
+            if node is None:
+                return False
+            items.append((nm, node.annotations))
+        if not adds and not removes:
+            if items:
+                self._note_dirty_rows(items)
+            return True
+        for nm in removes:
+            self._store.remove_node(nm)
+        if items:
+            self._store.bulk_ingest(items, skip_unchanged=False)
+            self._count_dirty_rows(len(items))
+        # splice the names list instead of a full relist: removals drop
+        # their rows, additions append in sorted order
+        rm = set(removes)
+        names = [n for n in self.names if n not in rm]
+        names.extend(sorted(adds))
+        self.names = names
+        self._names_set = set(names)
+        self._pos = None
+        self._pos_map()  # the splice is already O(n): prewarm the row map
+        self._gather = None
+        self._pending_rows = None  # row count changed: full column pass
+        self.weighted = None
+        self._fit_node_ver = -1
+        self._fit_names = None
+        return True
+
+    def _note_dirty_rows(self, items) -> None:
+        """Ingest dirty rows and queue their column positions for the
+        incremental dynamic patch."""
+        self._store.bulk_ingest(items)
+        self._count_dirty_rows(len(items))
+        pending = self._pending_rows
+        if pending is not None:
+            pos = self._pos_map()
+            for nm, _ in items:
+                pending.add(pos[nm])
 
     def _ensure_gather(self):
         store = self._store
@@ -262,7 +405,73 @@ class DripColumns:
         )
         self.score = score.astype(np.int64)
         self.weighted = self.score * self._dyn_weight
+        # fresh arrays: identity changed and the device cache re-uploads
+        # regardless, so the scatter chain restarts here
         self.col_epoch += 1
+        self._scatter_log.clear()
+
+    def _patch_dynamic(self, rows, now: float) -> None:
+        """O(dirty) twin of ``_rebuild_dynamic``: recompute the column
+        verdicts for ``rows`` only and scatter them into the existing
+        arrays (identity kept; ``col_epoch`` and the scatter log carry the
+        change to identity-keyed consumers). Clean rows keep their
+        verdicts from the build that produced them; both evaluations share
+        the clock bucket, the staleness the bucket contract already
+        grants."""
+        if not rows:
+            self.col_epoch += 1
+            self._scatter_log.append((self.col_epoch, np.empty((0,), dtype=np.int64)))
+            self._trim_scatter_log()
+            return
+        store = self._store
+        ids_all = self._ensure_gather()
+        rows_arr = np.fromiter(rows, dtype=np.int64, count=len(rows))
+        rows_arr.sort()
+        ids = ids_all[rows_arr]
+        sched, fail, score = drip_filter_score_columns(
+            self._tensors,
+            store.values[ids],
+            store.ts[ids],
+            store.hot_value[ids],
+            store.hot_ts[ids],
+            now,
+        )
+        self.schedulable[rows_arr] = sched
+        self.fail_entry[rows_arr] = fail
+        sc = score.astype(np.int64)
+        self.score[rows_arr] = sc
+        self.weighted[rows_arr] = sc * self._dyn_weight
+        self.col_epoch += 1
+        self._scatter_log.append((self.col_epoch, rows_arr))
+        self._trim_scatter_log()
+        # in-place writes are invisible to the identity-keyed trees:
+        # re-read exactly the patched rows instead of dropping the trees
+        # (a drop costs the next probe an O(n) rebuild per vec)
+        if self._trees:
+            self._patch_trees(rows_arr.tolist())
+        self.stats["dirty_patches"] += 1
+
+    def _trim_scatter_log(self) -> None:
+        log = self._scatter_log
+        if len(log) > self._SCATTER_LOG_CAP:
+            del log[0]
+
+    def dirty_rows_between(self, from_epoch: int, to_epoch: int):
+        """Union of column rows patched in ``(from_epoch, to_epoch]``, or
+        None when the scatter log no longer covers the interval (the
+        device cache then re-uploads). Epochs are consecutive — one log
+        entry per patch — so coverage is a simple chain check."""
+        if from_epoch == to_epoch:
+            return np.empty((0,), dtype=np.int64)
+        log = self._scatter_log
+        if not log or log[0][0] > from_epoch + 1:
+            return None
+        chunks = [r for e, r in log if from_epoch < e <= to_epoch]
+        if len(chunks) != to_epoch - from_epoch:
+            return None  # a full rebuild broke the chain
+        if len(chunks) == 1:
+            return chunks[0]
+        return np.unique(np.concatenate(chunks))
 
     def note_bind(self, best_i: int, vec: np.ndarray, pre_pod: int, was_bound: bool) -> None:
         """Fold our own bind into the fit column (same discipline as
@@ -305,6 +514,23 @@ class DripColumns:
         self._fit_pod_ver = -1
         self.stats["drops"] += 1
         self._trees.clear()
+
+    def _patch_trees(self, rows) -> None:
+        """O(dirty log n) per cached tree after an in-place dynamic patch.
+        The fold path (``_update_trees``) only re-masks fit verdicts, but a
+        dynamic patch moves schedulable and weighted too, so every tree —
+        fit dimension or not — re-reads the patched rows."""
+        for i in rows:
+            sched_i = bool(self.schedulable[i])
+            bnd_i = bool(self.bounded[i]) if self.bounded is not None else False
+            w_i = int(self.weighted[i])
+            free_i = self.free[i] if self.free is not None else None
+            for tree, tvec in self._trees.values():
+                feas = sched_i
+                if feas and tvec is not None and bnd_i and free_i is not None:
+                    feas = not bool(((tvec > 0) & (free_i < tvec)).any())
+                tree.update(i, w_i, feas)
+                self.stats["topk_updates"] += 1
 
     def _update_trees(self, best_i: int) -> None:
         """O(log n) per cached tree: re-mask only the folded row."""
@@ -425,3 +651,94 @@ class DripColumns:
                 reason = f"Node {names[i]} fit failure: {fit_table[int(fit_codes[p])]}"
             counts[reason] = counts.get(reason, 0) + 1
         return counts
+
+
+class GangColumns(DripColumns):
+    """The gang engine's column cache: every ``DripColumns`` mechanism —
+    version fences, dirty-name journal patches, fit fold discipline, the
+    col_epoch scatter log — under the gang path's own metric families,
+    plus a per-node accelerator-type column for heterogeneous queues.
+
+    The accel column interns each node's ``labels[accel_label]`` value to
+    a small integer id (``accel_types`` is the id -> label table; id 0 is
+    the untyped default). It is keyed on ``cluster.node_version`` like the
+    dynamic ingest and patched O(dirty) through the same journal: a label
+    change on one node re-reads one row. Per-accelerator throughput
+    weights resolve against this column into per-class score offsets;
+    ``accel_epoch`` versions the column for the engine's offset-row
+    cache."""
+
+    _HITS_METRIC = (
+        "crane_gang_column_hits_total",
+        "Gang dispatch windows served entirely from cached columns",
+    )
+    _REBUILDS_METRIC = (
+        "crane_gang_column_rebuilds_total",
+        "Gang column rebuilds by column family",
+    )
+    _DIRTY_CONSUMER = "gang"
+
+    def __init__(self, *args, accel_label: str | None = None, **kwargs):
+        super().__init__(*args, **kwargs)
+        self._accel_label = accel_label
+        self.accel_types: list[str] = [""]  # id 0 = untyped
+        self._accel_index: dict[str, int] = {"": 0}
+        self.accel: np.ndarray | None = None  # int32 [N] type ids
+        self._accel_names = None  # names list identity the column aligns to
+        self._accel_node_ver = -1
+        self.accel_epoch = 0
+
+    def _accel_type_id(self, node) -> int:
+        labels = getattr(node, "labels", None) if node is not None else None
+        label = (labels or {}).get(self._accel_label or "", "")
+        idx = self._accel_index.get(label)
+        if idx is None:
+            idx = len(self.accel_types)
+            self.accel_types.append(label)
+            self._accel_index[label] = idx
+        return idx
+
+    def ensure_accel(self) -> np.ndarray:
+        """Bring the accelerator-type column up to date (call after
+        ``ensure`` so ``names`` reflects current membership). Journal-
+        covered label writes patch O(dirty) rows; membership changes or
+        journal overruns rebuild the column in one sweep."""
+        cluster = self.cluster
+        nv = cluster.node_version
+        aligned = self.accel is not None and self._accel_names is self.names
+        if aligned and nv == self._accel_node_ver:
+            return self.accel
+        if aligned and self._accel_node_ver >= 0:
+            d = cluster.dirty_nodes_since(self._accel_node_ver)
+            if d is not None and not d[1]:  # covered, membership intact
+                pos = self._pos_map()
+                changed = False
+                for nm in d[0]:
+                    i = pos.get(nm)
+                    if i is None:
+                        continue
+                    t = self._accel_type_id(cluster.get_node(nm))
+                    if t != self.accel[i]:
+                        self.accel[i] = t
+                        changed = True
+                if changed:
+                    self.accel_epoch += 1
+                self._accel_node_ver = nv
+                return self.accel
+        n = len(self.names)
+        if self._accel_label is None:
+            accel = np.zeros((n,), dtype=np.int32)  # all untyped
+        else:
+            get_node = cluster.get_node
+            accel = np.fromiter(
+                (self._accel_type_id(get_node(nm)) for nm in self.names),
+                dtype=np.int32,
+                count=n,
+            )
+        self.accel = accel
+        self._accel_names = self.names
+        self._accel_node_ver = nv
+        self.accel_epoch += 1
+        if self._m_rebuilds is not None:
+            self._m_rebuilds.labels(column="accel").inc()
+        return accel

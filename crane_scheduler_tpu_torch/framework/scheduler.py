@@ -11,8 +11,14 @@ column-write replay, row delta, full upload), ``schedule_batch`` and
 ``schedule_pod_burst`` / ``schedule_bursts_pipelined``. Both pipelined
 loops can overlap the refresh (``_OverlappedRefresh``) and the binds
 (``_BindFlushQueue``) with the next cycle; those workers touch the store
-and the cluster, never a tensor. Placements are bit-identical to the reference: the same solver,
-the same ``_expand_counts`` order.
+and the cluster, never a tensor. The gang entry points share it:
+``schedule_gang`` (one gang through the combined-score step),
+``schedule_gang_queue`` (K gangs per device window over the
+version-cached ``GangColumns``, ``scorer.gang_batch``) and
+``schedule_batch_mixed`` (pending pods class by class); their
+``topology=`` path (NUMA) comes with the NUMA slice. Placements are
+bit-identical to the reference: the same solver, the same
+``_expand_counts`` order.
 
 Both schedulers take ``telemetry=`` (``crane_scheduler_tpu_torch.telemetry``)
 and fall back to the process-global instance (``telemetry.active()``,
@@ -36,17 +42,19 @@ import threading
 import time
 from collections import deque
 from concurrent.futures import Future, ThreadPoolExecutor
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
 
 from ..cluster.state import ClusterState, Pod
+from ..constants import MAX_NODE_SCORE
 from ..device import resolve_device
 from ..loadstore.store import NodeLoadStore
 from ..parallel.step import EPOCH_REBASE_SECONDS, PackedFetch, ScheduleStep
 from ..policy.compile import compile_policy
 from ..policy.types import DynamicSchedulerPolicy
+from ..scorer.topk import gang_assign_host
 from ..telemetry import active as active_telemetry
 from ..telemetry import maybe_span, tracing
 from ..utils.logging import verbosity, vlog
@@ -104,6 +112,27 @@ class BatchResult:
     scores: dict  # node name -> int score
     schedulable: dict  # node name -> bool
     now: float = 0.0  # scheduling time the device scored at
+
+
+@dataclass
+class GangOutcome:
+    """One gang's outcome from ``schedule_gang_queue``: lighter than
+    ``BatchResult`` (no per-node score/schedulable dicts, which would cost
+    O(N) per gang)."""
+
+    assignments: dict  # pod_key -> node name
+    unassigned: list  # pod keys with no capacity
+    waterline: int | None  # solver level (None on the fallback path)
+    now: float
+    source: str = "window"  # "window" | "fallback"
+
+
+def _no_topology(topology) -> None:
+    if topology is not None:
+        raise NotImplementedError(
+            "topology= (NodeResourceTopologyMatch NUMA vectors) is not ported "
+            "yet: it comes with the NUMA slice (ROADMAP Queue 1 item 5)"
+        )
 
 
 @dataclass
@@ -401,9 +430,9 @@ class BatchScheduler:
         self._bucket = snapshot_bucket
         self.device = resolve_device(device)
         tel = self._telemetry = telemetry if telemetry is not None else active_telemetry()
-        self._step = ScheduleStep(
-            self.tensors, dtype=dtype or torch.float64, device=self.device, telemetry=tel
-        )
+        self._dtype = dtype or torch.float64
+        self._step = ScheduleStep(self.tensors, dtype=self._dtype, device=self.device,
+                                  telemetry=tel)
         self._hybrid = self._step.hybrid
         self.scorer = self._step.scorer
         self.gang = self._step.gang
@@ -432,11 +461,31 @@ class BatchScheduler:
         # the scores a cycle consumed (lifecycle records carry it)
         self.last_anno_ts: float | None = None
         self._lifecycle = tel.lifecycle if tel is not None else None
-        # the allocatable accounting behind the gang solver's capacity floor
-        # (read from the gang queue on), on this scheduler's registry
+        # the allocatable accounting behind the gang solver's capacity
+        # floor, on this scheduler's registry (``fit`` imports this
+        # package's types, so it loads here)
         from ..fit.tracker import FitTracker
 
         self._fit = FitTracker(cluster, telemetry=tel)
+        self._fit_names: tuple | None = None  # (names_ref, n, list) reuse
+        self._combined: dict = {}  # (dyn_w, topo_w) -> combined-score step
+        # the multi-gang engine (scorer.gang_batch + framework.drip.
+        # GangColumns), built lazily per weight/label config by
+        # _ensure_gang; _gang holds the window distributions gang_stats()
+        # exposes
+        self._gang_engine = None
+        self._gang = {"windows": 0, "gangs": 0, "pods": 0, "fallbacks": 0,
+                      "window_sizes": [], "kernel_seconds": []}
+        self._m_gang_pods = self._m_gang_kernel = None
+        if tel is not None:
+            self._m_gang_pods = tel.registry.histogram(
+                "crane_gang_dispatch_pods", "Pods per gang dispatch window",
+                buckets=(8, 16, 32, 64, 128, 256, 512, 1024, 2048),
+            )
+            self._m_gang_kernel = tel.registry.histogram(
+                "crane_gang_kernel_seconds", "Gang window solve wall seconds per dispatch",
+                buckets=(0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 1.0),
+            )
         self._prepared = None  # resident PreparedSnapshot
         self._prepared_key = None  # store version it was built from
         self._prepared_layout = None  # store layout version it was built from
@@ -963,6 +1012,565 @@ class BatchScheduler:
             unassigned=unassigned,
             scores={names[i]: int(scores[i]) for i in range(n)},
             schedulable={names[i]: bool(schedulable[i]) for i in range(n)},
+            now=now,
+        )
+
+    # -- gangs: combined plugin scoring and the multi-gang window ------------
+
+    def _combined_step(self, dynamic_weight: int, topology_weight: int) -> ScheduleStep:
+        """The score + gang step in the combined-score domain (Dynamic x
+        ``dynamic_weight`` plus offsets up to ``100 x topology_weight``),
+        one per weight pair in a bounded LRU."""
+        key = (dynamic_weight, topology_weight)
+        step = self._combined.get(key)
+        if step is None:
+            step = ScheduleStep(
+                self.tensors, dtype=self._dtype, device=self.device,
+                telemetry=self._telemetry, dynamic_weight=dynamic_weight,
+                max_offset=MAX_NODE_SCORE * topology_weight,
+            )
+            while len(self._combined) >= 8:
+                self._combined.pop(next(iter(self._combined)))
+        else:
+            self._combined.pop(key)  # refresh recency
+        self._combined[key] = step
+        return step
+
+    def _fit_capacity(self, template, names, n):
+        """Free-allocatable copy counts for ``template`` aligned with the
+        prepared rows: the fit layer's capacity floor for the gang solver.
+        Returns None when no tracked node reports allocatable (everything
+        unbounded), so callers skip the min and capacity-free paths stay
+        byte-identical."""
+        from ..fit.tracker import UNBOUNDED, pod_fit_request
+
+        tracker = self._fit
+        tracker.refresh()
+        # one names-list object per (names, n), so the tracker's
+        # identity-keyed row gather hits across cycles
+        cached = self._fit_names
+        if cached is None or cached[0] is not names or cached[1] != n:
+            cached = self._fit_names = (names, n, list(names[:n]))
+        rows = tracker.free_copy_counts(cached[2], pod_fit_request(template))
+        if not (rows < UNBOUNDED).any():
+            return None
+        return rows
+
+    def schedule_gang(
+        self,
+        template,
+        count: int,
+        topology=None,
+        bind: bool = True,
+        dynamic_weight: int = 3,
+        topology_weight: int = 2,
+    ) -> BatchResult:
+        """Burst-schedule ``count`` identical copies of ``template`` with
+        combined plugin scoring (Dynamic x3 and, with NUMA,
+        NodeResourceTopologyMatch x2: the deploy-config weights), capped
+        per node by the free-allocatable copy counts. The water-filling
+        solve runs in the weighted-sum score domain. With ``bind=True``
+        each assigned copy is created in the cluster and bound.
+        ``topology`` (the NUMA plugin) is not ported yet and raises."""
+        _no_topology(topology)
+        now = self._clock()
+        self.refresh()
+        prepared = self._prepare(now)
+        n = self._prepared_n
+        names = self._prepared_names
+
+        step = self._combined_step(dynamic_weight, topology_weight)
+        fit_rows = self._fit_capacity(template, names, n)
+        if fit_rows is not None:
+            # allocatable is reported: the fit rows cap the solver
+            npad = int(prepared.capacity.shape[0])
+            capacity = np.pad(fit_rows, (0, npad - n))
+            offsets = np.zeros((npad,), dtype=np.int32)
+            prepared = step.with_vectors(prepared, capacity, offsets)
+
+        packed = step.packed(prepared, count, now=now).result()
+        keys = [f"{template.namespace}/{template.name}-{i}" for i in range(count)]
+        result = self._build_result(packed, keys, now=now)
+        if bind:
+            result = self._bind_gang_with_recovery(template, result, now)
+        return result
+
+    def _bind_assignments(self, pods_for, assignments, now: float):
+        """Shared bind application for gang copies and pending pods,
+        grouped by node: each node group creates its pods (``add_pods``)
+        and binds them in one ``bind_pods`` transaction (event multiset
+        and pod-version moves identical to per-pod binds).
+
+        ``pods_for(key) -> (pod | None, create)`` resolves each key;
+        ``create`` means the pod must be added to the cluster first (the
+        gang path creates copies from a template). Returns ``(bound,
+        dropped)``: ``dropped`` keys could not bind and go straight to
+        unassigned. The topology plugin's grouped Filter/Reserve gates
+        come with the NUMA slice (ROADMAP Queue 1 item 5)."""
+        bound: dict[str, str] = {}
+        dropped: list[str] = []
+        by_node: dict[str, list[str]] = {}
+        for pod_key, node_name in assignments.items():
+            by_node.setdefault(node_name, []).append(pod_key)
+        for node_name, keys in by_node.items():
+            to_create: list = []
+            to_bind: list[tuple[str, str]] = []
+            for pod_key in keys:
+                pod, create = pods_for(pod_key)
+                if pod is None:
+                    dropped.append(pod_key)
+                    continue
+                if create:
+                    to_create.append(pod)
+                to_bind.append((pod_key, node_name))
+            if to_create:
+                self.cluster.add_pods(to_create)
+            bound_keys = set(self.cluster.bind_pods(to_bind, now))
+            for pod_key, node in to_bind:
+                if pod_key in bound_keys:
+                    bound[pod_key] = node
+                else:
+                    dropped.append(pod_key)
+        return bound, dropped
+
+    def _bind_gang(self, template, assignments, now: float):
+        """Create and bind each assigned copy of ``template``."""
+
+        def pods_for(pod_key):
+            return (
+                replace(template, name=pod_key.split("/", 1)[1],
+                        annotations=dict(template.annotations), node_name=""),
+                True,
+            )
+
+        return self._bind_assignments(pods_for, assignments, now)
+
+    def _bind_gang_with_recovery(self, template, result: BatchResult, now: float) -> BatchResult:
+        """Bind the gang; copies that cannot bind end up unassigned."""
+        n = self._prepared_n
+        prior = np.zeros((n,), np.int64)
+        assignments, unplaced = self._bind_recover_loop(
+            lambda a: self._bind_gang(template, a, now), result.assignments, prior
+        )
+        return BatchResult(
+            assignments=assignments,
+            unassigned=list(result.unassigned) + unplaced,
+            scores=result.scores,
+            schedulable=result.schedulable,
+            now=result.now,
+        )
+
+    def _bind_recover_loop(self, bind_fn, assignments, prior):
+        """Run ``bind_fn`` (the ``_bind_assignments`` contract) and count
+        every successful bind into ``prior`` in place, so a caller chaining
+        several classes through one cycle keeps the hot-penalty staircase
+        continuous. Returns ``(bound: {key: node}, unplaced: [key])``.
+
+        The reference re-solves Filter-rejected copies here with corrected
+        NUMA capacity; without the topology plugin nothing is rejected, so
+        one pass is the whole loop until the NUMA slice (ROADMAP Queue 1
+        item 5)."""
+        idx = {name: i for i, name in enumerate(self._prepared_names[:self._prepared_n])}
+        bound, dropped = bind_fn(assignments)
+        for node_name in bound.values():
+            prior[idx[node_name]] += 1
+        return bound, list(dropped)
+
+    def _ensure_gang(self, dynamic_weight, topology_weight, accel_label):
+        """The lazily built gang engine: version-cached gang columns
+        (``framework.drip.GangColumns``) and the K-gang window
+        (``scorer.gang_batch.GangBatchKernel``), keyed on the weight pair
+        and accelerator label so a caller cycling configurations rebuilds
+        instead of mixing column epochs across windows."""
+        from ..scorer.gang_batch import GangBatchKernel
+        from .drip import GangColumns
+
+        key = (int(dynamic_weight), int(topology_weight), accel_label)
+        eng = self._gang_engine
+        if eng is not None and eng["key"] == key:
+            return eng
+        cols = GangColumns(
+            self.cluster,
+            dyn_weight=int(dynamic_weight),
+            order=("dyn", "fit"),
+            fit_tracker=self._fit,
+            telemetry=self._telemetry,
+            policy=self.policy,
+            accel_label=accel_label,
+        )
+        kern = GangBatchKernel(
+            self.tensors.hv_count,
+            dynamic_weight=int(dynamic_weight),
+            max_offset=MAX_NODE_SCORE * int(topology_weight),
+            device=self.device,
+        )
+        eng = {
+            "key": key,
+            "cols": cols,
+            "kern": kern,
+            "argsort": None,  # (id(score), col_epoch, by_score)
+            "offs_cache": {},  # sorted tput items -> (accel_epoch, row)
+            "zeros_offs": None,  # shared all-zero offset row, length n
+        }
+        self._gang_engine = eng
+        return eng
+
+    def _gang_offsets(self, eng, template, throughput, topology_weight):
+        """Per-node combined-score offset row for ``template``'s
+        per-accelerator-type throughput weights (a template that runs
+        faster on one accelerator family bids its nodes up by the weight).
+        None when the queue carries no weights for this template: the
+        homogeneous default, identical to the zero-offset path. Rows are
+        cached per weight map on the accel column epoch, so repeated gangs
+        of one template reuse one array and the device column cache never
+        re-uploads it."""
+        if not throughput:
+            return None
+        tput = throughput.get(template.name)
+        if tput is None:
+            tput = throughput.get(f"{template.namespace}/{template.name}")
+        if not tput:
+            return None
+        cols = eng["cols"]
+        accel = cols.ensure_accel()
+        key = tuple(sorted(tput.items()))
+        hit = eng["offs_cache"].get(key)
+        if hit is not None and hit[0] == cols.accel_epoch:
+            return hit[1]
+        row = np.zeros((len(cols.names),), dtype=np.int32)
+        for label, w in tput.items():
+            if not w:
+                continue
+            tid = cols._accel_index.get(label)
+            if tid is not None:
+                row[accel == tid] = int(w)
+        np.clip(row, 0, MAX_NODE_SCORE * int(topology_weight), out=row)
+        cache = eng["offs_cache"]
+        while len(cache) >= 16:
+            cache.pop(next(iter(cache)))
+        cache[key] = (cols.accel_epoch, row)
+        return row
+
+    def schedule_gang_queue(
+        self,
+        requests,
+        topology=None,
+        bind: bool = True,
+        window: int = 8,
+        dynamic_weight: int = 3,
+        topology_weight: int = 2,
+        throughput=None,
+        accel_label: str | None = None,
+        tie_policy=None,
+        tie_rng=None,
+    ) -> list[GangOutcome]:
+        """Schedule a queue of heterogeneous gangs — ``requests`` is an
+        ordered iterable of ``(template, count)`` pairs — through the
+        batched window: up to ``window`` gangs solve in one device window
+        against the version-cached gang columns, with a capacity fold so
+        later gangs see earlier gangs' consumption, and one device-to-host
+        copy per window. No ``refresh()``/``_prepare`` per gang: a named
+        annotation patch between gangs re-reads only the journal's dirty
+        rows. Placements equal a sequential ``schedule_gang(bind=...)``
+        loop over the same requests.
+
+        - ``throughput``: optional ``{template name (or "ns/name"): {accel
+          label value: weight}}`` per-accelerator-type score offsets; nodes
+          are classed by ``labels[accel_label]``.
+        - ``tie_policy``: None (node-order prefix split),
+          ``"fragmentation"`` or ``"seeded"`` (with ``tie_rng``); the
+          non-default policies solve on the host (``gang_window_host``).
+        - gangs carrying scalar (extended) resources fall back to
+          ``schedule_gang`` one by one, the open window flushed first so
+          queue order, and with it capacity evolution, is kept.
+        - ``topology`` (the NUMA plugin) is not ported yet and raises.
+        """
+        from ..fit.tracker import pod_fit_request
+
+        _no_topology(topology)
+        eng = self._ensure_gang(dynamic_weight, topology_weight, accel_label)
+        outcomes: list[GangOutcome] = []
+        buf: list[tuple] = []  # (template, count)
+
+        def flush():
+            if buf:
+                self._flush_gang_window(eng, buf, outcomes, bind, dynamic_weight,
+                                        topology_weight, throughput, tie_policy, tie_rng)
+                buf.clear()
+
+        for template, count in requests:
+            if pod_fit_request(template).scalar_resources:
+                flush()  # keep queue order and capacity evolution
+                r = self.schedule_gang(template, int(count), bind=bind,
+                                       dynamic_weight=dynamic_weight,
+                                       topology_weight=topology_weight)
+                outcomes.append(GangOutcome(
+                    assignments=dict(r.assignments), unassigned=list(r.unassigned),
+                    waterline=None, now=r.now, source="fallback",
+                ))
+                self._gang["fallbacks"] += 1
+                # the fallback bound pods behind the columns' back: force a
+                # fit rebuild and a carry upload next window
+                eng["cols"].drop_fit()
+                eng["kern"].mark_desynced()
+                continue
+            buf.append((template, int(count)))
+            if len(buf) >= int(window):
+                flush()
+        flush()
+        return outcomes
+
+    def _flush_gang_window(self, eng, buf, outcomes, bind, dynamic_weight, topology_weight,
+                           throughput, tie_policy, tie_rng) -> None:
+        """Solve and (optionally) bind one buffered window of gangs; one
+        ``GangOutcome`` per buffered request is appended in order."""
+        from ..fit.tracker import pod_fit_request, request_vec
+        from ..scorer.gang_batch import gang_window_host
+
+        cols = eng["cols"]
+        kern = eng["kern"]
+        total = sum(c for _, c in buf)
+        now = self._clock()
+        with maybe_span(self._telemetry, "gang_dispatch", gangs=len(buf), pods=total):
+            cols.ensure(now)
+            names = cols.names
+            n = len(names)
+            if n == 0:
+                for t, c in buf:
+                    keys = [f"{t.namespace}/{t.name}-{i}" for i in range(c)]
+                    outcomes.append(GangOutcome({}, keys, -1, now, "window"))
+                return
+            score = cols.score
+            sched = cols.schedulable
+            bounded = cols.bounded
+            free = cols.free
+
+            # dedupe request classes across the window: the device window
+            # takes a [C, 4] class matrix and per-gang class ids. Offset
+            # rows derive here, after ensure(), so they align with the
+            # current membership by construction
+            class_of: dict = {}
+            vecs: list = []
+            offs_rows: list = []
+            gang_vecs: list = []
+            class_id = np.empty((len(buf),), np.int32)
+            pods = np.empty((len(buf),), np.int64)
+            for j, (t, c) in enumerate(buf):
+                offs = self._gang_offsets(eng, t, throughput, topology_weight)
+                vec = request_vec(pod_fit_request(t))
+                ck = (vec.tobytes(), id(offs))
+                cid = class_of.get(ck)
+                if cid is None:
+                    cid = class_of[ck] = len(vecs)
+                    vecs.append(vec)
+                    offs_rows.append(offs)
+                class_id[j] = cid
+                pods[j] = c
+                gang_vecs.append(vec)
+
+            # the fold fence, captured before any bind moves pod_version
+            cluster_pre = self.cluster.pod_version
+            t0 = time.perf_counter()
+            if bind and tie_policy is None:
+                dispatch_offs = None
+                if any(o is not None for o in offs_rows):
+                    zeros = eng["zeros_offs"]
+                    if zeros is None or zeros.shape[0] != n:
+                        zeros = eng["zeros_offs"] = np.zeros((n,), np.int32)
+                    dispatch_offs = [zeros if o is None else o for o in offs_rows]
+                counts_m, _unassigned, wl_v = kern.dispatch(
+                    score, sched, bounded, free, np.stack(vecs).astype(np.int64),
+                    dispatch_offs, class_id, pods,
+                    col_version=cols.col_epoch, col_delta=cols.dirty_rows_between,
+                )
+            else:
+                # the host window: tie policies reorder the waterline take,
+                # which the prefix split cannot express; and bind=False
+                # must not fold (sequential bind=False calls see no
+                # capacity evolution either)
+                host_res, _free_after = gang_window_host(
+                    score, sched, bounded, free,
+                    [(int(pods[j]), gang_vecs[j], offs_rows[int(class_id[j])])
+                     for j in range(len(buf))],
+                    self.tensors.hv_count,
+                    dynamic_weight=int(dynamic_weight),
+                    max_offset=MAX_NODE_SCORE * int(topology_weight),
+                    tie_policy=tie_policy, tie_rng=tie_rng, fold=bind,
+                )
+                counts_m = np.stack([np.asarray(r.counts, np.int64) for r in host_res])
+                wl_v = np.array([r.waterline for r in host_res])
+            solve_seconds = time.perf_counter() - t0
+
+            # score-descending expansion order, cached per column epoch
+            # (the O(n log n) stable argsort is shared by every gang and
+            # window until a patch moves a score)
+            by = eng["argsort"]
+            if by is None or by[0] != id(score) or by[1] != cols.col_epoch:
+                by = eng["argsort"] = (id(score), cols.col_epoch,
+                                       np.argsort(-score, kind="stable"))
+            by_score = by[2]
+
+            n_bound = 0
+            fold_plan: list = []
+            for j, (t, c) in enumerate(buf):
+                counts_j = np.asarray(counts_m[j])
+                order = np.repeat(by_score, counts_j[by_score])
+                keys = [f"{t.namespace}/{t.name}-{i}" for i in range(c)]
+                assignments = {key: names[int(i)] for key, i in zip(keys, order)}
+                unassigned_keys = list(keys[len(order):])
+                if bind:
+                    bound, dropped = self._bind_gang(t, assignments, now)
+                    unassigned_keys.extend(dropped)
+                    n_bound += len(bound)
+                    assignments = bound
+                    fold_plan.append((counts_j, gang_vecs[j]))
+                outcomes.append(GangOutcome(
+                    assignments=assignments, unassigned=unassigned_keys,
+                    waterline=int(wl_v[j]), now=now, source="window",
+                ))
+
+            if bind:
+                # fold fence: replay the window's folds into the host free
+                # column only when our binds are the only pod writes and
+                # every counted pod bound — anything else (an interleaved
+                # writer, a dropped bind) invalidates the carry
+                ok = (
+                    free is not None
+                    and cols._fit_pod_ver == cluster_pre
+                    and self.cluster.pod_version == cluster_pre + n_bound
+                    and n_bound == int(counts_m.sum())
+                )
+                if ok:
+                    for counts_j, vec in fold_plan:
+                        for i in np.flatnonzero(counts_j):
+                            cols.fold_row(int(i), int(counts_j[i]) * vec)
+                    cols.commit_folds(cluster_pre + n_bound)
+                    kern.mark_synced(cols.free)
+                else:
+                    cols.drop_fit()
+                    kern.mark_desynced()
+
+        g = self._gang
+        g["windows"] += 1
+        g["gangs"] += len(buf)
+        g["pods"] += total
+        g["window_sizes"].append(len(buf))
+        g["kernel_seconds"].append(solve_seconds)
+        if len(g["window_sizes"]) > 256:
+            del g["window_sizes"][:-256]
+            del g["kernel_seconds"][:-256]
+        if self._m_gang_pods is not None:
+            self._m_gang_pods.observe(total)
+            self._m_gang_kernel.observe(solve_seconds)
+
+    def gang_stats(self) -> dict:
+        """Dispatch-window counters, the gang twin of ``drip_stats``."""
+        g = self._gang
+        out = {
+            "windows": g["windows"],
+            "gangs": g["gangs"],
+            "pods": g["pods"],
+            "fallbacks": g["fallbacks"],
+            "window_sizes": list(g["window_sizes"]),
+            "kernel_seconds": list(g["kernel_seconds"]),
+        }
+        eng = self._gang_engine
+        if eng is not None:
+            out["columns"] = dict(eng["cols"].stats)
+            out["kernel_dispatches"] = eng["kern"].dispatches
+            out["free_uploads"] = eng["kern"].free_uploads
+        return out
+
+    # -- heterogeneous (mixed) batches -------------------------------------
+
+    def _bind_existing(self, pods_by_key, assignments, now: float):
+        """Bind already-pending pods (the mixed-batch path); same contract
+        as ``_bind_gang``."""
+        return self._bind_assignments(
+            lambda key: (pods_by_key.get(key), False), assignments, now
+        )
+
+    @staticmethod
+    def _class_key(pod):
+        """Scheduling-equivalence class for one cycle without the topology
+        plugin: the Dynamic score is pod-independent, so pods differ only
+        in daemonset-ness (Filter bypass; ref: plugins.go:41-43)."""
+        return ("plain", bool(pod.is_daemonset_pod()))
+
+    def schedule_batch_mixed(
+        self,
+        pods: list[Pod],
+        topology=None,
+        bind: bool = True,
+        dynamic_weight: int = 3,
+        topology_weight: int = 2,
+    ) -> BatchResult:
+        """Heterogeneous burst: group pending pods by scheduling-
+        equivalence class and water-fill class by class against shared
+        evolving capacity. Classes run in first-appearance order, each
+        with the same water-filling as ``schedule_gang`` (on the host, from
+        the cycle's one device fetch), and the hot-penalty staircase
+        continues across classes (``prior``). DaemonSet pods bypass Filter
+        and form an always-schedulable class. ``topology`` (the NUMA
+        plugin) is not ported yet and raises."""
+        from ..fit.tracker import UNBOUNDED
+
+        _no_topology(topology)
+        now = self._clock()
+        self.refresh()
+        prepared = self._prepare(now)
+        n = self._prepared_n
+        names = self._prepared_names
+        idx = {name: i for i, name in enumerate(names[:n])}
+
+        # one packed fetch for the cycle's shared verdicts (hybrid rescue
+        # rows included, so the class solves on the host stay exact)
+        packed = self._step.packed(prepared, 0, now=now).result()
+        schedulable, scores, _counts, _un, _ = ScheduleStep.unpack(packed, n)
+        scores = np.asarray(scores, np.int64)
+        sched = np.asarray(schedulable, bool)
+
+        classes: dict = {}
+        for pod in pods:
+            classes.setdefault(self._class_key(pod), []).append(pod)
+
+        prior = np.zeros((n,), np.int64)
+        assignments: dict[str, str] = {}
+        unassigned: list[str] = []
+        for members in classes.values():
+            template = members[0]
+            # DaemonSet pods always pass Filter (ref: plugins.go:41-43)
+            cls_sched = np.ones((n,), bool) if template.is_daemonset_pod() else sched
+            capacity = np.full((n,), UNBOUNDED, np.int64)
+            fit_rows = self._fit_capacity(template, names, n)
+            if fit_rows is not None:
+                np.minimum(capacity, fit_rows, out=capacity)
+            solved = gang_assign_host(
+                scores, cls_sched, len(members), self.tensors.hv_count,
+                capacity=capacity, offsets=np.zeros((n,), np.int32),
+                dynamic_weight=dynamic_weight,
+                max_offset=MAX_NODE_SCORE * topology_weight, prior=prior,
+            )
+            keys_c = [p.key() for p in members]
+            assign_c, un_c = self._expand_counts(scores, solved.counts, names, keys_c)
+            unassigned.extend(un_c)
+            if bind:
+                pods_by_key = {p.key(): p for p in members}
+                bound, unplaced = self._bind_recover_loop(
+                    lambda a, pbk=pods_by_key: self._bind_existing(pbk, a, now),
+                    assign_c, prior,
+                )
+                assignments.update(bound)
+                unassigned.extend(unplaced)
+            else:
+                assignments.update(assign_c)
+                for node_name in assign_c.values():
+                    prior[idx[node_name]] += 1
+        return BatchResult(
+            assignments=assignments,
+            unassigned=unassigned,
+            scores={names[i]: int(scores[i]) for i in range(n)},
+            schedulable={names[i]: bool(sched[i]) for i in range(n)},
             now=now,
         )
 
@@ -1618,6 +2226,7 @@ class Scheduler:
             chosen, feasible, ties = kern.dispatch(
                 drip.schedulable, drip.weighted, drip.bounded, drip.free, vecs,
                 want_ties=self._tie_rng is not None, col_version=drip.col_epoch,
+                col_delta=drip.dirty_rows_between,
             )
         dt = kern.last_kernel_seconds
         b = self._batch

@@ -380,14 +380,15 @@ class NodeLoadStore:
         return len(stale)
 
     @_locked
-    def bulk_ingest(self, items) -> None:
+    def bulk_ingest(self, items, skip_unchanged: bool = True) -> None:
         """Ingest many (node_name, annotation_map) pairs with one batch
         parse call. Each map is authoritative for its node: keys absent
         from it are cleared, so a deleted annotation doesn't linger as
-        live metric state. A node whose annotation map is the *same
-        object* as last time is skipped — the cluster model replaces the
-        map on every patch, so identity works like an informer's
-        resourceVersion check and steady-state refreshes are O(changed).
+        live metric state. With ``skip_unchanged`` (the default), a node
+        whose annotation map is the *same object* as last time is skipped
+        — the cluster model replaces the map on every patch, so identity
+        works like an informer's resourceVersion check and steady-state
+        refreshes are O(changed).
         """
         index = self._index
         last = self._last_anno
@@ -408,7 +409,7 @@ class NodeLoadStore:
                 self._names.append(name)
                 index[name] = i
                 added = True
-            elif last.get(name) is anno:
+            elif skip_unchanged and last.get(name) is anno:
                 continue
             last[name] = anno
             touched.append(i)

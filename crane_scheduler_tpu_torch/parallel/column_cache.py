@@ -10,9 +10,13 @@ cache key. The slot pins the host array, so an ``id()`` cannot be recycled
 while its key is live. ``prepare`` (e.g. a dtype cast) runs only on upload.
 
 Every upload copies, also on the CPU, so a device column never aliases the
-host array it mirrors. The reference's row-scatter ``delta_rows`` path and
-its mesh partitions wait for the dirty-name journal and the multi-GPU
-slice; ``set_partition`` takes the single-device token only.
+host array it mirrors. A column patched in place between two versions
+(``DripColumns._patch_dynamic``, driven by the dirty-name journal) passes
+``delta_rows``: the device copy is then patched with one exact-row
+``index_copy`` into a new tensor, never in place, since an earlier
+window's work may still read the old one. The reference's mesh partitions
+wait for the multi-GPU slice; ``set_partition`` takes the single-device
+token only.
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ class DeviceColumnCache:
         self._device = device
         self._slots: dict[str, tuple] = {}
         self.uploads = 0
+        self.scatters = 0  # delta-row device patches (avoided uploads)
         self._partition_token = None
 
     def set_partition(self, token) -> bool:
@@ -57,13 +62,54 @@ class DeviceColumnCache:
             self._slots.clear()
         return changed
 
-    def put(self, name: str, arr: np.ndarray, version=0, prepare=None) -> torch.Tensor:
+    def held_version(self, name: str, arr):
+        """The version the cached slot for ``name`` holds, or None when the
+        slot is absent or keyed to a different array object — the input
+        for ``DripColumns.dirty_rows_between`` when building a
+        ``delta_rows`` scatter."""
+        slot = self._slots.get(name)
+        if slot is None:
+            return None
+        key = slot[0]
+        if key[0] != id(arr) or key[1] != arr.shape:
+            return None
+        return key[2]
+
+    def put(self, name: str, arr: np.ndarray, version=0, prepare=None,
+            delta_rows=None, row_prepare=None) -> torch.Tensor:
         """Device tensor for ``arr``, uploading only when the ``(identity,
-        shape, version)`` key changed since the last call."""
+        shape, version)`` key changed since the last call.
+
+        ``delta_rows`` (int array) declares that the held slot differs
+        from ``arr`` only at those rows (the same array object, patched in
+        place between the held version and ``version``): the device copy
+        is then patched by one ``index_copy`` of those rows into a new
+        tensor instead of a full upload. An empty delta keeps the held
+        tensor. ``row_prepare`` is the elementwise (dtype) half of
+        ``prepare``, applied to the scattered rows."""
         key = (id(arr), arr.shape, version)
         slot = self._slots.get(name)
         if slot is not None and slot[0] == key:
             return slot[1]
+        if (
+            delta_rows is not None
+            and slot is not None
+            and slot[0][0] == id(arr)
+            and slot[0][1] == arr.shape
+        ):
+            if len(delta_rows) == 0:
+                dev = slot[1]
+            else:
+                rows = np.asarray(delta_rows, dtype=np.int64)
+                vals = arr[rows]
+                if row_prepare is not None:
+                    vals = row_prepare(vals)
+                dev = slot[1].index_copy(
+                    0, upload(rows, self._device), upload(vals, self._device)
+                )
+            self._slots[name] = (key, dev, arr)
+            self.scatters += 1
+            return dev
         host = arr if prepare is None else prepare(arr)
         dev = upload(host, self._device)
         self._slots[name] = (key, dev, arr)

@@ -122,20 +122,24 @@ class ScheduleStep:
     """score + gang-assign on one device."""
 
     def __init__(self, tensors: PolicyTensors, dtype=torch.float32, device=None,
-                 telemetry=None):
+                 telemetry=None, dynamic_weight: int = 1, max_offset: int = 0):
         """A float32 step is hybrid: every prepared snapshot carries
         host-computed f64 rescue rows (scorer.hybrid) that the step
         substitutes, giving bit-for-bit Go/f64 placement parity at f32
         throughput. A float64 step is the parity mode itself.
         ``telemetry``: optional spans for the uploads (``h2d_prepare``,
         ``h2d_delta``, ``h2d_columns``) and the hybrid ``risk_rescan``;
-        they time the host's enqueue, never a device wait."""
+        they time the host's enqueue, never a device wait.
+        ``dynamic_weight`` / ``max_offset``: the water-filling solve's
+        combined-score domain (``GangScheduler``); the defaults are the
+        plain Dynamic score."""
         self.device = resolve_device(device)
         self.telemetry = telemetry
         self.tensors = tensors
         self.hybrid = dtype != torch.float64
         self.scorer = BatchedScorer(tensors, dtype=dtype, device=self.device)
-        self.gang = GangScheduler(tensors.hv_count, device=self.device)
+        self.gang = GangScheduler(tensors.hv_count, dynamic_weight=dynamic_weight,
+                                  max_offset=max_offset, device=self.device)
 
     # -- the step ----------------------------------------------------------
 
@@ -331,6 +335,20 @@ class ScheduleStep:
             ),
             ovr_now=float(now), ovr_cache=new_cache, ovr_rescan_rows=scanned,
         )
+
+    def with_vectors(self, prepared: PreparedSnapshot, capacity=None,
+                     offsets=None) -> PreparedSnapshot:
+        """A copy of a prepared snapshot with new per-node gang vectors,
+        reusing the resident load tensors: only the ``[N]`` capacity
+        (clipped to 2^31-1) and offset rows upload (the per-gang-request
+        path)."""
+        changes = {}
+        if capacity is not None:
+            capacity = np.minimum(np.asarray(capacity, np.int64), 2**31 - 1)
+            changes["capacity"] = self._upload(capacity)
+        if offsets is not None:
+            changes["offsets"] = self._upload(np.asarray(offsets, np.int32))
+        return dataclasses.replace(prepared, **changes) if changes else prepared
 
     # -- resident-snapshot updates -----------------------------------------
 

@@ -87,6 +87,19 @@ def _drip_batch(schedulable, weighted, bounded, free, vecs, active, want_ties=Tr
     return torch.stack(rows), free
 
 
+def col_delta_rows(cols: DeviceColumnCache, name: str, arr, col_version, col_delta):
+    """The rows to scatter into the cached device copy of column ``name``
+    (``DeviceColumnCache.put(delta_rows=)``), or None for a full upload:
+    no ``col_delta`` source, no held slot for this array, or a chain the
+    scatter log no longer covers."""
+    if col_delta is None:
+        return None
+    held = cols.held_version(name, arr)
+    if held is None or held == col_version:
+        return None
+    return col_delta(held, col_version)
+
+
 class DripBatchKernel:
     """Host wrapper: device column placement and fold-carry reuse.
 
@@ -158,12 +171,19 @@ class DripBatchKernel:
         vecs: np.ndarray,
         want_ties: bool = True,
         col_version: int = 0,
+        col_delta=None,
     ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
         """Run one window; returns ``(chosen, feasible, ties)`` int64[K]
         (chosen = -1 where no feasible node; ties is a constant 1 when
         ``want_ties`` is False). Pure with respect to the host columns; the
-        device fold carry advances and is kept for reuse. ``col_version``
-        is the dynamic columns' build epoch (``DripColumns.col_epoch``)."""
+        device fold carry advances and is kept for reuse.
+
+        ``col_version`` is the dynamic columns' epoch
+        (``DripColumns.col_epoch``): O(dirty) refreshes patch the host
+        arrays in place, so identity alone does not key freshness.
+        ``col_delta(held, current)`` (``DripColumns.dirty_rows_between``)
+        turns a version miss into a row scatter on the device instead of a
+        full column upload; returning None falls back to the upload."""
         n = int(schedulable.shape[0])
         k = int(vecs.shape[0])
         t0 = time.perf_counter()
@@ -176,9 +196,14 @@ class DripBatchKernel:
             ties = np.zeros(k, np.int64) if want_ties else np.ones(k, np.int64)
             return np.full(k, -1, np.int64), np.zeros(k, np.int64), ties
         cols = self._cols
-        sched_d = cols.put("schedulable", schedulable, version=col_version)
+        sched_d = cols.put("schedulable", schedulable, version=col_version,
+                           delta_rows=col_delta_rows(cols, "schedulable", schedulable,
+                                                     col_version, col_delta))
         w_d = cols.put("weighted", weighted, version=col_version,
-                       prepare=lambda a: a.astype(np.int64))
+                       prepare=lambda a: a.astype(np.int64),
+                       delta_rows=col_delta_rows(cols, "weighted", weighted,
+                                                 col_version, col_delta),
+                       row_prepare=lambda v: v.astype(np.int64))
         if bounded is None or free is None:
             # tracker-less plugin set: fit never fails
             bounded = np.zeros((n,), dtype=bool)

@@ -43,6 +43,7 @@ from crane_scheduler_tpu.policy import DEFAULT_POLICY, compile_policy
 from crane_scheduler_tpu.policy import load_policy_from_file as jax_load_policy
 from crane_scheduler_tpu.scorer.columns import drip_filter_score_columns
 from crane_scheduler_tpu.scorer.topk import SegMaxTree
+from crane_scheduler_tpu.telemetry import Telemetry as JaxTelemetry
 from crane_scheduler_tpu_torch import cluster as pc
 from crane_scheduler_tpu_torch.config import SchedulerConfiguration, SchedulerProfile
 from crane_scheduler_tpu_torch.config import PluginWeight
@@ -62,6 +63,7 @@ from crane_scheduler_tpu_torch.scorer.columns import (
     drip_filter_score_columns as port_drip_columns,
 )
 from crane_scheduler_tpu_torch.scorer.topk import SegMaxTree as PortSegMaxTree
+from crane_scheduler_tpu_torch.telemetry import Telemetry as PortTelemetry
 from test_drip_columnar import METRICS, NOW, _anno, fuzz_node_specs, fuzz_pod_specs
 
 REPO = Path(__file__).resolve().parents[1]
@@ -178,18 +180,22 @@ class Degraded:
     active = True
 
 
-def build_scheduler(side, cluster, columnar=True, seed=None, fit=True, degraded=None):
+def build_scheduler(side, cluster, columnar=True, seed=None, fit=True, degraded=None,
+                    telemetry=None):
     clock = lambda: NOW  # noqa: E731
     if side == "jax":
-        sched = Scheduler(cluster, clock=clock, columnar=columnar, tie_break_seed=seed)
+        sched = Scheduler(cluster, clock=clock, columnar=columnar, tie_break_seed=seed,
+                          telemetry=telemetry)
         if fit:
-            sched.register(ResourceFitPlugin(FitTracker(cluster)), weight=1)
+            sched.register(ResourceFitPlugin(FitTracker(cluster, telemetry=telemetry)),
+                           weight=1)
         sched.register(DynamicPlugin(DEFAULT_POLICY, clock=clock, degraded=degraded), weight=3)
     else:
         sched = PortScheduler(cluster, clock=clock, columnar=columnar, tie_break_seed=seed,
-                              device="cpu")
+                              device="cpu", telemetry=telemetry)
         if fit:
-            sched.register(PortFitPlugin(PortFitTracker(cluster)), weight=1)
+            sched.register(PortFitPlugin(PortFitTracker(cluster, telemetry=telemetry)),
+                           weight=1)
         sched.register(PortDynamicPlugin(PORT_POLICY, clock=clock, degraded=degraded),
                        weight=3)
     return sched
@@ -200,6 +206,7 @@ def outcome(results):
 
 
 STAT_KEYS = ("hits", "rebuilds", "folds", "drops", "topk_builds", "topk_updates", "fallbacks")
+JOURNAL_KEYS = ("full_sweeps", "dirty_patches", "dirty_rows")
 BATCH_KEYS = ("dispatches", "pods", "replays", "conflicts", "batch_sizes")
 
 
@@ -231,13 +238,16 @@ def run_mode(side, mode, cluster, sched, pods):
     return queue.take_results()
 
 
-def twin_run(jax_drip, mode, node_specs, pod_specs, seed=None, feed=None, **sched_kw):
+def twin_run(jax_drip, mode, node_specs, pod_specs, seed=None, feed=None, tels=None,
+             **sched_kw):
     """One path on both packages over twin clusters; returns both sides'
-    (cluster, scheduler, results)."""
+    (cluster, scheduler, results). ``tels`` maps a side to its
+    ``Telemetry``."""
     out = {}
     for side in ("jax", "port"):
         cluster = build_cluster(side, node_specs)
-        sched = build_scheduler(side, cluster, columnar=mode != "scalar", seed=seed, **sched_kw)
+        sched = build_scheduler(side, cluster, columnar=mode != "scalar", seed=seed,
+                                telemetry=(tels or {}).get(side), **sched_kw)
         pods = [make_pod(side, *spec) for spec in pod_specs]
         for pod in pods:
             cluster.add_pod(pod)
@@ -583,16 +593,22 @@ def test_concurrent_writer_mid_stream(jax_drip, mode):
                     allocatable={"cpu": "2", "memory": "4Gi", "pods": "3"}))
             yield pod
 
-    out = twin_run(jax_drip, mode, node_specs, pod_specs, feed=feed)
-    # After the annotation patch the reference re-reads the one patched row
-    # into its cached trees (its dirty-name journal path, counted in
-    # topk_updates); the port's identity sweep replaces the columns and
-    # rebuilds the trees instead. Placements and every other counter agree.
-    assert_twins_equal(out, keys=tuple(k for k in STAT_KEYS if k != "topk_updates"))
-    jst, pst = out["jax"][1].drip_stats(), out["port"][1].drip_stats()
-    assert pst["full_sweeps"] > jst["full_sweeps"]
+    tels = {"jax": JaxTelemetry(), "port": PortTelemetry()}
+    out = twin_run(jax_drip, mode, node_specs, pod_specs, feed=feed, tels=tels)
+    # Both packages journal the annotation patch and the new node by name:
+    # the patched row is re-read into the cached columns and trees, the new
+    # node spliced in. Every column counter agrees, and so do both
+    # consumers' crane_dirty_rows_total.
+    assert_twins_equal(out, keys=STAT_KEYS + JOURNAL_KEYS)
+    jst = out["jax"][1].drip_stats()
+    assert jst["dirty_rows"] > 0 and jst["dirty_patches"] > 0
+    reg = {s: t.registry.snapshot() for s, t in tels.items()}
+    for consumer in ("drip", "fit"):
+        key = f'crane_dirty_rows_total{{consumer="{consumer}"}}'
+        assert reg["port"].get(key) == reg["jax"].get(key)
+        assert reg["port"].get(key, 0) > 0
     if mode == "perpod":
-        assert pst["topk_updates"] < jst["topk_updates"]
+        assert jst["topk_updates"] > 0  # the patched row re-read into the trees
     else:
         assert out["port"][1].drip_stats()["batch"]["dispatches"] >= 4
 
