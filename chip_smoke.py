@@ -136,12 +136,37 @@ non-zero without printing a result.
    ``kernel_dispatches``, ``free_uploads`` and both ``ensure()`` times.
    (config 22's wire leg waits for the kube mirror; clusters are built
    with ``add_node``.)
+18. numa_gang: config 22's cluster at 50,000 nodes with one NRT CR per
+   node (two zones of 8 cores, 32Gi and 50Gi; CPU policy ``None`` on
+   ``i % 50 == 3``, node-aware on ``i % 4 == 0``, no CR on ``i % 100 ==
+   7``) and one bound background pod per node holding a seeded topology
+   result (0-8 cores, zone 0 overcommitted on ``i % 200 == 11``). 24 gangs
+   of guaranteed pods (136 pods, six CPU shapes, every third template
+   aware, every sixth not) through ``schedule_gang(topology=, bind=True)``
+   on a ``BatchScheduler(dtype=torch.float32)``: K1 and K2 once per gang,
+   K2 with the NUMA offsets and copy capacity. After each gang a second
+   scheduler's incremental NUMA vectors equal a fresh full build (both
+   evaluate on the card). The run equals a CPU twin (``device="cpu"``)
+   in placements, unassigned keys, topology-result annotations and
+   assume-cache contents; ``schedule_gang_queue(topology=)`` equals it
+   with every outcome a fallback; a ``schedule_batch_mixed`` burst of the
+   136 pods as pending pods plus 64 best-effort pods gives f32 == f64;
+   ``evaluate_topology_batch`` and ``copies_capacity`` on the card equal
+   their CPU runs at 50,000 x 2 and on random nodes at Z 4 and 8 (whole-
+   core, off-by-one-milli and overcommitted zones); and a per-pod
+   ``Scheduler`` from ``build_scheduler_from_config`` with Dynamic x3 and
+   NodeResourceTopologyMatch x2 at 2,000 nodes places 16 pods alike on
+   the card and on a CPU twin. The line carries ms per gang with its
+   stages (full vector builds, incremental ms and rows, bind, step), K1
+   and K2 launches per gang, and the device us of one batched evaluation
+   plus copy-capacity call at 50,000 x 2.
 
 Before each path (main path, delta, column, overlap, hybrid scorer, the
-drip queue, serve, scalar and dirty phases, telemetry, and the gang
-sequential, window and mixed legs) the kernels' launch counters are set to
-0, and after it each kernel the path runs must have launched; the
-``kernels`` line lists the counts per path (the drip path runs neither
+drip queue, serve, scalar and dirty phases, telemetry, the gang
+sequential, window and mixed legs, and the NUMA gang, queue, mixed and
+per-pod legs) the kernels' launch counters are set to 0, and after it each
+kernel the path runs must have launched; the ``kernels`` line lists the
+counts per path (the drip paths and the per-pod NUMA leg run neither
 kernel).
 
 A kernel's device time is the mean duration of its launches under
@@ -235,6 +260,14 @@ GANG_WINDOW = 8
 GANG_DYN_W, GANG_TOPO_W = 3, 2  # Dynamic x3, topology x2: the deploy-config weights
 GANG_ORACLE_GANGS = 2  # the sequential oracle is O(pods x nodes) Python per gang
 DRIP_ALLOCATABLE = {"cpu": "16", "memory": "64Gi", "ephemeral-storage": "100Gi", "pods": "110"}
+# the NUMA gangs: guaranteed pods, (cpu milli, copies), 136 pods in all
+NUMA_SHAPES = ((1000, 12), (2000, 8), (3000, 6), (4000, 4), (6000, 2), (8000, 2)) * 4
+NUMA_BEST_EFFORT = 64  # best-effort pods beside the gang pods in the mixed burst
+NUMA_RANDOM_NODES = 4_096  # nodes of each random Z = 4, 8 batched-evaluation case
+NUMA_PER_POD_NODES = 2_000  # the per-pod scalar loop is O(plugins x nodes) per pod
+NUMA_PER_POD_PODS = 16
+NUMA_AWARE = "topology.crane.io/topology-awareness"
+NUMA_RESULT = "topology.crane.io/topology-result"
 
 # H100 SXM published rates (NVIDIA data sheet; dense, non-tensor paths)
 HBM_BYTES_PER_S = 3.35e12
@@ -1747,6 +1780,428 @@ def phase_gang_queue(dev) -> tuple:
     return out, by_path
 
 
+# -- NUMA on the gang paths -----------------------------------------------------
+
+def numa_awareness(j: int) -> str | None:
+    """Every third template (1-based) asks for NUMA awareness, every sixth
+    refuses it, the rest leave it to the node's policy."""
+    k = j + 1
+    return "false" if k % 6 == 0 else "true" if k % 3 == 0 else None
+
+
+def numa_template(name: str, cpu_milli: int, aware: str | None) -> Pod:
+    """A guaranteed pod (requests equal to limits, whole cores)."""
+    req = {"cpu": f"{cpu_milli}m", "memory": "1Gi"}
+    return Pod(name=name, annotations={} if aware is None else {NUMA_AWARE: aware},
+               containers=(Container("c", ResourceRequirements(requests=req,
+                                                               limits=dict(req))),))
+
+
+def numa_requests(tag: str) -> list:
+    return [(numa_template(f"numa-{tag}-{j:03d}", cpu, numa_awareness(j)), count)
+            for j, (cpu, count) in enumerate(NUMA_SHAPES)]
+
+
+def numa_world(n: int) -> tuple:
+    """One NRT CR per node (two 8-core zones; ``None`` CPU policy on
+    ``i % 50 == 3``, node-aware on ``i % 4 == 0``, no CR on ``i % 100 ==
+    7``) as plain mappings, and one bound background pod per node whose
+    topology result uses 0, 2, 4, 6 or 8 cores of one zone or splits them
+    across both, from the seed (zone 0 overcommitted at 9 cores on ``i %
+    200 == 11``)."""
+    rng = np.random.default_rng(SEED + 7)
+    used = rng.choice([0, 2000, 4000, 6000, 8000], n)
+    split = rng.random(n) < 0.25
+    zone = rng.integers(0, 2, n)
+    zones = [{"name": f"numa-{j}", "type": "Node", "resources": {"allocatable": {
+        "cpu": "8000m", "memory": "32Gi", "ephemeral-storage": "50Gi"}}} for j in range(2)]
+    crs, background = [], []
+    for i in range(n):
+        name = f"node-{i:05d}"
+        if i % 100 != 7:
+            crs.append({"name": name,
+                        "cpu_manager_policy": "None" if i % 50 == 3 else "Static",
+                        "topology_manager_policy":
+                            "SingleNUMANodePodLevel" if i % 4 == 0 else "None",
+                        "zones": zones})
+        u = 9000 if i % 200 == 11 else int(used[i])
+        if u == 9000:
+            parts = [("numa-0", u)]
+        elif split[i]:
+            parts = [("numa-0", u // 2), ("numa-1", u - u // 2)]
+        else:
+            parts = [(f"numa-{int(zone[i])}", u)]
+        raw = json.dumps([{"name": z, "type": "Node", "resources": {"capacity": {
+            "cpu": f"{c}m"}}} for z, c in parts if c], separators=(",", ":"))
+        background.append((name, u, raw))
+    return crs, background
+
+
+def numa_cluster(n: int, world) -> ClusterState:
+    """config 22's cluster with the world's background pods bound."""
+    cluster = gang_cluster(n)
+    pods = []
+    for name, u, raw in world[1]:
+        req = {"cpu": f"{u}m", "memory": "1Gi"}
+        pods.append(Pod(name=f"bg-{name}", node_name=name,
+                        annotations={NUMA_RESULT: raw} if u else {},
+                        containers=(Container("c", ResourceRequirements(
+                            requests=req, limits=dict(req))),)))
+    cluster.add_pods(pods)
+    return cluster
+
+
+def numa_scheduler(cluster: ClusterState, world, dev, dtype=torch.float32):
+    from crane_scheduler_tpu_torch.convert import nrt_lister_from_crs
+    from crane_scheduler_tpu_torch.topology import TopologyMatch
+
+    sched = gang_scheduler(cluster, dev, dtype=dtype)
+    return sched, TopologyMatch(nrt_lister_from_crs(world[0]), cluster=cluster)
+
+
+def gang_pods(cluster: ClusterState, prefix: str = "numa-") -> dict:
+    """Every pod of the gangs: node and topology-result annotation."""
+    return {p.key(): (p.node_name, p.annotations.get(NUMA_RESULT))
+            for p in cluster.list_pods() if p.name.startswith(prefix)}
+
+
+def assumed(topo) -> dict:
+    return {k: json.dumps([z.to_wire() for z in v]) for k, v in topo.cache._topology.items()}
+
+
+NUMA_STAGES = ("refresh", "_prepare", "_fit_capacity", "_numa_vectors",
+               "_numa_vectors_uncached", "_numa_rows_update", "_build_result",
+               "_bind_gang_with_recovery")
+
+
+def numa_gang_loop(sched, topo, reqs, check=None) -> tuple:
+    """The sequential ``schedule_gang(topology=, bind=True)`` loop with
+    host ms per stage of each gang; ``check(template)`` runs after each
+    gang, outside the timers."""
+    spent = time_methods(sched, NUMA_STAGES)
+    results, per_gang = [], []
+    for t, c in reqs:
+        before = dict(spent)
+        rows0 = sched.numa_incremental_rows
+        launches0 = (score_kernel.KERNEL.launches, gang_kernel.KERNEL.launches)
+        t0 = time.perf_counter()
+        r = sched.schedule_gang(t, c, topology=topo, bind=True, dynamic_weight=GANG_DYN_W,
+                                topology_weight=GANG_TOPO_W)
+        ms = (time.perf_counter() - t0) * 1e3
+        d = {k: spent[k] - before[k] for k in NUMA_STAGES}
+        outer = ("refresh", "_prepare", "_fit_capacity", "_numa_vectors", "_build_result",
+                 "_bind_gang_with_recovery")
+        per_gang.append({
+            "ms": ms, "full_build_ms": d["_numa_vectors_uncached"],
+            "incremental_ms": d["_numa_rows_update"],
+            "incremental_rows": sched.numa_incremental_rows - rows0,
+            "numa_vectors_ms": d["_numa_vectors"], "bind_ms": d["_bind_gang_with_recovery"],
+            "refresh_ms": d["refresh"], "fit_ms": d["_fit_capacity"],
+            "build_result_ms": d["_build_result"],
+            "step_ms": ms - sum(d[k] for k in outer),
+            "k1": score_kernel.KERNEL.launches - launches0[0],
+            "k2": gang_kernel.KERNEL.launches - launches0[1],
+            "placed": len(r.assignments), "unassigned": len(r.unassigned),
+        })
+        results.append(r)
+        if check is not None:
+            check(t)
+    return results, per_gang
+
+
+def numa_wrappers(world, topo, n: int) -> tuple:
+    """The enforced rows of a full build at 50,000 x 2: one wrapper per
+    node with a Static CR, its background pod accounted."""
+    from crane_scheduler_tpu_torch.framework.types import CycleState, NodeInfo
+
+    state = CycleState()
+    topo.pre_filter(state, numa_template("probe", 2000, None))
+    s = topo._get_state(state)
+    bg = {name: Pod(name=f"bg-{name}", node_name=name,
+                    annotations={NUMA_RESULT: raw} if u else {})
+          for name, u, raw in world[1]}
+    wrappers = []
+    for i in range(n):
+        name = f"node-{i:05d}"
+        try:
+            nrt = topo.lister.get(name)
+        except KeyError:
+            continue
+        if nrt.crane_manager_policy.cpu_manager_policy != "Static":
+            continue
+        wrappers.append(topo._initialize_node_wrapper(
+            s, NodeInfo(node=Node(name=name), pods=[bg[name]]), nrt))
+    return wrappers, s.target_container_resource
+
+
+def numa_random_wrappers(z: int, n: int, rng) -> list:
+    """Random zones at ``z`` per node: allocatable CPU at whole cores, one
+    milli-core either side of them or anywhere, used CPU up to
+    overcommitted, memory and ephemeral storage in bytes."""
+    from crane_scheduler_tpu_torch.topology.helper import new_node_wrapper
+    from crane_scheduler_tpu_torch.topology.types import Zone, ZoneResourceInfo
+
+    out = []
+    for i in range(n):
+        zones = []
+        for j in range(int(rng.integers(1, z + 1))):
+            cores = int(rng.integers(1, 17)) * 1000
+            cpu = cores + int(rng.choice([0, 0, -1, 1, int(rng.integers(-999, 1000))]))
+            zones.append(Zone(f"numa-{j}", resources=ZoneResourceInfo(allocatable={
+                "cpu": f"{max(cpu, 0)}m", "memory": str(int(rng.integers(1, 65)) << 30),
+                "ephemeral-storage": str(int(rng.integers(0, 101)) << 30)})))
+        nw = new_node_wrapper(f"r{i}", frozenset({"cpu"}), zones, lambda p: [])
+        for nn in nw.numa_nodes:
+            over = rng.random() < 0.1
+            nn.requested.milli_cpu = nn.allocatable.milli_cpu + int(rng.integers(1, 3000)) \
+                if over else int(rng.integers(0, nn.allocatable.milli_cpu + 1))
+            nn.requested.memory = int(rng.integers(0, nn.allocatable.memory + 1))
+            nn.requested.ephemeral_storage = int(
+                rng.integers(0, nn.allocatable.ephemeral_storage + 1))
+        nw.aware = bool(rng.random() < 0.5)
+        out.append(nw)
+    return out
+
+
+def numa_batched_check(wrappers, requests, dev) -> int:
+    """``evaluate_topology_batch`` and ``copies_capacity`` (scalar and
+    per-node awareness) on the card against the same calls on the CPU,
+    exactly; returns the number of comparisons."""
+    from crane_scheduler_tpu_torch.topology import batched
+
+    aware = np.array([w.aware for w in wrappers], dtype=bool)
+    checks = 0
+    for req in requests:
+        got = batched.evaluate_topology_batch(wrappers, req, device=dev)
+        want = batched.evaluate_topology_batch(wrappers, req, device="cpu")
+        for name in ("aware_fits", "zones_used", "finished", "scores"):
+            if not np.array_equal(getattr(got, name), getattr(want, name)):
+                raise AssertionError(f"evaluate_topology_batch {name}: card != CPU for {req}")
+            checks += 1
+        for a in (False, True, aware):
+            if not np.array_equal(batched.copies_capacity(wrappers, req, a, device=dev),
+                                  batched.copies_capacity(wrappers, req, a, device="cpu")):
+                raise AssertionError(f"copies_capacity: card != CPU for {req}")
+            checks += 1
+    return checks
+
+
+def phase_numa_gang(dev) -> tuple:
+    """config 22's cluster with one NRT CR and one background pod per node,
+    24 gangs of guaranteed pods through ``schedule_gang(topology=)`` on the
+    card (K1 and K2 per gang, NUMA offsets and capacity) against a CPU
+    twin; the vectors after each gang against a fresh full build; the
+    queue's fallbacks; a mixed burst f32 against f64; the batched zone
+    evaluation on the card against the CPU; the per-pod scheduler from
+    the NRT profile."""
+    from crane_scheduler_tpu_torch.framework.types import Resource
+    from crane_scheduler_tpu_torch.topology import batched
+
+    n = N_NODES
+    total = sum(c for _, c in NUMA_SHAPES)
+    world = numa_world(n)
+    by_path = {}
+
+    # -- sequential on the card, the vectors held against full builds
+    t0 = time.perf_counter()
+    cluster = numa_cluster(n, world)
+    sched, topo = numa_scheduler(cluster, world, dev)
+    build_ms = (time.perf_counter() - t0) * 1e3
+    chk = gang_scheduler(cluster, dev)  # a second cache over the same cluster
+    chk.refresh()
+    chk._prepare(NOW)
+    checks = {"compared": 0, "incremental_rows": 0}
+
+    def check(t):
+        rows0 = chk.numa_incremental_rows
+        hit = chk._numa_vectors(t, topo, GANG_TOPO_W, chk._prepared_names, chk._prepared_n)
+        if chk.numa_incremental_rows == rows0:
+            return  # the class's first gang: a full build, nothing to compare
+        want = chk._numa_vectors_uncached(t, topo, GANG_TOPO_W, chk._prepared_names,
+                                          chk._prepared_n)
+        if not (np.array_equal(hit[0], want[0]) and np.array_equal(hit[1], want[1])):
+            raise AssertionError(f"{t.name}: incremental NUMA vectors != a full build")
+        checks["compared"] += 1
+        checks["incremental_rows"] = chk.numa_incremental_rows
+
+    reqs = numa_requests("g")
+    reset_launches()
+    t0 = time.perf_counter()
+    results, per_gang = numa_gang_loop(sched, topo, reqs, check)
+    check_ms = (time.perf_counter() - t0) * 1e3 - sum(g["ms"] for g in per_gang)
+    by_path["numa_gang"] = read_launches("numa gang")
+    if by_path["numa_gang"] != {"score": len(reqs), "gang": len(reqs)}:
+        raise AssertionError(f"numa gang: {by_path['numa_gang']} launches for {len(reqs)} "
+                             "gangs")
+    if checks["compared"] == 0 or sched.numa_incremental_rows == 0:
+        raise AssertionError("no gang took the incremental NUMA-vector path")
+    seq = [(r.assignments, r.unassigned) for r in results]
+    pods_seq, assumed_seq = gang_pods(cluster), assumed(topo)
+    # the offsets K2 saw on the last gang (after weighting: 0, 100, 200)
+    offs, caps = sched._numa_vectors(reqs[-1][0], topo, GANG_TOPO_W, sched._prepared_names,
+                                     sched._prepared_n)
+    offsets_seen = {int(v): int(c) for v, c in zip(*np.unique(offs, return_counts=True))}
+    capacity_zero = int((caps == 0).sum())
+    placed = sum(len(a) for a, _ in seq)
+    if placed == 0 or not all(v[1] for v in pods_seq.values()):
+        raise AssertionError("numa gang: nothing placed, or a gang pod without its zone "
+                             "result")
+    del chk
+
+    # -- the CPU twin: plain versions of K1 and K2, the evaluation on the CPU
+    twin, twin_topo = numa_scheduler(numa_cluster(n, world), world, "cpu")
+    t0 = time.perf_counter()
+    twin_results, _ = numa_gang_loop(twin, twin_topo, numa_requests("g"))
+    twin_ms = (time.perf_counter() - t0) * 1e3
+    if [(r.assignments, r.unassigned) for r in twin_results] != seq or \
+            gang_pods(twin.cluster) != pods_seq or assumed(twin_topo) != assumed_seq:
+        raise AssertionError("numa gang: the card != its CPU twin")
+    del twin, twin_topo
+
+    # -- the queue: every gang falls back to schedule_gang, in order
+    qsched, qtopo = numa_scheduler(numa_cluster(n, world), world, dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    outs = qsched.schedule_gang_queue(numa_requests("g"), topology=qtopo, window=GANG_WINDOW,
+                                      dynamic_weight=GANG_DYN_W, topology_weight=GANG_TOPO_W)
+    queue_ms = (time.perf_counter() - t0) * 1e3
+    by_path["numa_queue"] = read_launches("numa queue")
+    stats = qsched.gang_stats()
+    if [o.source for o in outs] != ["fallback"] * len(reqs) or stats["fallbacks"] != len(reqs) \
+            or [(o.assignments, o.unassigned) for o in outs] != seq \
+            or gang_pods(qsched.cluster) != pods_seq:
+        raise AssertionError("numa queue: not all fallbacks, or != the sequential loop")
+    del qsched, qtopo
+
+    # -- mixed: the gang pods as pending pods plus best-effort ones, f32 vs f64
+    mixed = {}
+    for label, dtype in (("f32", torch.float32), ("f64", torch.float64)):
+        msched, mtopo = numa_scheduler(numa_cluster(n, world), world, dev, dtype=dtype)
+        pending = [Pod(name=f"{t.name}-{i}", annotations=dict(t.annotations),
+                       containers=t.containers) for t, c in numa_requests("m") for i in range(c)]
+        pending += [Pod(name=f"numa-be-{i}", containers=(Container("c"),))
+                    for i in range(NUMA_BEST_EFFORT)]
+        msched.cluster.add_pods(pending)
+        if label == "f32":
+            reset_launches()
+        t0 = time.perf_counter()
+        r = msched.schedule_batch_mixed(pending, topology=mtopo, dynamic_weight=GANG_DYN_W,
+                                        topology_weight=GANG_TOPO_W)
+        mixed[label] = ((time.perf_counter() - t0) * 1e3, r.assignments,
+                        gang_pods(msched.cluster), assumed(mtopo))
+        if label == "f32":
+            by_path["numa_mixed"] = read_launches("numa mixed")
+        del msched, mtopo
+    if mixed["f32"][1:] != mixed["f64"][1:] or not mixed["f32"][1]:
+        raise AssertionError("numa mixed: f32 hybrid != float64, or nothing placed")
+    mixed_classes = len({(t.annotations.get(NUMA_AWARE), c) for t, c in numa_requests("m")})
+
+    # -- the batched evaluation: card vs CPU at 50,000 x 2 and random Z 4, 8
+    t0 = time.perf_counter()
+    wrappers, request = numa_wrappers(world, topo, n)
+    wrap_ms = (time.perf_counter() - t0) * 1e3
+    reqs_eval = [request, Resource(milli_cpu=8000), Resource(milli_cpu=1000, memory=1 << 30),
+                 Resource()]
+    batched_checks = numa_batched_check(wrappers, reqs_eval, dev)
+    rng = np.random.default_rng(SEED + 8)
+    for z in (4, 8):
+        batched_checks += numa_batched_check(
+            numa_random_wrappers(z, NUMA_RANDOM_NODES, rng),
+            [Resource(milli_cpu=c, memory=m, ephemeral_storage=e) for c, m, e in (
+                (1000, 0, 0), (3000, 1 << 30, 0), (8000, 4 << 30, 1 << 30), (16000, 0, 0),
+                (0, 1 << 30, 0), (0, 0, 0))], dev)
+    aware = np.array([w.aware for w in wrappers], dtype=bool)
+    t0 = time.perf_counter()
+    batched.pack_node_wrappers(wrappers)
+    pack_ms = (time.perf_counter() - t0) * 1e3
+
+    def one_eval():
+        batched.evaluate_topology_batch(wrappers, request, device=dev)
+        batched.copies_capacity(wrappers, request, aware, device=dev)
+
+    prof = profile_windows(one_eval, 3)
+
+    # -- the per-pod scheduler from the NRT profile: card vs CPU twin
+    small = numa_world(NUMA_PER_POD_NODES)
+    config = SchedulerConfiguration(profiles=(SchedulerProfile(
+        filter_enabled=("Dynamic", "NodeResourceTopologyMatch"),
+        score_enabled=(PluginWeight("Dynamic", GANG_DYN_W),
+                       PluginWeight("NodeResourceTopologyMatch", GANG_TOPO_W))),))
+    from crane_scheduler_tpu_torch.convert import nrt_lister_from_crs
+
+    per_pod = {}
+    reset_launches()
+    for label, device in (("card", dev), ("cpu", "cpu")):
+        pcluster = numa_cluster(NUMA_PER_POD_NODES, small)
+        psched = build_scheduler_from_config(pcluster, config,
+                                             nrt_lister=nrt_lister_from_crs(small[0]),
+                                             clock=lambda: NOW, policy=DEFAULT_POLICY,
+                                             device=device)
+        ptopo = psched._plugins[-1].plugin
+        try:
+            t0 = time.perf_counter()
+            got = []
+            for j in range(NUMA_PER_POD_PODS):
+                cpu, _ = NUMA_SHAPES[j % 6]
+                pod = numa_template(f"numa-pp-{j}", cpu, numa_awareness(j))
+                pcluster.add_pod(pod)
+                r = psched.schedule_one(pod)
+                got.append((r.node, r.reason))
+            ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            ptopo.cache.stop_cleaner()
+        per_pod[label] = (ms, got, gang_pods(pcluster), assumed(ptopo),
+                          psched.drip_stats()["fallbacks"])
+    by_path["numa_per_pod"] = read_launches("numa per-pod", need=())
+    if per_pod["card"][1:] != per_pod["cpu"][1:] or not any(
+            node for node, _ in per_pod["card"][1]):
+        raise AssertionError("numa per-pod: the card scheduler != its CPU twin")
+
+    full = [g for g in per_gang if g["full_build_ms"] > 0]
+    inc = [g for g in per_gang if g["incremental_rows"] > 0]
+    out = {
+        "nodes": n, "gangs": len(reqs), "pods": total, "placed": placed,
+        "unassigned": sum(len(u) for _, u in seq),
+        "dynamic_weight": GANG_DYN_W, "topology_weight": GANG_TOPO_W,
+        "equal": ["card == CPU twin (placements, unassigned, zone results, assume cache)",
+                  "queue == sequential (every outcome a fallback)", "mixed f32 == f64",
+                  "incremental vectors == full build", "batched evaluation card == CPU",
+                  "per-pod card == CPU twin"],
+        "ms_per_gang": statistics.mean(g["ms"] for g in per_gang),
+        "ms_per_gang_all": [g["ms"] for g in per_gang],
+        "full_build_ms": [g["full_build_ms"] for g in full],
+        "incremental_ms": [g["incremental_ms"] for g in inc],
+        "incremental_rows": [g["incremental_rows"] for g in inc],
+        "stage_ms_per_gang": {k: statistics.mean(g[k] for g in per_gang) for k in (
+            "refresh_ms", "fit_ms", "numa_vectors_ms", "full_build_ms", "incremental_ms",
+            "build_result_ms", "bind_ms", "step_ms")},
+        "stage_ms_median_gang": {k: statistics.median(g[k] for g in per_gang) for k in (
+            "ms", "numa_vectors_ms", "bind_ms", "step_ms")},
+        "k1_per_gang": by_path["numa_gang"]["score"] / len(reqs),
+        "k2_per_gang": by_path["numa_gang"]["gang"] / len(reqs),
+        "vector_checks": {**checks, "ms": check_ms},
+        "numa_incremental_rows": sched.numa_incremental_rows,
+        "last_gang_offsets": offsets_seen, "last_gang_capacity_zero_rows": capacity_zero,
+        "twin_cpu_ms_per_gang": twin_ms / len(reqs), "queue_ms_per_gang": queue_ms / len(reqs),
+        "queue_fallbacks": stats["fallbacks"],
+        "mixed_ms": {k: v[0] for k, v in mixed.items()}, "mixed_pods": total + NUMA_BEST_EFFORT,
+        "mixed_numa_classes": mixed_classes, "mixed_placed": len(mixed["f32"][1]),
+        "batched": {"wrappers": len(wrappers), "zones": 2, "checks": batched_checks,
+                    "random_nodes": NUMA_RANDOM_NODES, "random_zones": [4, 8],
+                    "wrapper_build_ms": wrap_ms, "pack_ms": pack_ms,
+                    **{k: prof[k] for k in ("device_us", "wall_us", "device_kernels",
+                                            "cuda_launch_kernel_calls", "device_events_seen",
+                                            "top_device_us")}},
+        "per_pod": {"nodes": NUMA_PER_POD_NODES, "pods": NUMA_PER_POD_PODS,
+                    "ms_per_pod": {k: v[0] / NUMA_PER_POD_PODS for k, v in per_pod.items()},
+                    "placed": sum(1 for node, _ in per_pod["card"][1] if node),
+                    "fallbacks": per_pod["card"][4]},
+        "cluster_build_ms": build_ms, "launches": by_path,
+    }
+    log("numa_gang", **out)
+    return out, by_path
+
+
 # per kernel in the `kernels` line: `ms` is the kernel's own device time
 KERNEL_KEYS = ("ms", "plain_ms", "bound_ms", "bound_by", "device_us", "bound_us",
                "pct_of_bound", "host_launch_ms", "device_launches_seen")
@@ -1792,6 +2247,8 @@ def main() -> int:
                                                 queue["ms_per_pod"])
     _, gang_paths = phase_gang_queue(dev)
     by_path.update(gang_paths)
+    _, numa_paths = phase_numa_gang(dev)
+    by_path.update(numa_paths)
 
     kernels = [
         {

@@ -5,7 +5,8 @@ burst and drip scheduling paths read and write: nodes with annotations,
 labels and allocatable, the annotator's patch primitives (single, bulk,
 columnar through a lazy overlay, and column groups), pods with containers,
 owner references, init containers and overhead, as objects or as columnar
-bursts, binds that stamp ``Scheduled`` events into a bounded log, the
+bursts, binds that stamp ``Scheduled`` events into a bounded log,
+PreBind's pod-annotation patch, the
 ``sched_version``, ``node_version``, ``node_set_version`` and
 ``pod_version`` counters, the pod-change journal behind
 ``pod_changes_since``, and the global dirty-name journal behind
@@ -624,6 +625,27 @@ class ClusterState:
                 for name, c in burst_counts.items():
                     counts[name] = counts.get(name, 0) + c
             return counts
+
+    def patch_pod_annotation(self, key: str, anno_key: str, value: str) -> bool:
+        """PreBind's write primitive (ref: noderesourcetopology/binder.go:
+        19-65). A burst row materializes first; on a bound pod the write
+        bumps ``sched_version`` and journals the pod's node, since the
+        topology-result annotation feeds NUMA usage reconstruction."""
+        with self._lock:
+            pod = self._pods.get(key)
+            if pod is None and self._bursts:
+                hit = self._burst_lookup_locked(key)
+                if hit is not None:
+                    pod = self._materialize_out_locked(*hit)
+            if pod is None:
+                return False
+            anno = dict(pod.annotations)
+            anno[anno_key] = value
+            self._pods[key] = replace(pod, annotations=anno)
+            if pod.node_name:
+                self._sched_version += 1
+                self._note_pod_change_locked(pod.node_name)
+            return True
 
     def bind_pod(self, pod_key: str, node_name: str, now: float | None = None) -> bool:
         """Bind one pod and stamp its ``Scheduled`` event (``bind_pods``

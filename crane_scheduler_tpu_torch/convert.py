@@ -3,7 +3,8 @@
 The port imports nothing of ``crane_scheduler_tpu``. A caller that holds
 that package's objects (a test feeding both packages identical inputs,
 or a process migrating a live store) passes their fields as numpy
-arrays and scalars; these functions build the port's objects from them.
+arrays and scalars, or NRT custom resources as plain mappings; these
+functions build the port's objects from them.
 """
 
 from __future__ import annotations
@@ -14,6 +15,12 @@ import numpy as np
 
 from .loadstore.store import DeviceSnapshot
 from .policy.compile import PolicyTensors
+from .topology.types import (
+    CraneManagerPolicy,
+    InMemoryNRTLister,
+    NodeResourceTopology,
+    Zone,
+)
 
 _SNAPSHOT_FIELDS = (
     "values", "ts", "hot_value", "hot_ts", "node_valid", "n_nodes", "node_names",
@@ -60,3 +67,24 @@ def snapshot_from_numpy(d) -> DeviceSnapshot:
         n_nodes=int(d["n_nodes"]),
         node_names=tuple(d["node_names"]),
     )
+
+
+def nrt_lister_from_crs(crs) -> InMemoryNRTLister:
+    """``InMemoryNRTLister`` from NodeResourceTopology CRs as plain
+    mappings, one per node, in upsert order: ``name``,
+    ``cpu_manager_policy``, ``topology_manager_policy`` and ``zones`` (a
+    list of ``Zone.to_wire`` dicts: ``name``, ``type``, ``resources`` with
+    ``allocatable`` / ``capacity``). Absent policies take the CR defaults
+    (``None``)."""
+    lister = InMemoryNRTLister()
+    default = CraneManagerPolicy()
+    for cr in crs:
+        lister.upsert(NodeResourceTopology(
+            name=str(cr["name"]),
+            crane_manager_policy=CraneManagerPolicy(
+                str(cr.get("cpu_manager_policy", default.cpu_manager_policy)),
+                str(cr.get("topology_manager_policy", default.topology_manager_policy)),
+            ),
+            zones=tuple(Zone.from_wire(z) for z in cr.get("zones", ())),
+        ))
+    return lister

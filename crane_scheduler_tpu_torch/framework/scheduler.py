@@ -15,8 +15,12 @@ and the cluster, never a tensor. The gang entry points share it:
 ``schedule_gang`` (one gang through the combined-score step),
 ``schedule_gang_queue`` (K gangs per device window over the
 version-cached ``GangColumns``, ``scorer.gang_batch``) and
-``schedule_batch_mixed`` (pending pods class by class); their
-``topology=`` path (NUMA) comes with the NUMA slice. Placements are
+``schedule_batch_mixed`` (pending pods class by class). With
+``topology=`` (a ``topology.TopologyMatch``) they add the NUMA vectors
+(combined-score offsets and copy capacity, ``_numa_vectors``: a cache
+re-deriving only the rows the pod-change journal names), bind through
+the plugin's grouped Filter/Reserve/PreBind (``_bind_assignments``) and
+re-solve over-admitted copies (``_bind_recover_loop``). Placements are
 bit-identical to the reference: the same solver, the same
 ``_expand_counts`` order.
 
@@ -40,6 +44,7 @@ from __future__ import annotations
 import queue
 import threading
 import time
+import weakref
 from collections import deque
 from concurrent.futures import Future, ThreadPoolExecutor
 from dataclasses import dataclass, replace
@@ -62,6 +67,9 @@ from .types import CycleState, NodeInfo
 
 # stages of one burst cycle, in order (see ``BatchScheduler.burst_stage_ms``)
 BURST_STAGES = ("refresh", "prepare", "dispatch", "add_pod_burst", "wait", "expand", "bind")
+
+# re-solve passes of ``_bind_recover_loop`` (the reference's ``max_passes`` default)
+_RECOVER_PASSES = 4
 
 
 def _submit_fetch(pool, fetch: PackedFetch, telemetry=None) -> Future:
@@ -125,14 +133,6 @@ class GangOutcome:
     waterline: int | None  # solver level (None on the fallback path)
     now: float
     source: str = "window"  # "window" | "fallback"
-
-
-def _no_topology(topology) -> None:
-    if topology is not None:
-        raise NotImplementedError(
-            "topology= (NodeResourceTopologyMatch NUMA vectors) is not ported "
-            "yet: it comes with the NUMA slice (ROADMAP Queue 1 item 5)"
-        )
 
 
 @dataclass
@@ -469,6 +469,10 @@ class BatchScheduler:
         self._fit = FitTracker(cluster, telemetry=tel)
         self._fit_names: tuple | None = None  # (names_ref, n, list) reuse
         self._combined: dict = {}  # (dyn_w, topo_w) -> combined-score step
+        # cached NUMA vectors: a full build is an O(N) Python wrapper build,
+        # so repeated gang cycles re-derive only journaled (changed) rows
+        self._numa_cache: dict = {}
+        self.numa_incremental_rows = 0  # rows re-derived incrementally
         # the multi-gang engine (scorer.gang_batch + framework.drip.
         # GangColumns), built lazily per weight/label config by
         # _ensure_gang; _gang holds the window distributions gang_stats()
@@ -1056,6 +1060,154 @@ class BatchScheduler:
             return None
         return rows
 
+    def _numa_vectors(self, template, topology, topology_weight: int, names, n):
+        """Per-node combined-score offsets and copy capacity for a burst of
+        ``template`` clones, with the TopologyMatch plugin's own request and
+        wrapper semantics (ref: filter.go:45-123, scorer.go:11-29):
+
+        - nodes the plugin would skip (no guaranteed-CPU containers,
+          non-Static CPUManagerPolicy) get offset 0 and unbounded capacity,
+          the plugin's no-op score 0;
+        - a missing NRT CR is Unschedulable: capacity 0;
+        - aware bursts: offset ``weight * 100`` where a zone fits (the
+          single assigned zone), else capacity 0 (ERR_NUMA_INSUFFICIENT);
+        - non-aware: offset ``weight * (100 // greedy zones used)``,
+          capacity from the pooled copies bound (``topology.batched``).
+
+        Cached on the inputs the vectors derive from: the CR set (lister
+        version), the store's row layout, ``n``, the weight and the request
+        class; a hit also needs the plugin's identity (a weakref, which
+        defeats ``id()`` recycling) and the assume cache's
+        ``shrink_version``. Bound-pod churn is incremental: the cluster's
+        pod-change journal names the nodes whose accounting moved, and only
+        their rows are re-derived. Assume-cache removals carry no node and a
+        journal overrun leaves the interval uncovered: both rebuild in
+        full."""
+        lister_version = getattr(topology.lister, "version", None)
+        pod_version = self.cluster.pod_version
+        shrink = topology.cache.shrink_version
+        cache_key = None
+        if lister_version is not None:
+            cache_key = (id(topology), lister_version, self.store.layout_version, n,
+                         topology_weight, self._class_key(template, topology))
+            hit = self._numa_cache.get(cache_key)
+            if hit is not None and hit["ref"]() is topology and hit["shrink"] == shrink:
+                if hit["pod_version"] == pod_version:
+                    return hit["offsets"].copy(), hit["capacity"].copy()
+                changed = self.cluster.pod_changes_since(hit["pod_version"])
+                if changed is not None:
+                    self._numa_rows_update(template, topology, topology_weight, hit,
+                                           changed, names, n)
+                    hit["pod_version"] = pod_version
+                    return hit["offsets"].copy(), hit["capacity"].copy()
+
+        offsets, capacity = self._numa_vectors_uncached(template, topology, topology_weight,
+                                                        names, n)
+        if cache_key is not None:
+            while len(self._numa_cache) >= 8:
+                self._numa_cache.pop(next(iter(self._numa_cache)))
+            self._numa_cache[cache_key] = {
+                "ref": weakref.ref(topology),
+                "offsets": offsets.copy(),
+                "capacity": capacity.copy(),
+                "pod_version": pod_version,
+                "shrink": shrink,
+                "row_of": None,  # built on the first incremental pass
+            }
+        return offsets, capacity
+
+    def _numa_rows_update(self, template, topology, topology_weight, hit, changed, names,
+                          n) -> None:
+        """Re-derive the cached vectors' rows of the ``changed`` node names
+        in place, through the one row derivation the full build runs
+        (``_numa_derive_rows``): a row depends only on its own node's CR,
+        bound pods and assumed entries, so this equals a rebuild."""
+        self.numa_incremental_rows += len(changed)
+        row_of = hit["row_of"]
+        if row_of is None:
+            row_of = hit["row_of"] = {name: i for i, name in enumerate(names[:n])}
+        rows = [(row_of[name], name) for name in changed if name in row_of]
+        if rows:
+            self._numa_derive_rows(template, topology, topology_weight, rows,
+                                   self.cluster.list_pods, hit["offsets"], hit["capacity"])
+
+    def _numa_derive_rows(self, template, topology, topology_weight, rows, pods_for,
+                          offsets, capacity, node_for=None) -> None:
+        """The per-row NUMA derivation that full builds and incremental
+        updates both run: write each ``(row, node name)``'s combined-score
+        offset and copy capacity into the given arrays. ``pods_for(name)``
+        gives the node's bound pods; ``node_for`` defaults to per-row
+        cluster lookups (full builds pass a one-pass index). The batched
+        zone evaluation and copy capacity run on this scheduler's device;
+        ``copies_capacity`` is looked up on ``topology.batched`` at call
+        time."""
+        from ..topology import batched as topo_batched
+        from ..topology.types import CPU_MANAGER_POLICY_STATIC
+
+        state = CycleState()
+        topology.pre_filter(state, template)
+        s = topology._get_state(state)
+        if s is None or template.is_daemonset_pod() or not s.target_container_indices:
+            # the plugin no-ops for this pod class: default vectors
+            for i, _ in rows:
+                offsets[i] = 0
+                capacity[i] = 1 << 30
+            return
+        enforced: list = []
+        if node_for is None:
+            node_for = self.cluster.get_node
+        for i, name in rows:
+            offsets[i] = 0
+            capacity[i] = 1 << 30
+            node = node_for(name)
+            if node is None:
+                capacity[i] = 0
+                continue
+            try:
+                nrt = topology.lister.get(name)
+            except KeyError:
+                capacity[i] = 0  # ref: filter.go:56-58 Unschedulable
+                continue
+            if nrt.crane_manager_policy.cpu_manager_policy != CPU_MANAGER_POLICY_STATIC:
+                continue  # kubelet handles cpuset: the plugin no-ops
+            nw = topology._initialize_node_wrapper(
+                s, NodeInfo(node=node, pods=pods_for(name)), nrt
+            )
+            enforced.append((i, nw))
+        if not enforced:
+            return
+        request = s.target_container_resource
+        idx = [i for i, _ in enforced]
+        wrappers = [nw for _, nw in enforced]
+        aware_mask = np.array([nw.aware for nw in wrappers], dtype=bool)
+        ev = topo_batched.evaluate_topology_batch(wrappers, request, device=self.device)
+        caps = topo_batched.copies_capacity(wrappers, request, aware=aware_mask,
+                                            device=self.device).astype(np.int64)
+        caps = np.where(aware_mask & ~ev.aware_fits, 0, caps)
+        # aware pods take one whole zone: plugin score 100 (ref: helper.go
+        # :276-284, a single-zone result); non-aware: 100 // zones used
+        offs = np.where(aware_mask, 100 * int(topology_weight),
+                        ev.scores.astype(np.int64) * int(topology_weight))
+        offsets[idx] = offs.astype(np.int32)
+        capacity[idx] = caps
+
+    def _numa_vectors_uncached(self, template, topology, topology_weight, names, n):
+        """Full build: the shared row derivation over every row, with the
+        bound-pod index built in one ``list_pods`` pass (per-row lookups
+        would take the cluster lock N times)."""
+        offsets = np.zeros((n,), dtype=np.int32)
+        capacity = np.full((n,), 1 << 30, dtype=np.int64)
+        pods_by_node: dict[str, list] = {}
+        for pod in self.cluster.list_pods():
+            if pod.node_name:
+                pods_by_node.setdefault(pod.node_name, []).append(pod)
+        nodes_by_name = {node.name: node for node in self.cluster.list_nodes()}
+        self._numa_derive_rows(template, topology, topology_weight,
+                               list(enumerate(names[:n])),
+                               lambda name: pods_by_node.get(name, []),
+                               offsets, capacity, node_for=nodes_by_name.get)
+        return offsets, capacity
+
     def schedule_gang(
         self,
         template,
@@ -1068,11 +1220,13 @@ class BatchScheduler:
         """Burst-schedule ``count`` identical copies of ``template`` with
         combined plugin scoring (Dynamic x3 and, with NUMA,
         NodeResourceTopologyMatch x2: the deploy-config weights), capped
-        per node by the free-allocatable copy counts. The water-filling
-        solve runs in the weighted-sum score domain. With ``bind=True``
-        each assigned copy is created in the cluster and bound.
-        ``topology`` (the NUMA plugin) is not ported yet and raises."""
-        _no_topology(topology)
+        per node by the free-allocatable copy counts and, with
+        ``topology``, by the NUMA copy capacity. The water-filling solve
+        runs in the weighted-sum score domain. With ``bind=True`` each
+        assigned copy is created in the cluster and driven through the
+        topology plugin's Filter -> Reserve -> PreBind, so zone results land
+        on pod annotations and later cycles see the NUMA usage; copies the
+        plugin rejects re-solve with corrected capacity."""
         now = self._clock()
         self.refresh()
         prepared = self._prepare(now)
@@ -1081,48 +1235,153 @@ class BatchScheduler:
 
         step = self._combined_step(dynamic_weight, topology_weight)
         fit_rows = self._fit_capacity(template, names, n)
-        if fit_rows is not None:
-            # allocatable is reported: the fit rows cap the solver
-            npad = int(prepared.capacity.shape[0])
-            capacity = np.pad(fit_rows, (0, npad - n))
-            offsets = np.zeros((npad,), dtype=np.int32)
-            prepared = step.with_vectors(prepared, capacity, offsets)
+        npad = int(prepared.capacity.shape[0])
+        if topology is not None:
+            offsets, capacity = self._numa_vectors(template, topology, topology_weight,
+                                                   names, n)
+            if fit_rows is not None:
+                np.minimum(capacity, fit_rows, out=capacity)
+            prepared = step.with_vectors(prepared, np.pad(capacity, (0, npad - n)),
+                                         np.pad(offsets, (0, npad - n)))
+        elif fit_rows is not None:
+            # allocatable is reported: the fit rows alone cap the solver
+            prepared = step.with_vectors(prepared, np.pad(fit_rows, (0, npad - n)),
+                                         np.zeros((npad,), dtype=np.int32))
 
         packed = step.packed(prepared, count, now=now).result()
         keys = [f"{template.namespace}/{template.name}-{i}" for i in range(count)]
         result = self._build_result(packed, keys, now=now)
         if bind:
-            result = self._bind_gang_with_recovery(template, result, now)
+            result = self._bind_gang_with_recovery(template, result, topology, now,
+                                                   dynamic_weight, topology_weight)
         return result
 
-    def _bind_assignments(self, pods_for, assignments, now: float):
+    def _bind_assignments_sequential(self, pods_for, assignments, topology, now):
+        """The reference-shaped per-pod bind loop: the topology plugin's
+        Filter -> Reserve -> PreBind per pod, then the bind (ref:
+        reserver.go, binder.go). The semantic twin ``_bind_assignments`` is
+        tested against; same contract."""
+        get_node = self.cluster.get_node
+        bound: dict[str, str] = {}
+        rejected: list[str] = []
+        rejecting: set[str] = set()
+        dropped: list[str] = []
+        for pod_key, node_name in assignments.items():
+            pod, create = pods_for(pod_key)
+            if pod is None:
+                dropped.append(pod_key)
+                continue
+            node = get_node(node_name) if topology is not None else None
+            if node is not None:
+                state = CycleState()
+                topology.pre_filter(state, pod)
+                node_info = NodeInfo(node=node, pods=self.cluster.list_pods(node_name))
+                if not topology.filter(state, pod, node_info).ok():
+                    rejected.append(pod_key)
+                    rejecting.add(node_name)
+                    continue
+                if create:
+                    self.cluster.add_pod(pod)
+                if topology.reserve(state, pod, node_name).ok():
+                    topology.pre_bind(state, pod, node_name)
+            elif create:
+                self.cluster.add_pod(pod)
+            if not self.cluster.bind_pod(pod_key, node_name, now):
+                dropped.append(pod_key)
+                continue
+            bound[pod_key] = node_name
+        return bound, rejected, rejecting, dropped
+
+    def _bind_assignments(self, pods_for, assignments, topology, now: float):
         """Shared bind application for gang copies and pending pods,
-        grouped by node: each node group creates its pods (``add_pods``)
-        and binds them in one ``bind_pods`` transaction (event multiset
-        and pod-version moves identical to per-pod binds).
+        grouped by node: the plugin evaluates its Filter gates once per node
+        group (``TopologyMatch.group_context``) and assigns each accepted
+        copy against the group's evolving wrapper (``group_assign``) — the
+        accounting a per-pod wrapper rebuild would derive from the previous
+        copies' result annotations, since in-gang usage is monotone and
+        wrapper state is per node. All copies of one ``_bind_recover_loop``
+        pass share a scheduling class (``_class_key``). Each node group
+        creates its pods (``add_pods``) and binds them in one ``bind_pods``
+        transaction (event multiset and pod-version moves identical to
+        per-pod binds).
+
+        Equal to the sequential twin (``_bind_assignments_sequential``) in
+        placements, rejections, zone-result annotations, assume-cache
+        contents and counts, with one deliberate divergence: a copy whose
+        bind fails has already been charged to its node's NUMA usage for
+        later copies of the same group (the conservative direction: never
+        over-admits).
 
         ``pods_for(key) -> (pod | None, create)`` resolves each key;
         ``create`` means the pod must be added to the cluster first (the
         gang path creates copies from a template). Returns ``(bound,
-        dropped)``: ``dropped`` keys could not bind and go straight to
-        unassigned. The topology plugin's grouped Filter/Reserve gates
-        come with the NUMA slice (ROADMAP Queue 1 item 5)."""
+        rejected, rejecting, dropped)``: ``rejected`` keys were
+        Filter-rejected on their node (the nodes in ``rejecting``) and can
+        re-solve elsewhere; ``dropped`` keys cannot bind and go straight to
+        unassigned."""
+        from ..topology.types import ANNOTATION_POD_TOPOLOGY_RESULT, zones_to_json
+
+        get_node = self.cluster.get_node
         bound: dict[str, str] = {}
+        rejected: list[str] = []
+        rejecting: set[str] = set()
         dropped: list[str] = []
         by_node: dict[str, list[str]] = {}
         for pod_key, node_name in assignments.items():
             by_node.setdefault(node_name, []).append(pod_key)
+
         for node_name, keys in by_node.items():
+            resolved = [(key, *pods_for(key)) for key in keys]
+            ctx = None
+            if topology is not None:
+                node = get_node(node_name)
+                template = next((pod for _, pod, _ in resolved if pod is not None), None)
+                if node is not None and template is not None:
+                    ctx = topology.group_context(template, node,
+                                                 self.cluster.list_pods(node_name))
+            if ctx == "missing_nrt":  # the whole group is Unschedulable
+                for key, pod, _ in resolved:
+                    if pod is None:
+                        dropped.append(key)
+                    else:
+                        rejected.append(key)
+                        rejecting.add(node_name)
+                continue
+
             to_create: list = []
             to_bind: list[tuple[str, str]] = []
-            for pod_key in keys:
-                pod, create = pods_for(pod_key)
+            assumed: list = []
+            for pod_key, pod, create in resolved:
                 if pod is None:
                     dropped.append(pod_key)
                     continue
+                if ctx is not None:
+                    result = topology.group_assign(ctx)
+                    if result is None:
+                        rejected.append(pod_key)
+                        rejecting.add(node_name)
+                        continue
+                    if result:
+                        # Reserve (assume) and PreBind's annotation; created
+                        # copies carry the annotation from birth
+                        raw = zones_to_json(result)
+                        if create:
+                            anno = dict(pod.annotations)
+                            anno[ANNOTATION_POD_TOPOLOGY_RESULT] = raw
+                            pod = replace(pod, annotations=anno)
+                        assumed.append((pod, result, raw, create))
                 if create:
                     to_create.append(pod)
                 to_bind.append((pod_key, node_name))
+
+            for pod, result, raw, create in assumed:
+                try:
+                    topology.cache.assume_pod(pod, result)
+                except KeyError:
+                    continue  # double-assume: Reserve would have errored
+                if not create:
+                    self.cluster.patch_pod_annotation(pod.key(), ANNOTATION_POD_TOPOLOGY_RESULT,
+                                                      raw)
             if to_create:
                 self.cluster.add_pods(to_create)
             bound_keys = set(self.cluster.bind_pods(to_bind, now))
@@ -1131,9 +1390,9 @@ class BatchScheduler:
                     bound[pod_key] = node
                 else:
                     dropped.append(pod_key)
-        return bound, dropped
+        return bound, rejected, rejecting, dropped
 
-    def _bind_gang(self, template, assignments, now: float):
+    def _bind_gang(self, template, assignments, topology, now: float):
         """Create and bind each assigned copy of ``template``."""
 
         def pods_for(pod_key):
@@ -1143,14 +1402,24 @@ class BatchScheduler:
                 True,
             )
 
-        return self._bind_assignments(pods_for, assignments, now)
+        return self._bind_assignments(pods_for, assignments, topology, now)
 
-    def _bind_gang_with_recovery(self, template, result: BatchResult, now: float) -> BatchResult:
-        """Bind the gang; copies that cannot bind end up unassigned."""
+    def _bind_gang_with_recovery(self, template, result: BatchResult, topology, now: float,
+                                 dynamic_weight: int, topology_weight: int) -> BatchResult:
+        """Bind the gang; when the plugin's Filter rejects over-admitted
+        copies (the copies-capacity estimate admitted more than truly fit),
+        re-run the waterline for just the rejected copies with corrected
+        capacity (``_bind_recover_loop``). Copies that still find no home
+        end up unassigned, never bound zone-less."""
         n = self._prepared_n
+        scores = schedulable = None  # read only by a re-solve: none without the plugin
+        if topology is not None:
+            scores = np.fromiter(result.scores.values(), np.int64, count=n)
+            schedulable = np.fromiter(result.schedulable.values(), bool, count=n)
         prior = np.zeros((n,), np.int64)
         assignments, unplaced = self._bind_recover_loop(
-            lambda a: self._bind_gang(template, a, now), result.assignments, prior
+            lambda a: self._bind_gang(template, a, topology, now), result.assignments,
+            template, topology, scores, schedulable, prior, dynamic_weight, topology_weight,
         )
         return BatchResult(
             assignments=assignments,
@@ -1160,21 +1429,58 @@ class BatchScheduler:
             now=result.now,
         )
 
-    def _bind_recover_loop(self, bind_fn, assignments, prior):
-        """Run ``bind_fn`` (the ``_bind_assignments`` contract) and count
-        every successful bind into ``prior`` in place, so a caller chaining
-        several classes through one cycle keeps the hot-penalty staircase
-        continuous. Returns ``(bound: {key: node}, unplaced: [key])``.
+    def _bind_recover_loop(self, bind_fn, assignments, template, topology, scores,
+                           schedulable, prior, dynamic_weight: int, topology_weight: int):
+        """Run ``bind_fn`` (the ``_bind_assignments`` contract), re-solving
+        rejected pods with corrected capacity up to ``_RECOVER_PASSES`` times:
+        rejecting nodes drop to zero capacity (copies are identical: a node
+        that rejected one rejects all at its current state), the other
+        nodes' capacity is re-derived from the updated NUMA usage, and the
+        hot-penalty staircase continues past the pods already bound
+        (``prior``). Dropped keys go straight to unplaced. ``prior`` is
+        updated in place with every bind, so a caller chaining several
+        classes through one cycle keeps the staircase continuous. Returns
+        ``(bound: {key: node}, unplaced: [key])``."""
+        n = self._prepared_n
+        names = self._prepared_names
+        idx = {name: i for i, name in enumerate(names[:n])}
+        bound_all: dict[str, str] = {}
+        unplaced: list[str] = []
+        banned: set[str] = set()
 
-        The reference re-solves Filter-rejected copies here with corrected
-        NUMA capacity; without the topology plugin nothing is rejected, so
-        one pass is the whole loop until the NUMA slice (ROADMAP Queue 1
-        item 5)."""
-        idx = {name: i for i, name in enumerate(self._prepared_names[:self._prepared_n])}
-        bound, dropped = bind_fn(assignments)
+        bound, rejected, rejecting, dropped = bind_fn(assignments)
+        unplaced.extend(dropped)
         for node_name in bound.values():
             prior[idx[node_name]] += 1
-        return bound, list(dropped)
+        bound_all.update(bound)
+        for _ in range(_RECOVER_PASSES):
+            if not rejected:
+                break
+            banned |= rejecting
+            offsets, capacity = self._numa_vectors(template, topology, topology_weight,
+                                                   names, n)
+            fit_rows = self._fit_capacity(template, names, n)
+            if fit_rows is not None:
+                np.minimum(capacity, fit_rows, out=capacity)
+            for node_name in banned:
+                capacity[idx[node_name]] = 0
+            retry = gang_assign_host(
+                scores, schedulable, len(rejected), self.tensors.hv_count,
+                capacity=capacity, offsets=offsets, dynamic_weight=dynamic_weight,
+                max_offset=MAX_NODE_SCORE * topology_weight, prior=prior,
+            )
+            new_assign, leftover = self._expand_counts(scores, retry.counts, names, rejected)
+            unplaced.extend(leftover)
+            if not new_assign:
+                rejected = []
+                break
+            bound, rejected, rejecting, dropped = bind_fn(new_assign)
+            unplaced.extend(dropped)
+            for key, node_name in bound.items():
+                bound_all[key] = node_name
+                prior[idx[node_name]] += 1
+        unplaced.extend(rejected)  # passes exhausted
+        return bound_all, unplaced
 
     def _ensure_gang(self, dynamic_weight, topology_weight, accel_label):
         """The lazily built gang engine: version-cached gang columns
@@ -1280,14 +1586,13 @@ class BatchScheduler:
         - ``tie_policy``: None (node-order prefix split),
           ``"fragmentation"`` or ``"seeded"`` (with ``tie_rng``); the
           non-default policies solve on the host (``gang_window_host``).
-        - gangs carrying scalar (extended) resources fall back to
-          ``schedule_gang`` one by one, the open window flushed first so
-          queue order, and with it capacity evolution, is kept.
-        - ``topology`` (the NUMA plugin) is not ported yet and raises.
+        - gangs needing NUMA vectors (``topology`` given) or carrying
+          scalar (extended) resources fall back to ``schedule_gang`` one by
+          one, the open window flushed first so queue order, and with it
+          capacity evolution, is kept.
         """
         from ..fit.tracker import pod_fit_request
 
-        _no_topology(topology)
         eng = self._ensure_gang(dynamic_weight, topology_weight, accel_label)
         outcomes: list[GangOutcome] = []
         buf: list[tuple] = []  # (template, count)
@@ -1299,9 +1604,9 @@ class BatchScheduler:
                 buf.clear()
 
         for template, count in requests:
-            if pod_fit_request(template).scalar_resources:
+            if topology is not None or pod_fit_request(template).scalar_resources:
                 flush()  # keep queue order and capacity evolution
-                r = self.schedule_gang(template, int(count), bind=bind,
+                r = self.schedule_gang(template, int(count), topology=topology, bind=bind,
                                        dynamic_weight=dynamic_weight,
                                        topology_weight=topology_weight)
                 outcomes.append(GangOutcome(
@@ -1419,7 +1724,7 @@ class BatchScheduler:
                 assignments = {key: names[int(i)] for key, i in zip(keys, order)}
                 unassigned_keys = list(keys[len(order):])
                 if bind:
-                    bound, dropped = self._bind_gang(t, assignments, now)
+                    bound, _rej, _rejing, dropped = self._bind_gang(t, assignments, None, now)
                     unassigned_keys.extend(dropped)
                     n_bound += len(bound)
                     assignments = bound
@@ -1483,19 +1788,39 @@ class BatchScheduler:
 
     # -- heterogeneous (mixed) batches -------------------------------------
 
-    def _bind_existing(self, pods_by_key, assignments, now: float):
+    def _bind_existing(self, pods_by_key, assignments, topology, now: float):
         """Bind already-pending pods (the mixed-batch path); same contract
         as ``_bind_gang``."""
         return self._bind_assignments(
-            lambda key: (pods_by_key.get(key), False), assignments, now
+            lambda key: (pods_by_key.get(key), False), assignments, topology, now
         )
 
-    @staticmethod
-    def _class_key(pod):
-        """Scheduling-equivalence class for one cycle without the topology
-        plugin: the Dynamic score is pod-independent, so pods differ only
-        in daemonset-ness (Filter bypass; ref: plugins.go:41-43)."""
-        return ("plain", bool(pod.is_daemonset_pod()))
+    def _class_key(self, pod, topology):
+        """Scheduling-equivalence class for one cycle: the Dynamic score is
+        pod-independent, so pods differ only in how TopologyMatch treats
+        them — daemonset-ness (Filter bypass, plugin no-op; ref:
+        plugins.go:41-43, filter.go:60-62), topology awareness, and the
+        guaranteed-CPU request the plugin packs (ref: filter.go:20-37)."""
+        is_ds = bool(pod.is_daemonset_pod())
+        if topology is None:
+            return ("plain", is_ds)
+        state = CycleState()
+        topology.pre_filter(state, pod)
+        s = topology._get_state(state)
+        if is_ds or s is None or not s.target_container_indices:
+            return ("noop", is_ds)
+        r = s.target_container_resource
+        return (
+            "numa",
+            s.aware,
+            r.milli_cpu,
+            r.memory,
+            r.ephemeral_storage,
+            r.allowed_pod_number,
+            # scalar (device or extended) resources feed the NUMA fit check:
+            # templates differing only here must not alias
+            tuple(sorted(r.scalar_resources.items())),
+        )
 
     def schedule_batch_mixed(
         self,
@@ -1511,11 +1836,17 @@ class BatchScheduler:
         with the same water-filling as ``schedule_gang`` (on the host, from
         the cycle's one device fetch), and the hot-penalty staircase
         continues across classes (``prior``). DaemonSet pods bypass Filter
-        and form an always-schedulable class. ``topology`` (the NUMA
-        plugin) is not ported yet and raises."""
+        and form an always-schedulable class.
+
+        With ``topology``, classes also split on NUMA awareness and the
+        guaranteed-CPU request, and a NUMA class solves with the NUMA
+        vectors. NUMA capacity consumed by earlier classes reaches later
+        ones through bound pods' zone annotations, so cross-class capacity
+        evolution needs ``bind=True``; ``bind=False`` previews each class
+        against the pre-batch NUMA state. Filter-rejected over-admissions
+        recover per class through the corrected-capacity re-solve."""
         from ..fit.tracker import UNBOUNDED
 
-        _no_topology(topology)
         now = self._clock()
         self.refresh()
         prepared = self._prepare(now)
@@ -1532,22 +1863,27 @@ class BatchScheduler:
 
         classes: dict = {}
         for pod in pods:
-            classes.setdefault(self._class_key(pod), []).append(pod)
+            classes.setdefault(self._class_key(pod, topology), []).append(pod)
 
         prior = np.zeros((n,), np.int64)
         assignments: dict[str, str] = {}
         unassigned: list[str] = []
-        for members in classes.values():
+        for key, members in classes.items():
             template = members[0]
             # DaemonSet pods always pass Filter (ref: plugins.go:41-43)
             cls_sched = np.ones((n,), bool) if template.is_daemonset_pod() else sched
-            capacity = np.full((n,), UNBOUNDED, np.int64)
+            if key[0] == "numa":
+                offsets, capacity = self._numa_vectors(template, topology, topology_weight,
+                                                       names, n)
+            else:
+                offsets = np.zeros((n,), np.int32)
+                capacity = np.full((n,), UNBOUNDED, np.int64)
             fit_rows = self._fit_capacity(template, names, n)
             if fit_rows is not None:
                 np.minimum(capacity, fit_rows, out=capacity)
             solved = gang_assign_host(
                 scores, cls_sched, len(members), self.tensors.hv_count,
-                capacity=capacity, offsets=np.zeros((n,), np.int32),
+                capacity=capacity, offsets=offsets,
                 dynamic_weight=dynamic_weight,
                 max_offset=MAX_NODE_SCORE * topology_weight, prior=prior,
             )
@@ -1557,8 +1893,9 @@ class BatchScheduler:
             if bind:
                 pods_by_key = {p.key(): p for p in members}
                 bound, unplaced = self._bind_recover_loop(
-                    lambda a, pbk=pods_by_key: self._bind_existing(pbk, a, now),
-                    assign_c, prior,
+                    lambda a, pbk=pods_by_key: self._bind_existing(pbk, a, topology, now),
+                    assign_c, template, topology, scores, cls_sched, prior,
+                    dynamic_weight, topology_weight,
                 )
                 assignments.update(bound)
                 unassigned.extend(unplaced)

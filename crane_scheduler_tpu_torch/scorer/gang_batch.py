@@ -58,27 +58,13 @@ from ..constants import MAX_NODE_SCORE
 from ..device import resolve_device
 from ..fit.tracker import UNBOUNDED, copy_counts_rows
 from ..parallel.column_cache import SINGLE_DEVICE, DeviceColumnCache, upload
+from ..topology.batched import stranded_copies
 from .drip_batch import col_delta_rows
 from .topk import GangResult, GangScheduler, gang_assign_host
 
 __all__ = ["GangBatchKernel", "gang_window_host", "stranded_copies"]
 
 _I32_MAX = 2**31 - 1
-
-
-def stranded_copies(capacity, upper, exact) -> np.ndarray:
-    """[N] int64 — copy capacity a node would strand if every token it
-    holds at or above the waterline binds: ``capacity - (upper + exact)``
-    clipped at zero. The fragmentation-aware tie policy fills waterline
-    tokens on the nodes stranding the least capacity first, which only
-    reorders the waterline split.
-
-    Copy of ``stranded_copies`` in ``crane_scheduler_tpu/topology/
-    batched.py`` (the port's ``topology`` package comes with the NUMA
-    slice)."""
-    cap = np.asarray(capacity, np.int64)
-    taken = np.asarray(upper, np.int64) + np.asarray(exact, np.int64)
-    return np.clip(cap - taken, 0, None)
 
 
 def _tie_order_for(tie_policy, tie_rng, capacity, n):

@@ -789,7 +789,19 @@ def test_config_built_in_python_and_nrt_refused():
                                    policy=PORT_POLICY, device="cpu")
     assert [wp.weight for wp in sched._plugins] == [1, 3]
     assert sched._recognition() is not None
+    # the NRT plugin is ported: refused only without a lister
     nrt = SchedulerProfile(score_enabled=(PluginWeight("NodeResourceTopologyMatch", 2),))
-    with pytest.raises(NotImplementedError, match="item 5"):
-        port_build_from_config(pc.ClusterState(), SchedulerConfiguration(profiles=(nrt,)),
-                               policy=PORT_POLICY, device="cpu")
+    config = SchedulerConfiguration(profiles=(nrt,))
+    with pytest.raises(ValueError, match="no NRT lister"):
+        port_build_from_config(pc.ClusterState(), config, policy=PORT_POLICY, device="cpu")
+    from crane_scheduler_tpu_torch.topology import TopologyMatch
+    from crane_scheduler_tpu_torch.topology.types import InMemoryNRTLister
+
+    sched = port_build_from_config(pc.ClusterState(), config, nrt_lister=InMemoryNRTLister(),
+                                   policy=PORT_POLICY, device="cpu")
+    topo = sched._plugins[-1].plugin
+    try:
+        assert isinstance(topo, TopologyMatch) and sched._plugins[-1].weight == 2
+        assert topo.cache._cleaner is not None and sched._recognition() is None
+    finally:
+        topo.cache.stop_cleaner()

@@ -492,16 +492,30 @@ def test_schedule_batch_mixed_matches_reference(seed, bind):
 @pytest.mark.parametrize("entry", ["schedule_gang", "schedule_gang_queue",
                                    "schedule_batch_mixed"])
 def test_topology_raises_naming_the_numa_slice(entry):
-    batch = build_twin("port", gang_specs(1, 8))
-    t = template("port", "g", 100)
-    call = {
-        "schedule_gang": lambda: batch.schedule_gang(t, 2, topology=object()),
-        "schedule_gang_queue": lambda: batch.schedule_gang_queue([(t, 2)], topology=object()),
-        "schedule_batch_mixed": lambda: batch.schedule_batch_mixed([t], topology=object()),
-    }[entry]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        call()
-    assert batch.cluster.pod_version == 8  # nothing bound
+    """``topology=`` is ported: no entry point raises ``NotImplementedError``
+    naming the NUMA slice any more. With a ``TopologyMatch`` over an empty
+    lister, these burstable pods (no guaranteed CPU) are the plugin's
+    no-op class, so each call places and binds exactly as without it."""
+    from crane_scheduler_tpu_torch.topology import TopologyMatch
+    from crane_scheduler_tpu_torch.topology.types import InMemoryNRTLister
+
+    out = []
+    for with_topology in (False, True):
+        batch = build_twin("port", gang_specs(1, 8))
+        topo = TopologyMatch(InMemoryNRTLister(), cluster=batch.cluster) \
+            if with_topology else None
+        t = template("port", "g", 100)
+        if entry == "schedule_batch_mixed":
+            batch.cluster.add_pod(t)
+        call = {
+            "schedule_gang": lambda: batch.schedule_gang(t, 2, topology=topo).assignments,
+            "schedule_gang_queue": lambda: [o.assignments for o in batch.schedule_gang_queue(
+                [(t, 2)], topology=topo)],
+            "schedule_batch_mixed": lambda: batch.schedule_batch_mixed(
+                [t], topology=topo).assignments,
+        }[entry]
+        out.append((call(), batch.cluster.pod_version))
+    assert out[0] == out[1] and out[1][1] > 8
 
 
 def test_gang_telemetry_families_match_reference(jax_gang):
