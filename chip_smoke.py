@@ -160,11 +160,36 @@ non-zero without printing a result.
    stages (full vector builds, incremental ms and rows, bind, step), K1
    and K2 launches per gang, and the device us of one batched evaluation
    plus copy-capacity call at 50,000 x 2.
+19. service: the scoring sidecar (``service.ScoringService``) over the
+   drip phases' 50,000-node cluster with the default policy. score: at 5
+   explicit `now`s the card's ``/v1/score`` bodies equal a CPU twin's
+   (``device="cpu"``) byte for byte, in float32 and float64, and a broken
+   scorer on the card raises rather than answer from the oracle. miss: 20
+   cache-miss renders per dtype (``now_bucket_s=0``), host ms each, the
+   pieces timed from outside (snapshot, scorer call with H2D, K1 and both
+   D2H copies, the two dicts, ``json.dumps``), and five renders per dtype
+   under ``torch.profiler`` (device us and idle share) in a child process
+   of this script (``--profile-renders``): late in this process a short
+   session keeps no device record. serve:
+   ``ScoringHTTPServer`` (async front end) under 8 closed-loop keep-alive
+   clients for 3 s per dtype on a clock moving from ``NOW`` (bench config
+   10's shape): req/s, p50/p99 ms, coalesced, cache hits, renders, one K1
+   launch per float32 render; then a cold render, a cache hit and a
+   6-thread storm give one body. assign: ``POST /v1/assign`` of 100,000
+   pods, 5 calls without and 5 with a 50,000-entry capacity map, each
+   equal to the CPU twin's ``assign_batch`` (counts, unassigned,
+   waterline), one K1 and one K2 launch per call. cli: ``python3 -m
+   crane_scheduler_tpu_torch.cli.service_main --f32`` as a subprocess
+   answers ``/healthz``, ``/v1/score`` from the card and a strictly
+   parsed ``/metrics`` with no fallback and ``crane_build_info{role=
+   "scorer"}``, and exits 0 on SIGTERM. Every answer must say
+   ``"backend": "cuda"`` and every service ``fallbacks == 0``.
 
 Before each path (main path, delta, column, overlap, hybrid scorer, the
 drip queue, serve, scalar and dirty phases, telemetry, the gang
-sequential, window and mixed legs, and the NUMA gang, queue, mixed and
-per-pod legs) the kernels' launch counters are set to 0, and after it each
+sequential, window and mixed legs, the NUMA gang, queue, mixed and
+per-pod legs, and the service's score, HTTP and assign legs) the kernels'
+launch counters are set to 0, and after it each
 kernel the path runs must have launched; the ``kernels`` line lists the
 counts per path (the drip paths and the per-pod NUMA leg run neither
 kernel).
@@ -225,6 +250,7 @@ from crane_scheduler_tpu_torch.scorer.batched import BatchedScorer, PolicyConsta
 from crane_scheduler_tpu_torch.scorer.hybrid import HybridScorer
 from crane_scheduler_tpu_torch.scorer.parity import check_placement_parity
 from crane_scheduler_tpu_torch.scorer.topk import hot_penalty_steps
+from crane_scheduler_tpu_torch.service import ScoringHTTPServer, ScoringService
 from crane_scheduler_tpu_torch.telemetry import DecisionTraceBuffer, Telemetry, expfmt
 from crane_scheduler_tpu_torch.utils import format_local_time
 from crane_scheduler_tpu_torch.utils.profiling import chrome_trace, torch_trace
@@ -266,6 +292,14 @@ NUMA_BEST_EFFORT = 64  # best-effort pods beside the gang pods in the mixed burs
 NUMA_RANDOM_NODES = 4_096  # nodes of each random Z = 4, 8 batched-evaluation case
 NUMA_PER_POD_NODES = 2_000  # the per-pod scalar loop is O(plugins x nodes) per pod
 NUMA_PER_POD_PODS = 16
+SERVICE_NOWS = 5  # explicit `now`s of the card == CPU-twin body check
+SERVICE_MISS_RENDERS = 20  # timed cache-miss renders per dtype
+SERVICE_PROFILED_RENDERS = 5  # cache-miss renders per profiler session
+SERVICE_CLIENTS = 8  # closed-loop keep-alive clients (bench config 10's shape)
+SERVICE_SECONDS = 3.0
+SERVICE_STORM = 6  # threads of the cold / hit / storm byte-identity check
+SERVICE_ASSIGN_PODS = 100_000
+SERVICE_ASSIGN_CALLS = 5  # /v1/assign calls per capacity mode
 NUMA_AWARE = "topology.crane.io/topology-awareness"
 NUMA_RESULT = "topology.crane.io/topology-result"
 
@@ -2202,12 +2236,445 @@ def phase_numa_gang(dev) -> tuple:
     return out, by_path
 
 
+# -- the scoring sidecar --------------------------------------------------------
+
+class WallClock:
+    """``NOW`` plus the seconds since it was made: a live service's clock
+    over annotations stamped near ``NOW``, so the implicit-now coalescing
+    bucket moves as it does in production."""
+
+    def __init__(self):
+        self._t0 = time.monotonic()
+
+    def __call__(self) -> float:
+        return NOW + (time.monotonic() - self._t0)
+
+
+CARD = "cuda"  # the "backend" of every answer from the card
+CARD_BODY = b'{"backend": "' + CARD.encode() + b'"'  # how every such render begins
+
+
+def check_body(body: bytes, leg: str, nodes: int | None = None) -> None:
+    """A device-path render: ``"backend": "cuda"``, and all ``nodes``."""
+    if not body.startswith(CARD_BODY):
+        raise AssertionError(f"service {leg}: body not from the card: {body[:80]!r}")
+    if nodes is not None:
+        doc = json.loads(body)
+        if len(doc["scores"]) != nodes or len(doc["schedulable"]) != nodes:
+            raise AssertionError(f"service {leg}: {len(doc['scores'])} of {nodes} nodes")
+
+
+def no_fallback(svc, leg: str) -> None:
+    m = svc.metrics()
+    if m["fallbacks"] != 0 or m["expired_at_dispatch"] != 0:
+        raise AssertionError(f"service {leg}: fallbacks {m['fallbacks']}, "
+                             f"expired at dispatch {m['expired_at_dispatch']}")
+
+
+def cpu_body(body: bytes) -> bytes:
+    """A CPU twin's body with its backend named as the card's."""
+    return body.replace(b'"backend": "cpu"', b'"backend": "cuda"', 1)
+
+
+def percentile(values, q: float) -> float:
+    return float(np.percentile(np.asarray(values, dtype=np.float64), q))
+
+
+def service_twins(cluster, dev, dtype, clock):
+    card = ScoringService(cluster, DEFAULT_POLICY, dtype=dtype, device=dev, clock=clock)
+    cpu = ScoringService(cluster, DEFAULT_POLICY, dtype=dtype, device="cpu", clock=clock)
+    card.refresh()
+    cpu.refresh()
+    return card, cpu
+
+
+class BrokenScorer:
+    """A scorer whose kernel does not launch."""
+
+    def __call__(self, *args, **kwargs):
+        raise RuntimeError("K1 did not launch")
+
+
+def service_score_leg(cluster, dev) -> tuple:
+    """Card bodies == CPU-twin bodies at SERVICE_NOWS explicit ``now``s, in
+    float32 and float64; then a broken scorer on the card raises instead
+    of answering from the oracle."""
+    clock = Clock(NOW)
+    nows = [NOW + 37.0 * k for k in range(SERVICE_NOWS)]
+    f32_renders = 0
+    for dtype in (torch.float32, torch.float64):
+        card, cpu = service_twins(cluster, dev, dtype, clock)
+        for now in nows:
+            body = card.score_response_bytes(now=now, refresh=False)
+            check_body(body, "score", N_NODES)
+            if body != cpu_body(cpu.score_response_bytes(now=now, refresh=False)):
+                raise AssertionError(f"service score: card != CPU twin, {dtype}, now {now}")
+        no_fallback(card, "score")
+        if dtype == torch.float32:
+            f32_renders += card.metrics()["score_calls"]
+    card.scorer = BrokenScorer()
+    try:
+        card.score_response_bytes(now=NOW - 37.0, refresh=False)
+    except RuntimeError as e:
+        if "K1 did not launch" not in str(e):
+            raise
+    else:
+        raise AssertionError("service score: a broken scorer on the card answered")
+    no_fallback(card, "score (broken scorer)")
+    return f32_renders, len(nows)
+
+
+def render_pieces(svc, now: float) -> dict:
+    """One cache-miss render's pieces, timed from outside the service:
+    the snapshot, the scorer call with both copies back (H2D, K1 in
+    float32, D2H), the two dicts and ``json.dumps``."""
+    t0 = time.perf_counter()
+    snap = svc.store.snapshot(bucket=2048)
+    t1 = time.perf_counter()
+    res = svc.scorer(snap.values, snap.ts, snap.hot_value, snap.hot_ts, snap.node_valid, now)
+    n = snap.n_nodes
+    sched = res.schedulable[:n].cpu().numpy()
+    scores = res.scores[:n].cpu().numpy()
+    t2 = time.perf_counter()
+    verdicts = (dict(zip(snap.node_names, sched.astype(bool).tolist())),
+                dict(zip(snap.node_names, scores.astype(np.int64).tolist())))
+    t3 = time.perf_counter()
+    json.dumps({"backend": "cuda", "stalenessSeconds": 0.0,
+                "schedulable": verdicts[0], "scores": verdicts[1]})
+    t4 = time.perf_counter()
+    return {"snapshot": (t1 - t0) * 1e3, "scorer_h2d_k1_d2h": (t2 - t1) * 1e3,
+            "dicts": (t3 - t2) * 1e3, "json_dumps": (t4 - t3) * 1e3}
+
+
+PROFILE_RENDERS_ARG = "--profile-renders"  # the child mode of this script
+
+
+def profile_renders_child() -> int:
+    """The child of ``profiled_renders``: the 50,000-node service, then
+    ``profile_windows`` over SERVICE_PROFILED_RENDERS cache-miss renders
+    per dtype; prints one JSON object."""
+    if not torch.cuda.is_available():
+        return 2
+    dev = torch.device("cuda")
+    build_all([score_kernel.KERNEL, gang_kernel.KERNEL])
+    cluster = build_cluster(cluster_annotations(compile_policy(DEFAULT_POLICY),
+                                                np.random.default_rng(SEED)))
+    out = {}
+    for tag, dtype in (("f32", torch.float32), ("f64", torch.float64)):
+        svc = ScoringService(cluster, DEFAULT_POLICY, dtype=dtype, device=dev,
+                             clock=Clock(NOW), now_bucket_s=0.0)
+        svc.refresh()
+        calls = iter(range(10**6))
+
+        def render():
+            body = svc.score_response_bytes(now=NOW + 1000.0 + next(calls), refresh=False)
+            check_body(body, "miss (profiled)", N_NODES)
+
+        out[tag] = profile_windows(render, SERVICE_PROFILED_RENDERS)
+        no_fallback(svc, "miss (profiled)")
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def profiled_renders() -> dict:
+    """Device us and idle share of a cache-miss render per dtype, from
+    ``torch.profiler`` in a fresh process. Late in this script's process a
+    short session keeps every host runtime call and, in most sessions, no
+    device record, while a young process keeps them all."""
+    proc = subprocess.run([sys.executable, __file__, PROFILE_RENDERS_ARG],
+                          capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"service miss: profiled renders exited {proc.returncode}: "
+                             f"{proc.stderr[-800:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def service_miss_leg(cluster, dev) -> dict:
+    """SERVICE_MISS_RENDERS cache-miss renders (``now_bucket_s=0``, a new
+    explicit ``now`` each) per dtype: host ms per render, its pieces, and
+    the device time and idle share of one render under the profiler."""
+    out, profiled = {}, profiled_renders()
+    for tag, dtype in (("f32", torch.float32), ("f64", torch.float64)):
+        clock = Clock(NOW)
+        svc = ScoringService(cluster, DEFAULT_POLICY, dtype=dtype, device=dev, clock=clock,
+                             now_bucket_s=0.0)
+        svc.refresh()
+        svc.score_response_bytes(now=NOW - 1.0, refresh=False)  # warm
+        render_ms = []
+        for k in range(SERVICE_MISS_RENDERS):
+            t0 = time.perf_counter()
+            body = svc.score_response_bytes(now=NOW + 0.5 * k, refresh=False)
+            render_ms.append((time.perf_counter() - t0) * 1e3)
+            check_body(body, "miss")
+        pieces = [render_pieces(svc, NOW + 0.25 + 0.5 * k) for k in range(SERVICE_MISS_RENDERS)]
+        m = svc.metrics()
+        if m["response_cache_hits"] != 0 or m["score_calls"] != 1 + SERVICE_MISS_RENDERS:
+            raise AssertionError(f"service miss: a render was not a miss: {m}")
+        no_fallback(svc, "miss")
+        out[tag] = {
+            "render_ms_median": statistics.median(render_ms),
+            "render_ms_p90": percentile(render_ms, 90), "render_ms": render_ms,
+            "pieces_ms_median": {k: statistics.median(p[k] for p in pieces) for k in pieces[0]},
+            "profiled_render": profiled[tag],
+        }
+    return out
+
+
+def closed_loop(port: int, clients: int, seconds: float) -> dict:
+    """``clients`` threads, each one keep-alive connection sending ``POST
+    /v1/score`` with an empty body (default refresh, implicit ``now``)
+    back to back for ``seconds``; every answer must come from the card."""
+    import http.client
+    import threading
+
+    stop_at = time.perf_counter() + seconds
+    lats, errors, lock = [], [], threading.Lock()
+
+    def loop():
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        mine = []
+        try:
+            while time.perf_counter() < stop_at:
+                t0 = time.perf_counter()
+                conn.request("POST", "/v1/score", body=b"{}",
+                             headers={"Content-Type": "application/json"})
+                resp = conn.getresponse()
+                data = resp.read()
+                mine.append(time.perf_counter() - t0)
+                if resp.status != 200 or not data.startswith(CARD_BODY):
+                    errors.append((resp.status, data[:80]))
+                    return
+        except Exception as e:  # surfaced below
+            errors.append(repr(e))
+        finally:
+            conn.close()
+            with lock:
+                lats.extend(mine)
+
+    threads = [threading.Thread(target=loop) for _ in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    if errors or not lats:
+        raise AssertionError(f"service serve: client errors {errors[:3]}")
+    return {"requests": len(lats), "req_per_s": len(lats) / wall,
+            "p50_ms": percentile(lats, 50) * 1e3, "p99_ms": percentile(lats, 99) * 1e3}
+
+
+def service_serve_leg(cluster, dev) -> tuple:
+    """``ScoringHTTPServer`` (async front end) under SERVICE_CLIENTS
+    closed-loop keep-alive clients for SERVICE_SECONDS, float32 and
+    float64; then cold render == cache hit == a 6-thread storm."""
+    import threading
+
+    out, by_path = {}, {}
+    for tag, dtype in (("f32", torch.float32), ("f64", torch.float64)):
+        svc = ScoringService(cluster, DEFAULT_POLICY, dtype=dtype, device=dev,
+                             clock=WallClock())
+        svc.refresh()
+        server = ScoringHTTPServer(svc, port=0, frontend="async")
+        server.start()
+        try:
+            svc.score_response_bytes(refresh=False)  # warm
+            before = svc.metrics()
+            reset_launches()
+            leg = closed_loop(server.port, SERVICE_CLIENTS, SERVICE_SECONDS)
+            launched = {name: kernel.launches for name, kernel in KERNELS.items()}
+            m = svc.metrics()
+            renders = m["score_calls"] - before["score_calls"]
+            want_k1 = renders if dtype == torch.float32 else 0
+            if launched["score"] != want_k1 or launched["gang"] != 0:
+                raise AssertionError(f"service serve {tag}: launches {launched} for "
+                                     f"{renders} renders")
+            if tag == "f32":
+                by_path["service_http"] = launched
+            now = NOW + 3600.0
+            svc._resp_cache.clear()
+            cold = svc.score_response_bytes(now=now, refresh=False)
+            hit = svc.score_response_bytes(now=now, refresh=False)
+            stormed, barrier = [], threading.Barrier(SERVICE_STORM)
+
+            def one():
+                barrier.wait()
+                stormed.append(svc.score_response_bytes(now=now, refresh=False))
+
+            threads = [threading.Thread(target=one) for _ in range(SERVICE_STORM)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            if len({cold, hit, *stormed}) != 1 or len(stormed) != SERVICE_STORM:
+                raise AssertionError(f"service serve {tag}: cold/hit/storm bytes differ")
+            check_body(cold, "serve", N_NODES)
+            no_fallback(svc, "serve")
+            out[tag] = {
+                **leg, "renders": renders,
+                **{k: m[k] - before[k] for k in ("coalesced_scores", "response_cache_hits",
+                                                 "refreshes", "refresh_skips")},
+                "connections_accepted": server.connections_accepted,
+                "k1_launches": launched["score"],
+            }
+        finally:
+            server.stop()
+    return out, by_path
+
+
+def service_assign_leg(cluster, dev) -> tuple:
+    """``POST /v1/assign`` of SERVICE_ASSIGN_PODS pods, with and without a
+    capacity map over every node, on a float32 service; each answer equals
+    the CPU twin's ``assign_batch``; one K1 and one K2 launch per call."""
+    import http.client
+
+    clock = Clock(NOW)
+    card, cpu = service_twins(cluster, dev, torch.float32, clock)
+    names = [n.name for n in cluster.list_nodes()]
+    caps = np.random.default_rng(SEED + 8).integers(1, 5, len(names))
+    capacity = {name: int(c) for name, c in zip(names, caps)}
+    server = ScoringHTTPServer(card, port=0, frontend="async")
+    server.start()
+    out = {}
+    try:
+        conn = http.client.HTTPConnection("127.0.0.1", server.port, timeout=120)
+        reset_launches()
+        calls = 0
+        for tag, cap in (("no_capacity", None), ("capacity", capacity)):
+            ms = []
+            for k in range(SERVICE_ASSIGN_CALLS):
+                now = NOW + 11.0 * k
+                req = {"numPods": SERVICE_ASSIGN_PODS, "now": now, "refresh": False}
+                if cap is not None:
+                    req["capacity"] = cap
+                body = json.dumps(req).encode()
+                t0 = time.perf_counter()
+                conn.request("POST", "/v1/assign", body=body,
+                             headers={"Content-Type": "application/json"})
+                resp = conn.getresponse()
+                data = resp.read()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                calls += 1
+                doc = json.loads(data)
+                if resp.status != 200 or doc["backend"] != CARD:
+                    raise AssertionError(f"service assign: {resp.status} {data[:120]!r}")
+                twin = cpu.assign_batch(SERVICE_ASSIGN_PODS, capacity=cap, now=now)
+                if (doc["counts"], doc["unassigned"], doc["waterline"]) != (
+                        twin.counts, twin.unassigned, twin.waterline):
+                    raise AssertionError(f"service assign {tag}: card != CPU twin at {now}")
+            out[tag] = {"ms_per_call": ms, "ms_median": statistics.median(ms),
+                        "placed": SERVICE_ASSIGN_PODS - doc["unassigned"],
+                        "unassigned": doc["unassigned"], "waterline": doc["waterline"],
+                        "nodes_used": len(doc["counts"]), "request_bytes": len(body)}
+        conn.close()
+        launched = read_launches("service assign")
+        if launched["gang"] != calls or launched["score"] != calls:
+            raise AssertionError(f"service assign: {launched} launches for {calls} calls")
+        no_fallback(card, "assign")
+    finally:
+        server.stop()
+    return out, launched
+
+
+def service_cli_leg() -> dict:
+    """``crane-scorer --f32`` as a subprocess on the card: ``/healthz``,
+    ``/v1/score`` from the card, a strict ``/metrics`` parse with no
+    fallback and the scorer's build info, then SIGTERM and exit 0."""
+    import http.client
+    import os
+    import signal
+    import socket
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (str(root), os.environ.get("PYTHONPATH")) if p))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "crane_scheduler_tpu_torch.cli.service_main", "--f32",
+         "--port", str(port), "--run-seconds", "20"],
+        cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+    )
+    try:
+        while True:
+            try:
+                conn = http.client.HTTPConnection("127.0.0.1", port, timeout=10)
+                conn.request("GET", "/healthz")
+                resp = conn.getresponse()
+                health = (resp.status, json.loads(resp.read()))
+                break
+            except OSError:
+                if proc.poll() is not None or time.perf_counter() - t0 > 90:
+                    raise AssertionError("service cli did not come up")
+                time.sleep(0.2)
+        up_s = time.perf_counter() - t0
+        conn.request("POST", "/v1/score", body=b"{}", headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        score = (resp.status, resp.read())
+        conn.request("GET", "/metrics", headers={"Accept": "text/plain"})
+        text = conn.getresponse().read().decode()
+        conn.close()
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            _, err = proc.communicate(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            _, err = proc.communicate()
+    if health != (200, {"status": "ok"}) or score[0] != 200:
+        raise AssertionError(f"service cli: healthz {health}, score {score[0]}")
+    check_body(score[1], "cli")
+    fams = expfmt.parse_exposition(text)
+    # an unlabeled counter renders no sample until its first increment
+    fallbacks = sum(v for _, _, v in fams["crane_scoring_fallbacks_total"]["samples"])
+    roles = [dict(s[1]).get("role") for s in fams["crane_build_info"]["samples"]]
+    if fallbacks != 0 or "scorer" not in roles:
+        raise AssertionError(f"service cli: fallbacks {fallbacks}, build_info roles {roles}")
+    if proc.returncode != 0:
+        raise AssertionError(f"service cli exited {proc.returncode}: {err[-400:]!r}")
+    return {"up_s": up_s, "families": len(fams), "exit": proc.returncode}
+
+
+def phase_service(dev, annos) -> tuple:
+    """The scoring sidecar at 50,000 nodes: the score, miss, serve, assign
+    and cli legs."""
+    t0 = time.perf_counter()
+    cluster = build_cluster(annos)
+    by_path = {}
+    reset_launches()
+    f32_renders, nows = service_score_leg(cluster, dev)
+    service_miss = service_miss_leg(cluster, dev)
+    by_path["service_score"] = read_launches("service score", need=("score",))
+    # the float32 miss leg: a warm-up, the timed renders and the pieces'
+    # scorer calls (the profiled renders run in a child process)
+    k1_want = f32_renders + 1 + 2 * SERVICE_MISS_RENDERS
+    if by_path["service_score"] != {"score": k1_want, "gang": 0}:
+        raise AssertionError(f"service score: {by_path['service_score']} launches, "
+                             f"want {k1_want} of K1 and none of K2")
+    serve, serve_paths = service_serve_leg(cluster, dev)
+    by_path.update(serve_paths)
+    assign, by_path["service_assign"] = service_assign_leg(cluster, dev)
+    cli = service_cli_leg()
+    out = {
+        "nodes": N_NODES, "score_nows": nows, "card_equals_cpu": True,
+        "miss": service_miss, "serve": serve, "assign": assign, "cli": cli,
+        "launches": by_path, "seconds": time.perf_counter() - t0,
+    }
+    log("service", **out)
+    return out, by_path
+
+
 # per kernel in the `kernels` line: `ms` is the kernel's own device time
 KERNEL_KEYS = ("ms", "plain_ms", "bound_ms", "bound_by", "device_us", "bound_us",
                "pct_of_bound", "host_launch_ms", "device_launches_seen")
 
 
 def main() -> int:
+    if sys.argv[1:] == [PROFILE_RENDERS_ARG]:
+        return profile_renders_child()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
         return 2
@@ -2249,6 +2716,8 @@ def main() -> int:
     by_path.update(gang_paths)
     _, numa_paths = phase_numa_gang(dev)
     by_path.update(numa_paths)
+    _, service_paths = phase_service(dev, drip_annos)
+    by_path.update(service_paths)
 
     kernels = [
         {

@@ -13,6 +13,7 @@ from dataclasses import fields
 
 import numpy as np
 
+from .cluster.state import ClusterState, Node
 from .loadstore.store import DeviceSnapshot
 from .policy.compile import PolicyTensors
 from .topology.types import (
@@ -88,3 +89,19 @@ def nrt_lister_from_crs(crs) -> InMemoryNRTLister:
             zones=tuple(Zone.from_wire(z) for z in cr.get("zones", ())),
         ))
     return lister
+
+
+def cluster_from_nodes(nodes) -> ClusterState:
+    """A ``ClusterState`` holding ``nodes``, given as plain mappings in
+    insertion order: ``name``, and optionally ``annotations``, ``labels``
+    and ``allocatable`` (copied into plain dicts). The port's ``Node`` has
+    no addresses yet, so a mapping's ``addresses`` are dropped."""
+    cluster = ClusterState()
+    for n in nodes:
+        cluster.add_node(Node(
+            name=str(n["name"]),
+            annotations=dict(n.get("annotations") or {}),
+            labels=dict(n.get("labels") or {}),
+            allocatable=dict(n.get("allocatable") or {}),
+        ))
+    return cluster

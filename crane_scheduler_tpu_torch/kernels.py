@@ -130,7 +130,8 @@ class CudaKernel:
             raise RuntimeError(
                 f"{self.symbol}: kernel launch failed with CUDA error {err}"
             )
-        self.launches += 1
+        with self._lock:  # the serving front end launches from many threads
+            self.launches += 1
 
 
 def build_all(kernels) -> None:

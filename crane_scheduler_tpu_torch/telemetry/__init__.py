@@ -1,10 +1,9 @@
 """Unified telemetry: metrics registry + span recorder + decision traces.
 
-Counterpart of ``crane_scheduler_tpu/telemetry/__init__.py``, without the
-fleet plane (``FleetPlane``, ``SLOEngine``, ``MetricsFederator``), which
-comes with the serving front end. One measurement layer threaded through
-the burst path (``BatchScheduler``, ``ScheduleStep``) and the drip path
-(``Scheduler``, ``DripColumns``, ``FitTracker``). Four surfaces, one
+Counterpart of ``crane_scheduler_tpu/telemetry/__init__.py``. One
+measurement layer threaded through the burst path (``BatchScheduler``,
+``ScheduleStep``), the drip path (``Scheduler``, ``DripColumns``,
+``FitTracker``) and the scoring sidecar (``service``). Four surfaces, one
 bundle:
 
 - ``MetricsRegistry`` — Counter/Gauge/log-bucketed Histogram with real
@@ -15,6 +14,10 @@ bundle:
 - ``DecisionTraceBuffer`` — sampled per-decision traces, bounded memory;
 - ``PodLifecycleTracker`` — per-pod stage timestamps (seen -> filtered
   -> scored -> bind_post), with an optional on-disk ``FlightRecorder``.
+
+The fleet plane (``fleet``: ``FleetPlane``, ``MetricsFederator``,
+``SLOEngine``, ``FleetAnomalies``) federates many processes' ``/metrics``
+and serves burn-rate SLOs; the sidecar mounts it.
 
 Instrumented modules accept ``telemetry=`` and fall back to the
 process-global instance (``active()``), which is None unless enabled —
@@ -31,6 +34,16 @@ import threading
 
 from . import tracing
 from .decisions import DecisionTraceBuffer
+from .fleet import (
+    FleetAnomalies,
+    FleetPlane,
+    MetricsFederator,
+    ScrapeTarget,
+    SLOEngine,
+    process_role,
+    register_build_info,
+    set_process_role,
+)
 from .lifecycle import FlightRecorder, PodLifecycleTracker, slo_report
 from .registry import (
     DEFAULT_LATENCY_BUCKETS,
@@ -50,6 +63,14 @@ __all__ = [
     "PodLifecycleTracker",
     "FlightRecorder",
     "slo_report",
+    "FleetPlane",
+    "MetricsFederator",
+    "SLOEngine",
+    "FleetAnomalies",
+    "ScrapeTarget",
+    "register_build_info",
+    "set_process_role",
+    "process_role",
     "tracing",
     "Counter",
     "Gauge",
