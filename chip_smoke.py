@@ -140,8 +140,8 @@ non-zero without printing a result.
    node (two zones of 8 cores, 32Gi and 50Gi; CPU policy ``None`` on
    ``i % 50 == 3``, node-aware on ``i % 4 == 0``, no CR on ``i % 100 ==
    7``) and one bound background pod per node holding a seeded topology
-   result (0-8 cores, zone 0 overcommitted on ``i % 200 == 11``). 24 gangs
-   of guaranteed pods (136 pods, six CPU shapes, every third template
+   result (0-8 cores, zone 0 overcommitted on ``i % 200 == 11``). 8 gangs
+   of guaranteed pods (54 pods, six CPU shapes, every third template
    aware, every sixth not) through ``schedule_gang(topology=, bind=True)``
    on a ``BatchScheduler(dtype=torch.float32)``: K1 and K2 once per gang,
    K2 with the NUMA offsets and copy capacity. After each gang a second
@@ -150,7 +150,7 @@ non-zero without printing a result.
    in placements, unassigned keys, topology-result annotations and
    assume-cache contents; ``schedule_gang_queue(topology=)`` equals it
    with every outcome a fallback; a ``schedule_batch_mixed`` burst of the
-   136 pods as pending pods plus 64 best-effort pods gives f32 == f64;
+   54 pods as pending pods plus 64 best-effort pods gives f32 == f64;
    ``evaluate_topology_batch`` and ``copies_capacity`` on the card equal
    their CPU runs at 50,000 x 2 and on random nodes at Z 4 and 8 (whole-
    core, off-by-one-milli and overcommitted zones); and a per-pod
@@ -184,11 +184,44 @@ non-zero without printing a result.
    parsed ``/metrics`` with no fallback and ``crane_build_info{role=
    "scorer"}``, and exits 0 on SIGTERM. Every answer must say
    ``"backend": "cuda"`` and every service ``fallbacks == 0``.
+20. replicated: bench config 19's shape, the metrics-sync plane feeding the
+   replicated tier: a 50,000-node ``sim.Simulator`` primary (seed 0,
+   default policy), float32 scoring, 4 ``ServingReplica``s fed over the
+   delta feed, the hash router. annotator: ``sync_all_once`` (300,000
+   per-node syncs) and ``sync_all_once_bulk`` ms per sweep, one column's
+   render ms, and a direct-mode sweep whose store rows must equal a store
+   refreshed from the annotations it emitted. sim: a CPU twin
+   (``device="cpu"``) from the same seed; 5 closed-loop steps of a bulk
+   sweep, one 10,000-pod ``build_batch_scheduler(dtype=torch.float32)``
+   burst on the card, its binds, bind events and hot values: placements
+   and every node's annotation strings equal the twin's, K1 and K2 once
+   per burst (host stage ms per burst); then 256 pods through
+   ``build_scheduler()`` equal the twin's. replicas: the primary renders
+   in replica mode over the published version; at a quiesced fence 5
+   explicit `now`s give one byte string from the primary and each
+   replica, stamped with the version, equal to a CPU twin replica's; 16
+   windows of a 1% named patch (500 nodes) and one of a full annotator
+   sweep (publish ms, frame bytes, catch-up ms to every replica; every lag
+   sample within 64 versions, no gap); one replica's feed stopped and
+   resumed inside the ring (3 windows replayed, no snapshot) and past it
+   (34 windows, one snapshot); identity again after each. storm (report
+   only): 8 closed-loop clients, one tenant each, unique `now`s, 3 s
+   through a 1-replica and then the 4-replica router: req/s, p50/p99,
+   sheds, per-replica counts strict-parsed from the router's /metrics
+   (every replica served); K1 launches equal the card renders. assign:
+   ``/v1/assign`` of 100,000 pods through the router equals the twin's
+   ``assign_batch``, one K1 and one K2 per call. cli: ``crane-scorer
+   --demo-nodes 2000 --replicas 2 --f32`` answers a score through its
+   router from the card and exits 0 on SIGTERM (its own launch counts from
+   its exit line), crane-annotator one pass over a 1,000-node JSON file
+   with its score check on the card, crane-sim one 4,000-pod burst on
+   the card.
 
 Before each path (main path, delta, column, overlap, hybrid scorer, the
 drip queue, serve, scalar and dirty phases, telemetry, the gang
 sequential, window and mixed legs, the NUMA gang, queue, mixed and
-per-pod legs, and the service's score, HTTP and assign legs) the kernels'
+per-pod legs, the service's score, HTTP and assign legs, and the
+replicated phase's sim, replicas and router-assign legs) the kernels'
 launch counters are set to 0, and after it each
 kernel the path runs must have launched; the ``kernels`` line lists the
 counts per path (the drip paths and the per-pod NUMA leg run neither
@@ -286,8 +319,12 @@ GANG_WINDOW = 8
 GANG_DYN_W, GANG_TOPO_W = 3, 2  # Dynamic x3, topology x2: the deploy-config weights
 GANG_ORACLE_GANGS = 2  # the sequential oracle is O(pods x nodes) Python per gang
 DRIP_ALLOCATABLE = {"cpu": "16", "memory": "64Gi", "ephemeral-storage": "100Gi", "pods": "110"}
-# the NUMA gangs: guaranteed pods, (cpu milli, copies), 136 pods in all
-NUMA_SHAPES = ((1000, 12), (2000, 8), (3000, 6), (4000, 4), (6000, 2), (8000, 2)) * 4
+# the NUMA gangs: guaranteed pods, (cpu milli, copies), 54 pods in all (8
+# gangs: each shape once, then the first two again, whose request classes
+# take the incremental vector path; the phase's depth, cut from 24 to keep
+# the script's wall time)
+_NUMA_CLASSES = ((1000, 12), (2000, 8), (3000, 6), (4000, 4), (6000, 2), (8000, 2))
+NUMA_SHAPES = _NUMA_CLASSES + _NUMA_CLASSES[:2]
 NUMA_BEST_EFFORT = 64  # best-effort pods beside the gang pods in the mixed burst
 NUMA_RANDOM_NODES = 4_096  # nodes of each random Z = 4, 8 batched-evaluation case
 NUMA_PER_POD_NODES = 2_000  # the per-pod scalar loop is O(plugins x nodes) per pod
@@ -335,8 +372,12 @@ def max_entry_policy(n_entries: int) -> PolicySpec:
     )
 
 
+_T0 = time.perf_counter()  # the script's start: each line's `at_s`
+
+
 def log(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    print(json.dumps({"phase": phase, "at_s": time.perf_counter() - _T0, **fields}),
+          flush=True)
 
 
 def gpu_name_and_power() -> str:
@@ -2022,7 +2063,7 @@ def numa_batched_check(wrappers, requests, dev) -> int:
 
 def phase_numa_gang(dev) -> tuple:
     """config 22's cluster with one NRT CR and one background pod per node,
-    24 gangs of guaranteed pods through ``schedule_gang(topology=)`` on the
+    8 gangs of guaranteed pods through ``schedule_gang(topology=)`` on the
     card (K1 and K2 per gang, NUMA offsets and capacity) against a CPU
     twin; the vectors after each gang against a fresh full build; the
     queue's fallbacks; a mixed burst f32 against f64; the batched zone
@@ -2667,6 +2708,659 @@ def phase_service(dev, annos) -> tuple:
     return out, by_path
 
 
+# -- the metrics-sync plane and the replicated tier ---------------------------
+
+REPL_REPLICAS = 4  # bench config 19's replica count
+REPL_LAG_BUDGET = 64  # config 19's catch-up gate, in versions
+REPL_NOWS = 5  # explicit `now`s of the byte-identity check
+REPL_CHURN_WINDOWS = 16  # 1% named patches, one delta window each
+REPL_RING = 32  # the publisher's resume ring (frames)
+REPL_RESUME_IN_RING = 3  # windows published while one replica's feed is down
+REPL_CLIENTS = 8  # closed-loop storm clients, one tenant each
+REPL_SECONDS = 3.0
+REPL_ASSIGN_CALLS = 3
+SIM_STEPS = 5  # closed-loop sim steps
+SIM_BURST_PODS = 10_000
+SIM_DRIP_PODS = 256
+SIM_STEP_SECONDS = 30.0
+CLI_DEMO_NODES = 2_000
+CLI_ANNOTATOR_NODES = 1_000
+CLI_SIM_PODS = 4_000
+BUILD_DIR = "crane_scheduler_tpu_torch/_build"
+
+
+def node_annotations(cluster) -> dict:
+    return {n.name: dict(n.annotations) for n in cluster.list_nodes()}
+
+
+def store_rows(store) -> tuple:
+    """(names, values, ts, hot_value, hot_ts) in name order."""
+    names = sorted(store.node_names)
+    idx = np.asarray([store.node_id(n) for n in names], dtype=np.int64)
+    return (names, store.values[idx].copy(), store.ts[idx].copy(),
+            store.hot_value[idx].copy(), store.hot_ts[idx].copy())
+
+
+def rows_equal(a, b) -> bool:
+    """Bit-for-bit equal store rows (NaN in the same places)."""
+    if a[0] != b[0]:
+        return False
+    return all(np.array_equal(x, y, equal_nan=True) for x, y in zip(a[1:], b[1:]))
+
+
+def repl_annotator_leg(sim, n: int) -> dict:
+    """sync_all_once (the per-node path) and sync_all_once_bulk on the
+    primary's annotator; then a direct-mode annotator (sharing the
+    primary's binding heap) writes its sweep straight into a store, and
+    that store's rows must equal a store refreshed from the annotations
+    the sweep emitted."""
+    from crane_scheduler_tpu_torch.annotator import AnnotatorConfig, NodeAnnotator
+
+    ann = sim.annotator
+    t0 = time.perf_counter()
+    sim.sync_metrics()
+    per_node_ms = (time.perf_counter() - t0) * 1e3
+    synced = ann.synced
+    if synced != n * len(DEFAULT_POLICY.spec.sync_period) or ann.sync_errors:
+        raise AssertionError(f"replicated annotator: synced {synced}, errors {ann.sync_errors}")
+    sim.clock.advance(1.0)
+    t0 = time.perf_counter()
+    ann.sync_all_once_bulk(sim.clock.now())
+    bulk_ms = (time.perf_counter() - t0) * 1e3
+    # one column render alone: the per-value format_metric_value loop
+    column = sim.metrics._columns[DEFAULT_POLICY.spec.sync_period[0].name]
+    t0 = time.perf_counter()
+    column()
+    render_ms = (time.perf_counter() - t0) * 1e3
+    direct = NodeAnnotator(sim.cluster, sim.metrics, DEFAULT_POLICY,
+                           AnnotatorConfig(direct_store=True))
+    direct.binding_records = ann.binding_records
+    tensors = compile_policy(DEFAULT_POLICY)
+    store = direct.attach_store(NodeLoadStore(tensors))
+    sim.clock.advance(1.0)
+    t0 = time.perf_counter()
+    direct.sync_all_once_bulk(sim.clock.now())
+    direct_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    flushed = direct.flush_annotations()
+    flush_ms = (time.perf_counter() - t0) * 1e3
+    annotated = NodeLoadStore(tensors)
+    t0 = time.perf_counter()
+    direct.refresh_store(annotated)
+    refresh_ms = (time.perf_counter() - t0) * 1e3
+    if not rows_equal(store_rows(store), store_rows(annotated)) or len(store) != n:
+        raise AssertionError("replicated annotator: direct-store rows != annotation rows")
+    return {"sync_all_once_ms": per_node_ms, "sync_node_calls": synced,
+            "sync_all_once_bulk_ms": bulk_ms, "column_render_ms": render_ms,
+            "direct_sweep_ms": direct_ms, "direct_flush_ms": flush_ms,
+            "direct_flushed": flushed, "refresh_store_ms": refresh_ms,
+            "direct_rows_equal": True}
+
+
+def repl_sim_leg(sim, twin, dev) -> tuple:
+    """SIM_STEPS closed-loop steps on the card and on a CPU twin: a bulk
+    annotator sweep, one SIM_BURST_PODS-pod float32 burst, its binds,
+    events and hot values; placements and every node's annotation strings
+    equal after each step; K1 and K2 once per burst. Then SIM_DRIP_PODS
+    pods through ``build_scheduler()``, equal pod for pod."""
+    card = sim.build_batch_scheduler(dtype=torch.float32, device=dev)
+    cpu = twin.build_batch_scheduler(dtype=torch.float32, device="cpu")
+    # the burst's host stages, timed from outside (schedule_batch keeps no
+    # stage clock); the rest of a burst is the step and its one fetch
+    stages = ("refresh", "_prepare", "_build_result", "_apply_binds")
+    spent = time_methods(card, stages)
+    steps = []
+    reset_launches()
+    for step in range(SIM_STEPS):
+        row = {}
+        for s in (sim, twin):
+            s.clock.advance(SIM_STEP_SECONDS)
+        t0 = time.perf_counter()
+        sim.annotator.sync_all_once_bulk(sim.clock.now())
+        row["sync_ms"] = (time.perf_counter() - t0) * 1e3
+        twin.annotator.sync_all_once_bulk(twin.clock.now())
+        pods = [sim.make_pod() for _ in range(SIM_BURST_PODS)]
+        twin_pods = [twin.make_pod() for _ in range(SIM_BURST_PODS)]
+        before = dict(spent)
+        t0 = time.perf_counter()
+        res = card.schedule_batch(pods)
+        row["burst_ms"] = (time.perf_counter() - t0) * 1e3
+        row["stage_ms"] = {k.lstrip("_"): spent[k] - before[k] for k in stages}
+        twin_res = cpu.schedule_batch(twin_pods)
+        if res.assignments != twin_res.assignments or res.unassigned != twin_res.unassigned:
+            raise AssertionError(f"replicated sim step {step}: card placements != CPU twin")
+        for s, r, ps in ((sim, res, pods), (twin, twin_res, twin_pods)):
+            for pod in ps:
+                s.record(r.assignments.get(pod.key()))
+        row["placed"] = len(res.assignments)
+        row["hot_nodes"] = len(sim.annotator.hot_values_batch(sim.clock.now()))
+        steps.append(row)
+    launched = read_launches("replicated sim")
+    if launched != {"score": SIM_STEPS, "gang": SIM_STEPS}:
+        raise AssertionError(f"replicated sim: launches {launched} for {SIM_STEPS} bursts")
+    for s in (sim, twin):
+        s.clock.advance(SIM_STEP_SECONDS)
+        s.annotator.sync_all_once_bulk(s.clock.now())
+    if node_annotations(sim.cluster) != node_annotations(twin.cluster):
+        raise AssertionError("replicated sim: annotation strings != CPU twin")
+    if sim.annotator.event_ingestor.translated != SIM_STEPS * SIM_BURST_PODS:
+        raise AssertionError(f"replicated sim: {sim.annotator.event_ingestor.translated} "
+                             "bind events ingested")
+    drip, twin_drip = sim.build_scheduler(device=dev), twin.build_scheduler(device="cpu")
+    t0 = time.perf_counter()
+    placed = [drip.schedule_one(sim.make_pod()).node for _ in range(SIM_DRIP_PODS)]
+    drip_ms = (time.perf_counter() - t0) * 1e3 / SIM_DRIP_PODS
+    twin_placed = [twin_drip.schedule_one(twin.make_pod()).node for _ in range(SIM_DRIP_PODS)]
+    if placed != twin_placed or None in placed:
+        raise AssertionError("replicated sim drip: card placements != CPU twin")
+    return {"steps": steps, "drip_ms_per_pod": drip_ms,
+            "scheduled": sim.stats.scheduled + SIM_DRIP_PODS,
+            "events_ingested": sim.annotator.event_ingestor.translated}, launched
+
+
+def http_json(port: int, method: str, path: str, doc=None, headers=None, timeout=120):
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        body = None if doc is None else json.dumps(doc).encode()
+        conn.request(method, path, body=body,
+                     headers={"Content-Type": "application/json", **(headers or {})})
+        resp = conn.getresponse()
+        return resp.status, resp.read()
+    finally:
+        conn.close()
+
+
+REPLICA_BODY = b'{"backend":"' + CARD.encode() + b'"'  # a replica-mode render's start
+
+
+def wait_until(cond, what: str, timeout: float = 120.0, step: float = 0.001) -> None:
+    deadline = time.perf_counter() + timeout
+    while not cond():
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"replicated: {what} within {timeout} s")
+        time.sleep(step)
+
+
+def identity_check(pub, primary, replicas, twin, nows) -> dict:
+    """At a quiesced fence: every `now` posted to the primary and to each
+    replica gives one byte string, stamped with the published version, equal
+    to the CPU twin replica's render; returns per-replica render ms."""
+    v = pub.published_version
+    for r in replicas:
+        wait_until(lambda r=r: r.applied_version == v, f"{r.name} at v{v}")
+    if twin.applied_version != v:
+        raise AssertionError(f"replicated: CPU twin at v{twin.applied_version}, not v{v}")
+    ms = []
+    for now in nows:
+        doc = {"now": now, "refresh": True}
+        status, body = http_json(primary.port, "POST", "/v1/score", doc)
+        if status != 200 or not body.startswith(REPLICA_BODY):
+            raise AssertionError(f"replicated identity: primary {status} {body[:80]!r}")
+        for r in replicas:
+            t0 = time.perf_counter()
+            status, got = http_json(r.port, "POST", "/v1/score", doc)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if status != 200 or got != body:
+                raise AssertionError(f"replicated identity: {r.name} != primary at {now}")
+        mirror = twin.service.score_response_bytes(now=now, refresh=True)
+        if mirror.replace(b'"backend":"cpu"', REPLICA_BODY[1:], 1) != body:
+            raise AssertionError(f"replicated identity: CPU twin != card at {now}")
+        if json.loads(body)["version"] != v:
+            raise AssertionError(f"replicated identity: body version != published v{v}")
+    return {"version": v, "nows": len(nows), "render_ms": ms}
+
+
+def repl_churn_leg(sim, pub, replicas, rng) -> dict:
+    """REPL_CHURN_WINDOWS windows of a 1% named patch, then one window of a
+    full annotator sweep: publish ms, frame bytes and catch-up ms from
+    publish to every replica's applied version; lag within the budget."""
+    names = sim.cluster.node_names()
+    metric = DEFAULT_POLICY.spec.sync_period[0].name
+    lags, windows = [], []
+
+    def publish(kind: str) -> None:
+        t0 = time.perf_counter()
+        shipped = pub.publish_window()
+        t1 = time.perf_counter()
+        v = pub.published_version
+        frame_bytes = len(pub._ring[-1][2])
+
+        def caught_up():
+            lags.extend(max(0, v - r.applied_version) for r in replicas)
+            return all(r.applied_version == v for r in replicas)
+
+        wait_until(caught_up, f"catch-up to v{v}")
+        windows.append({"kind": kind, "names": shipped, "publish_ms": (t1 - t0) * 1e3,
+                        "frame_bytes": frame_bytes,
+                        "catch_up_ms": (time.perf_counter() - t1) * 1e3})
+
+    stamp = format_local_time(sim.clock.now())
+    for w in range(REPL_CHURN_WINDOWS):
+        picked = rng.choice(len(names), max(1, len(names) // 100), replace=False)
+        sim.cluster.patch_node_annotations_bulk(
+            {names[int(i)]: {metric: f"{rng.random():.5f},{stamp}"} for i in picked})
+        publish("patch_1pct")
+    sim.clock.advance(SIM_STEP_SECONDS)
+    t0 = time.perf_counter()
+    sim.annotator.sync_all_once_bulk(sim.clock.now())
+    sweep_ms = (time.perf_counter() - t0) * 1e3
+    publish("full_sweep")
+    if max(lags) > REPL_LAG_BUDGET:
+        raise AssertionError(f"replicated churn: lag {max(lags)} over {REPL_LAG_BUDGET}")
+    gaps = {r.name: r.mirror.stats["gaps"] for r in replicas}
+    if any(gaps.values()):
+        raise AssertionError(f"replicated churn: version gaps {gaps}")
+    patch = [w for w in windows if w["kind"] == "patch_1pct"]
+    return {"windows": windows, "sweep_ms": sweep_ms, "lag_max": max(lags),
+            "lag_samples": len(lags), "gaps": 0,
+            "patch_publish_ms_median": statistics.median(w["publish_ms"] for w in patch),
+            "patch_catch_up_ms_median": statistics.median(w["catch_up_ms"] for w in patch),
+            "patch_frame_bytes_median": statistics.median(w["frame_bytes"] for w in patch)}
+
+
+def repl_resume_leg(sim, pub, server, replica) -> dict:
+    """Stop one replica's feed; publish inside the ring and reconnect (ring
+    replay, no snapshot); stop it again, publish past the ring and
+    reconnect (one snapshot)."""
+    from crane_scheduler_tpu_torch.cluster.replication import DeltaStreamClient
+
+    names = sim.cluster.node_names()
+    metric = DEFAULT_POLICY.spec.sync_period[1].name
+    out = {}
+    stamp = format_local_time(sim.clock.now())
+    for j, (leg, count) in enumerate((("in_ring", REPL_RESUME_IN_RING),
+                                      ("past_ring", REPL_RING + 2))):
+        replica.feed_client.stop()
+        deltas0 = replica.mirror.stats["deltas"]
+        snaps0 = replica.mirror.stats["snapshots"]
+        pub_snaps0 = pub.stats["snapshots_sent"]
+        for k in range(count):
+            # a value no earlier write used, so every window ships a frame
+            sim.cluster.patch_node_annotation(names[k], metric, f"0.{j}{k:04d},{stamp}")
+            if pub.publish_window() != 1:
+                raise AssertionError(f"replicated resume {leg}: window {k} shipped no frame")
+        client = DeltaStreamClient("127.0.0.1", server.port, replica.mirror,
+                                   telemetry=replica.telemetry)
+        replica.feed_client = client
+        t0 = time.perf_counter()
+        client.start()
+        if not client.wait_caught_up(pub.published_version, timeout_s=120.0):
+            raise AssertionError(f"replicated resume {leg}: no catch-up")
+        out[leg] = {"windows": count, "catch_up_ms": (time.perf_counter() - t0) * 1e3,
+                    "deltas_replayed": replica.mirror.stats["deltas"] - deltas0,
+                    "snapshots": replica.mirror.stats["snapshots"] - snaps0,
+                    "snapshots_sent": pub.stats["snapshots_sent"] - pub_snaps0,
+                    "resumes": client.stats["resumes"]}
+    want = {"in_ring": (REPL_RESUME_IN_RING, 0, 0), "past_ring": (0, 1, 1)}
+    for leg, (deltas, snaps, sent) in want.items():
+        got = out[leg]
+        if (got["deltas_replayed"], got["snapshots"], got["snapshots_sent"]) != (deltas, snaps, sent):
+            raise AssertionError(f"replicated resume {leg}: {got}")
+    return out
+
+
+def tenant_loop(port: int, tenants, seconds: float, now0: float) -> dict:
+    """One closed-loop keep-alive client per tenant, each posting a unique
+    explicit ``now`` (no cache hit, no coalescing) for ``seconds``. A 429
+    or 503 is a shed (the replica's admission control), counted apart;
+    every 200 must be a card render; any other answer fails the leg."""
+    import http.client
+    import itertools
+    import threading
+
+    stop_at = time.perf_counter() + seconds
+    lats, errors, lock = [], [], threading.Lock()
+    shed = [0]
+    counter = itertools.count(1)
+
+    def loop(tenant):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        mine = []
+        try:
+            while time.perf_counter() < stop_at:
+                body = json.dumps({"now": now0 + next(counter) * 1e-3, "refresh": False})
+                t0 = time.perf_counter()
+                conn.request("POST", "/v1/score", body=body.encode(), headers={
+                    "Content-Type": "application/json", "crane-tenant": tenant,
+                    "crane-deadline-ms": "10000"})
+                resp = conn.getresponse()
+                data = resp.read()
+                if resp.status in (429, 503):
+                    with lock:
+                        shed[0] += 1
+                    continue
+                mine.append(time.perf_counter() - t0)
+                if resp.status != 200 or not data.startswith(REPLICA_BODY):
+                    errors.append((resp.status, data[:80]))
+                    return
+        except Exception as e:  # surfaced below
+            errors.append(repr(e))
+        finally:
+            conn.close()
+            with lock:
+                lats.extend(mine)
+
+    threads = [threading.Thread(target=loop, args=(t,)) for t in tenants]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    if errors or not lats:
+        raise AssertionError(f"replicated storm: client errors {errors[:3]}")
+    return {"served": len(lats), "shed": shed[0], "req_per_s": len(lats) / wall,
+            "p50_ms": percentile(lats, 50) * 1e3, "p99_ms": percentile(lats, 99) * 1e3}
+
+
+def repl_storm_leg(server, replicas, now0: float) -> dict:
+    """REPL_CLIENTS closed-loop clients (one tenant each, spread over the
+    replicas by the ring) through a 1-replica router, then the
+    REPL_REPLICAS-replica hash router; per-replica counts strict-parsed
+    from the router's /metrics."""
+    from crane_scheduler_tpu_torch.service import ReplicaRouter
+
+    primary = ("127.0.0.1", server.port)
+    routers = {}
+    try:
+        for tag, members in (("1_replica", replicas[:1]), (f"{len(replicas)}_replicas", replicas)):
+            router = ReplicaRouter([(r.name, "127.0.0.1", r.port) for r in members],
+                                   primary=primary, mode="hash",
+                                   lag_budget_versions=REPL_LAG_BUDGET)
+            router.start()
+            routers[tag] = router
+        full = routers[f"{len(replicas)}_replicas"]
+        per = {r.name: [] for r in replicas}
+        k = 0
+        while any(len(v) < REPL_CLIENTS // len(replicas) for v in per.values()):
+            k += 1
+            owner = full.route_for(f"tenant-{k}")
+            if owner is not None and len(per[owner]) < REPL_CLIENTS // len(replicas):
+                per[owner].append(f"tenant-{k}")
+        tenants = [t for ts in per.values() for t in ts]
+        out = {"tenants": per}
+        for tag, router in routers.items():
+            leg = tenant_loop(router.port, tenants, REPL_SECONDS, now0)
+            status, text = http_json(router.port, "GET", "/metrics")
+            fams = expfmt.parse_exposition(text.decode())
+            served = {dict(labels)["replica"]: v for _, labels, v in
+                      fams["crane_router_requests_total"]["samples"]}
+            out[tag] = {**leg, "per_replica": served}
+        if sorted(out[f"{len(replicas)}_replicas"]["per_replica"]) != sorted(per) or not all(
+                v > 0 for v in out[f"{len(replicas)}_replicas"]["per_replica"].values()):
+            raise AssertionError(f"replicated storm: not every replica served: {out}")
+        return out, full, routers
+    except BaseException:
+        for router in routers.values():
+            router.stop()
+        raise
+
+
+def repl_assign_leg(router, twin, now0: float) -> tuple:
+    """``/v1/assign`` of SERVICE_ASSIGN_PODS pods through the hash router
+    equals the CPU twin replica's ``assign_batch``; one K1 and one K2 per
+    call."""
+    reset_launches()
+    ms = []
+    for k in range(REPL_ASSIGN_CALLS):
+        now = now0 + 7.0 * k
+        t0 = time.perf_counter()
+        status, data = http_json(router.port, "POST", "/v1/assign",
+                                 {"numPods": SERVICE_ASSIGN_PODS, "now": now, "refresh": False},
+                                 headers={"crane-tenant": "tenant-assign"})
+        ms.append((time.perf_counter() - t0) * 1e3)
+        doc = json.loads(data)
+        if status != 200 or doc["backend"] != CARD:
+            raise AssertionError(f"replicated assign: {status} {data[:120]!r}")
+        want = twin.service.assign_batch(SERVICE_ASSIGN_PODS, now=now)
+        if (doc["counts"], doc["unassigned"], doc["waterline"]) != (
+                want.counts, want.unassigned, want.waterline):
+            raise AssertionError(f"replicated assign: card != CPU twin at {now}")
+    launched = read_launches("replicated assign")
+    if launched != {"score": REPL_ASSIGN_CALLS, "gang": REPL_ASSIGN_CALLS}:
+        raise AssertionError(f"replicated assign: launches {launched}")
+    return {"ms_per_call": ms, "ms_median": statistics.median(ms),
+            "unassigned": doc["unassigned"], "waterline": doc["waterline"]}, launched
+
+
+def cli_env() -> tuple:
+    import os
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (str(root), os.environ.get("PYTHONPATH")) if p))
+    return root, env
+
+
+def start_cli(args) -> tuple:
+    """Start ``python -m args`` from the checkout's root: (process, start)."""
+    root, env = cli_env()
+    proc = subprocess.Popen([sys.executable, "-m", *args], cwd=root, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return proc, time.perf_counter()
+
+
+def finish_cli(started, timeout: float) -> tuple:
+    """Wait for a ``start_cli`` process: (its last stdout line as JSON, s)."""
+    proc, t0 = started
+    try:
+        stdout, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        stdout, err = proc.communicate()
+    if proc.returncode != 0:
+        raise AssertionError(f"{proc.args[2]} exited {proc.returncode}: {err[-600:]!r}")
+    return json.loads(stdout.strip().splitlines()[-1]), time.perf_counter() - t0
+
+
+def repl_cli_leg() -> tuple:
+    """crane-scorer --demo-nodes --replicas 2 --f32 answers one score through
+    its router from the card and exits 0 on SIGTERM; crane-annotator runs
+    one pass over a JSON node file; crane-sim runs a short burst on the card.
+    The three processes run at once."""
+    import os
+
+    root, _ = cli_env()
+    nodes_file = os.path.join(root, BUILD_DIR, "annotator_nodes.json")
+    os.makedirs(os.path.dirname(nodes_file), exist_ok=True)
+    with open(nodes_file, "w") as f:
+        json.dump([{"name": f"node-{i:05d}", "ip": f"10.9.{i >> 8}.{i & 255}"}
+                   for i in range(CLI_ANNOTATOR_NODES)], f)
+    annotator_run = start_cli(
+        ["crane_scheduler_tpu_torch.cli.annotator_main", "--nodes-file", nodes_file,
+         "--health-port", "0", "--run-seconds", "3"])
+    sim_run = start_cli(
+        ["crane_scheduler_tpu_torch.cli.sim_main", "--nodes", str(CLI_DEMO_NODES),
+         "--pods", str(CLI_SIM_PODS), "--f32"])
+    try:
+        return scorer_cli(), check_annotator_sim_cli(annotator_run, sim_run)
+    finally:
+        for proc, _ in (annotator_run, sim_run):
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+
+
+def scorer_cli() -> dict:
+    """crane-scorer with demo nodes and 2 replicas: one score through its
+    router, SIGTERM, exit 0 and its kernel launches."""
+    import signal
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    proc, t0 = start_cli(
+        ["crane_scheduler_tpu_torch.cli.service_main", "--f32",
+         "--port", str(port), "--demo-nodes", str(CLI_DEMO_NODES), "--replicas", "2",
+         "--lag-budget", "8", "--now-bucket", "0", "--run-seconds", "120"])
+    try:
+        while True:
+            try:
+                status, data = http_json(port, "GET", "/v1/router/status", timeout=10)
+                st = json.loads(data)
+                reps = st["replicas"]
+                if (status == 200 and st["publishedVersion"] >= 0 and len(reps) == 2
+                        and all(r["routable"] and r["appliedVersion"] == st["publishedVersion"]
+                                for r in reps)):
+                    break
+            except OSError:
+                pass
+            if proc.poll() is not None or time.perf_counter() - t0 > 120:
+                raise AssertionError("replicated cli: crane-scorer did not come up")
+            time.sleep(0.2)
+        up_s = time.perf_counter() - t0
+        status, body = http_json(port, "POST", "/v1/score", {"now": NOW},
+                                 headers={"crane-tenant": "t1"})
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            stdout, err = proc.communicate(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            stdout, err = proc.communicate()
+    doc = json.loads(body) if status == 200 else {}
+    if (status != 200 or not body.startswith(REPLICA_BODY)
+            or doc.get("version") != st["publishedVersion"]
+            or len(doc.get("scores", ())) != CLI_DEMO_NODES):
+        raise AssertionError(f"replicated cli: score {status} {body[:120]!r}")
+    if proc.returncode != 0:
+        raise AssertionError(f"replicated cli: crane-scorer exited {proc.returncode}: "
+                             f"{err[-400:]!r}")
+    scorer_launches = json.loads(stdout.strip().splitlines()[-1])["kernel_launches"]
+    if scorer_launches["score"] < 1:
+        raise AssertionError(f"replicated cli: crane-scorer launched {scorer_launches}")
+    return {"up_s": up_s, "version": doc["version"], "exit": proc.returncode,
+            "kernel_launches": scorer_launches}
+
+
+def check_annotator_sim_cli(annotator_run, sim_run) -> dict:
+    """crane-annotator's one pass and crane-sim's burst, both on the card."""
+    annotator, annotator_s = finish_cli(annotator_run, timeout=120)
+    want_synced = CLI_ANNOTATOR_NODES * len(DEFAULT_POLICY.spec.sync_period)
+    if (annotator["synced"] != want_synced or annotator["sync_errors"]
+            or annotator["device"] != CARD or annotator["schedulable"] != CLI_ANNOTATOR_NODES):
+        raise AssertionError(f"replicated cli: crane-annotator {annotator}")
+    simulated, sim_s = finish_cli(sim_run, timeout=120)
+    if (simulated["scheduled"] != CLI_SIM_PODS or not simulated["device"].startswith(CARD)
+            or simulated["kernel_launches"] != {"score": 1, "gang": 1}):
+        raise AssertionError(f"replicated cli: crane-sim {simulated}")
+    return {"annotator": {**annotator, "seconds": annotator_s},
+            "sim": {**{k: simulated[k] for k in ("scheduled", "device", "kernel_launches",
+                                                  "latency_ms")}, "seconds": sim_s}}
+
+
+def phase_replicated(dev) -> tuple:
+    """config 19's shape: a 50,000-node ``Simulator`` primary (seed 0,
+    default policy) publishing the delta feed to REPL_REPLICAS replicas
+    behind the hash router, float32 scoring; the annotator, sim,
+    replicas, storm, router-assign and CLI legs."""
+    from crane_scheduler_tpu_torch.cluster.replication import DeltaDecoder, DeltaPublisher
+    from crane_scheduler_tpu_torch.service import ServingReplica
+    from crane_scheduler_tpu_torch.sim import SimConfig, Simulator
+
+    t_phase = time.perf_counter()
+    by_path = {}
+    rng = np.random.default_rng(SEED + 19)
+    t0 = time.perf_counter()
+    sim = Simulator(SimConfig(n_nodes=N_NODES, seed=SEED))
+    build_s = time.perf_counter() - t0
+    annotator = repl_annotator_leg(sim, N_NODES)
+    # the twin starts from the annotator leg's last sweep: every
+    # annotation was rewritten at that `now` from an empty binding heap
+    sim_twin = Simulator(SimConfig(n_nodes=N_NODES, seed=SEED))
+    sim_twin.clock.advance(sim.clock.now() - sim_twin.clock.now())
+    sim_twin.annotator.sync_all_once_bulk(sim_twin.clock.now())
+    if node_annotations(sim_twin.cluster) != node_annotations(sim.cluster):
+        raise AssertionError("replicated: CPU twin's first sweep != the primary's")
+    sim_out, by_path["annotator_sim"] = repl_sim_leg(sim, sim_twin, dev)
+    del sim_twin
+
+    # the replicated tier: the primary renders version-stamped bodies too,
+    # so its bytes can be held against the replicas'
+    pub = DeltaPublisher(sim.cluster, ring_frames=REPL_RING)
+    primary_svc = ScoringService(sim.cluster, DEFAULT_POLICY, dtype=torch.float32, device=dev,
+                                 now_bucket_s=0.0, version_source=lambda: pub.published_version)
+    server = ScoringHTTPServer(primary_svc, port=0, frontend="async", replication=pub)
+    server.start()
+    replicas, routers = [], {}
+    try:
+        t0 = time.perf_counter()
+        pub.publish_window()
+        genesis_publish_ms = (time.perf_counter() - t0) * 1e3
+        genesis_bytes = len(pub._ring[-1][2])
+        twin = ServingReplica(DEFAULT_POLICY, name="cpu-twin", dtype=torch.float32,
+                              device="cpu", now_bucket_s=0.0)
+
+        def twin_send(blob: bytes) -> bool:
+            for frame in DeltaDecoder().feed(blob):
+                twin.mirror.apply_frame(frame)
+            return True
+
+        pub.subscribe(twin_send, twin.mirror.applied_version, name="cpu-twin")
+        t0 = time.perf_counter()
+        for i in range(REPL_REPLICAS):
+            r = ServingReplica(DEFAULT_POLICY, name=f"replica-{i}",
+                               feed=("127.0.0.1", server.port), dtype=torch.float32,
+                               device=dev, now_bucket_s=0.0)
+            r.start()
+            replicas.append(r)
+        for r in replicas:
+            wait_until(lambda r=r: r.applied_version == pub.published_version,
+                       f"{r.name} genesis")
+        genesis_catch_up_ms = (time.perf_counter() - t0) * 1e3
+        services = [primary_svc, twin.service] + [r.service for r in replicas]
+        before = [s.metrics()["score_calls"] for s in services]
+        reset_launches()
+        now0 = sim.clock.now()
+        identity = identity_check(pub, server, replicas, twin,
+                                  [now0 + 17.0 * k for k in range(REPL_NOWS)])
+        churn = repl_churn_leg(sim, pub, replicas, rng)
+        identity_churn = identity_check(pub, server, replicas, twin, [now0 + 600.0])
+        resume = repl_resume_leg(sim, pub, server, replicas[-1])
+        identity_resume = identity_check(pub, server, replicas, twin, [now0 + 900.0])
+        storm, full_router, routers = repl_storm_leg(server, replicas, now0 + 5000.0)
+        card_renders = sum(s.metrics()["score_calls"] - b
+                           for s, b in zip(services, before) if s is not twin.service)
+        launched = read_launches("replicated replicas", need=("score",))
+        if launched != {"score": card_renders, "gang": 0}:
+            raise AssertionError(f"replicated replicas: launches {launched} for "
+                                 f"{card_renders} card renders")
+        by_path["replicas"] = launched
+        for s in services:
+            no_fallback(s, "replicated")
+        assign, by_path["router_assign"] = repl_assign_leg(full_router, twin, now0 + 9000.0)
+        no_fallback(twin.service, "replicated assign (twin)")
+        for r in replicas:
+            no_fallback(r.service, "replicated assign")
+        statuses = {r.name: r.status() for r in replicas}
+    finally:
+        for router in routers.values():
+            router.stop()
+        for r in replicas:
+            r.stop()
+        pub.stop()
+        server.stop()
+    scorer, others = repl_cli_leg()
+    cli = {"scorer": scorer, **others}
+    by_path["cli_demo"] = scorer["kernel_launches"]
+    out = {
+        "nodes": N_NODES, "replicas": REPL_REPLICAS, "sim_build_s": build_s,
+        "annotator": annotator, "sim": sim_out,
+        "genesis": {"publish_ms": genesis_publish_ms, "frame_bytes": genesis_bytes,
+                    "catch_up_ms": genesis_catch_up_ms},
+        "identity": identity, "identity_after_churn": identity_churn,
+        "identity_after_resume": identity_resume, "churn": churn, "resume": resume,
+        "storm": storm, "assign": assign, "replica_status": statuses, "cli": cli,
+        "launches": by_path, "seconds": time.perf_counter() - t_phase,
+    }
+    log("replicated", **out)
+    return out, by_path
+
+
 # per kernel in the `kernels` line: `ms` is the kernel's own device time
 KERNEL_KEYS = ("ms", "plain_ms", "bound_ms", "bound_by", "device_us", "bound_us",
                "pct_of_bound", "host_launch_ms", "device_launches_seen")
@@ -2718,6 +3412,8 @@ def main() -> int:
     by_path.update(numa_paths)
     _, service_paths = phase_service(dev, drip_annos)
     by_path.update(service_paths)
+    _, replicated_paths = phase_replicated(dev)
+    by_path.update(replicated_paths)
 
     kernels = [
         {

@@ -3,6 +3,7 @@ from .state import (
     Container,
     Event,
     Node,
+    NodeAddress,
     OwnerReference,
     Pod,
     ResourceRequirements,
@@ -13,6 +14,7 @@ __all__ = [
     "Container",
     "Event",
     "Node",
+    "NodeAddress",
     "OwnerReference",
     "Pod",
     "ResourceRequirements",

@@ -1,20 +1,22 @@
 """In-memory cluster state: the framework's kube-apiserver stand-in.
 
 Counterpart of ``crane_scheduler_tpu/cluster/state.py``, cut to what the
-burst and drip scheduling paths read and write: nodes with annotations,
-labels and allocatable, the annotator's patch primitives (single, bulk,
-columnar through a lazy overlay, and column groups), pods with containers,
-owner references, init containers and overhead, as objects or as columnar
-bursts, binds that stamp ``Scheduled`` events into a bounded log,
-PreBind's pod-annotation patch, the
-``sched_version``, ``node_version``, ``node_set_version`` and
-``pod_version`` counters, the pod-change journal behind
-``pod_changes_since``, and the global dirty-name journal behind
-``dirty_nodes_since`` (every named node write journals its name; a
-name-less columnar sweep resets the floor). Event subscriptions, the
-per-shard journals and fences and the kube mirror's bulk transactions
-(``apply_node_changes``, ``replace_nodes``) come with the slices that read
-them.
+scheduling paths, the annotator, the simulator and the replication mirror
+read and write: nodes with annotations, labels, addresses and
+allocatable, the annotator's patch primitives (single, bulk, columnar
+through a lazy overlay, and column groups), pods with containers, owner
+references, init containers and overhead, as objects or as columnar
+bursts, binds that stamp ``Scheduled`` events into a bounded log and
+deliver them to subscribers (per event, in batches, or as columns),
+PreBind's pod-annotation patch, the mirror's bulk transactions
+(``apply_node_changes``, ``replace_nodes``), the ``sched_version``,
+``node_version``, ``node_set_version`` and ``pod_version`` counters, the
+pod-change journal behind ``pod_changes_since``, and the global
+dirty-name journal behind ``dirty_nodes_since`` (every named node write
+journals its name; a name-less columnar sweep or relist resets the
+floor). The per-shard journals and fences, the ring resharding, the
+``notify=False`` binds and the pod relist transactions belong to the kube
+mirror and the shard plane (``ROADMAP.md`` Queue 1 item 8).
 
 The reference coordinates its two processes exclusively through the
 Kubernetes API — the controller JSON-patches node annotations
@@ -31,7 +33,7 @@ import time
 from collections import deque
 from dataclasses import dataclass, field, replace
 from types import MappingProxyType
-from typing import Any, Mapping
+from typing import Any, Callable, Mapping
 
 import numpy as np
 
@@ -48,14 +50,28 @@ _EMPTY_MAP: Mapping[str, Any] = MappingProxyType({})
 
 
 @dataclass(frozen=True)
+class NodeAddress:
+    type: str  # "InternalIP", "Hostname", ...
+    address: str
+
+
+@dataclass(frozen=True)
 class Node:
     name: str
     annotations: Mapping[str, str] = field(default_factory=dict)
     labels: Mapping[str, str] = field(default_factory=dict)
+    addresses: tuple[NodeAddress, ...] = ()
     # ``status.allocatable`` quantities (cpu/memory/pods/...), verbatim
     # wire strings. Empty = the node never reported allocatable — the fit
     # layer treats that as unknown (fail-open), not as zero.
     allocatable: Mapping[str, Any] = _EMPTY_MAP
+
+    def internal_ip(self) -> str:
+        """ref: node.go:179-187 — InternalIP, falling back to the name."""
+        for addr in self.addresses:
+            if addr.type == "InternalIP":
+                return addr.address
+        return self.name
 
 
 @dataclass(frozen=True)
@@ -108,6 +124,9 @@ class Event:
     event_time: float = 0.0  # used when count == 0 (ref: event.go:131-137)
     last_timestamp: float = 0.0
     resource_version: int = 0
+
+
+EventHandler = Callable[[Event], None]
 
 
 class _PodBurst:
@@ -179,7 +198,7 @@ class _DirtyJournal:
 
 
 class ClusterState:
-    """Thread-safe cluster model: nodes, pods, binds and their events."""
+    """Thread-safe cluster model with event subscription."""
 
     def __init__(self, dirty_journal_cap: int = 4096):
         self._lock = threading.RLock()
@@ -203,6 +222,12 @@ class ClusterState:
         # per-node bound-pod key index (insertion-ordered)
         self._pods_by_node: dict[str, dict[str, None]] = {}
         self._events: deque[Event] = deque(maxlen=_MAX_EVENTS)
+        self._event_index: dict[str, Event] = {}
+        self._event_handlers: list[EventHandler] = []
+        self._batch_handlers: list[Callable[[list[Event]], None]] = []
+        # batch handlers that also accept columnar delivery (parallel to
+        # _batch_handlers; None = must materialize events for this one)
+        self._batch_columnar: list[Callable | None] = []
         self._rv_next = 1  # next event resourceVersion
         self._sched_version = 0
         # columnar pod bursts (see add_pod_burst)
@@ -218,6 +243,7 @@ class ClusterState:
         self._count_version = 0
         self._count_dict_cache: tuple | None = None
         self._table_slots_cache: tuple | None = None
+        self._gather_cache: tuple | None = None
         # pod-change journal: which nodes had bound-pod or membership
         # changes, per pod_version. Annotation patches and columnar burst
         # binds leave it alone, as in the reference.
@@ -377,8 +403,11 @@ class ClusterState:
             self._sched_version += 1
             self._node_version += 1
             self._note_dirty_locked(self._node_version, node.name, prev is None)
-            if prev is None:
+            # annotation-only updates must not defeat (name, ip) pair
+            # caches keyed on node_set_version
+            if prev is None or prev.addresses != node.addresses:
                 self._node_set_version += 1
+            if prev is None:
                 self._note_pod_change_locked(node.name)  # new node row
 
     def delete_node(self, name: str) -> None:
@@ -412,11 +441,110 @@ class ClusterState:
             self._fold_overlay_locked()
             return list(self._nodes.values())
 
+    def node_names(self) -> list[str]:
+        with self._lock:
+            return list(self._nodes)
+
     def has_node(self, name: str) -> bool:
         """Membership test without materializing the node (the dirty
         journal consumers' add/remove classifier)."""
         with self._lock:
             return name in self._nodes
+
+    # -- bulk transactions (relist / coalesced delta apply) ----------------
+    #
+    # A relist or a replication frame lands here as ONE transaction: one
+    # lock hold and a single sched_version bump per batch.
+    # node_set_version tracks membership/address identity (bumped once per
+    # batch when any changed); pod_version journals per-node membership
+    # changes for the incremental NUMA path, which needs every entry.
+
+    def _apply_node_change_locked(self, change_type: str, node: Node):
+        """One watch-shaped node change (caller holds the lock). Returns
+        ``(set_changed, member)``: whether the node SET (membership or
+        addresses) changed, and whether the NAME set changed (the
+        narrower membership bit the dirty journal carries)."""
+        name = node.name
+        if change_type == "DELETED":
+            existed = name in self._nodes
+            if existed:
+                self._note_pod_change_locked(name)
+            self._nodes.pop(name, None)
+            self._drop_overlay_locked(name)
+            self._sched_version += 1
+            return True, existed
+        prev = self._nodes.get(name)
+        self._drop_overlay_locked(name)
+        self._nodes[name] = node
+        self._sched_version += 1
+        member = prev is None
+        if member:
+            self._note_pod_change_locked(name)
+        return member or prev.addresses != node.addresses, member
+
+    def apply_node_changes(self, changes) -> None:
+        """Coalesced apply: an ordered batch of ``(change_type, Node)``
+        pairs (DELETED removes, anything else add/replaces) as one
+        transaction — one lock hold, one sched_version bump, one
+        node_version bump journaling every changed name."""
+        with self._lock:
+            v0 = self._sched_version
+            set_changed = False
+            dirty: list[tuple[str, bool]] = []
+            for change_type, node in changes:
+                changed, member = self._apply_node_change_locked(
+                    change_type, node
+                )
+                if changed:
+                    set_changed = True
+                dirty.append((node.name, member))
+            if self._sched_version > v0:
+                self._sched_version = v0 + 1
+                self._node_version += 1
+                v = self._node_version
+                for name, member in dirty:
+                    self._note_dirty_locked(v, name, member)
+            if set_changed:
+                self._node_set_version += 1
+
+    def replace_nodes(self, nodes) -> None:
+        """Relist apply: every listed node is added/updated and nodes
+        absent from the list are pruned, as ONE transaction with a
+        single sched_version bump (a relist is semantically one
+        snapshot, however many rows it carries). The new node table is
+        built directly (a duplicate listing keeps the last entry, like
+        sequential adds); the dirty journal's floor moves to the new
+        fence, as for any name-less bulk write."""
+        nodes = list(nodes)
+        with self._lock:
+            current = self._nodes
+            new = {node.name: node for node in nodes}
+            added = [name for name in new if name not in current]
+            deleted = []
+            if len(current) - (len(new) - len(added)):
+                deleted = [name for name in current if name not in new]
+            set_changed = bool(added or deleted)
+            if not set_changed:
+                # same membership: addresses are the remaining way the
+                # node SET can have changed
+                get = current.get
+                for name, node in new.items():
+                    if get(name).addresses != node.addresses:
+                        set_changed = True
+                        break
+            for name in added:
+                self._note_pod_change_locked(name)
+            for name in deleted:
+                self._note_pod_change_locked(name)
+            # every listed name is replaced and the rest are pruned, so
+            # clearing the overlay IS the per-name tombstone sweep
+            self._anno_segments.clear()
+            self._nodes = new
+            self._sched_version += 1
+            self._node_version += 1
+            self._dirty_global.mark_bulk(self._node_version)
+            if set_changed:
+                self._node_set_version += 1
 
     def patch_node_annotation(self, name: str, key: str, value: str) -> bool:
         """The annotator's write primitive: one (node, key) annotation.
@@ -654,14 +782,16 @@ class ClusterState:
 
     def bind_pods(self, assignments, now: float | None = None) -> list[str]:
         """Batch bind: one lock hold moves every pod and stamps its
-        ``Scheduled`` event, in assignment order — the same pods, events
-        and order as binding one pod at a time. ``assignments`` is a
-        ``{pod_key: node_name}`` mapping (or iterable of pairs); returns
-        the keys actually bound (missing pods are skipped)."""
+        ``Scheduled`` event, then handlers run outside the lock in bind
+        order — the same pods, events, order and feedback as binding one
+        pod at a time. ``assignments`` is a ``{pod_key: node_name}``
+        mapping (or iterable of pairs); returns the keys actually bound
+        (missing pods are skipped)."""
         if now is None:
             now = time.time()
         items = assignments.items() if hasattr(assignments, "items") else assignments
         bound: list[str] = []
+        stamped: list[Event] = []
         with self._lock:
             pods = self._pods
             for pod_key, node_name in items:
@@ -678,7 +808,7 @@ class ClusterState:
                 self._sched_version += 1
                 self._note_pod_change_locked(node_name)
                 bound.append(pod_key)
-                self._events.append(Event(
+                event = Event(
                     namespace=pod.namespace,
                     name=f"{pod.name}.scheduled",
                     type="Normal",
@@ -687,7 +817,18 @@ class ClusterState:
                     count=1,
                     last_timestamp=now,
                     resource_version=self._next_rv(),
-                ))
+                )
+                self._events.append(event)
+                self._event_index[f"{event.namespace}/{event.name}"] = event
+                stamped.append(event)
+            handlers = list(self._event_handlers)
+            batch_handlers = list(self._batch_handlers)
+        for event in stamped:
+            for handler in handlers:
+                handler(event)
+        if stamped:
+            for handler in batch_handlers:
+                handler(stamped)
         return bound
 
     # -- columnar pod bursts -----------------------------------------------
@@ -785,12 +926,45 @@ class ClusterState:
             self._count_dict_cache = cache
         return cache[1]
 
+    def bound_counts_for(self, names: list) -> np.ndarray:
+        """Vectorized bound-pod counts aligned with ``names`` (object
+        pods + burst rows): one gather through a per-``names``-object
+        cached slot index. ``names`` is treated as a stable, immutable
+        list (callers pass a cached table)."""
+        with self._lock:
+            out = np.zeros((len(names),), dtype=np.int64)
+            pbn = self._pods_by_node
+            if pbn:
+                get = pbn.get
+                out += np.fromiter(
+                    (len(get(n) or ()) for n in names),
+                    dtype=np.int64, count=len(names),
+                )
+            if self._bursts and len(self._count_arr):
+                cache = self._gather_cache
+                n_slots = len(self._count_slot)
+                if (cache is None or cache[0] is not names
+                        or cache[1] != n_slots):
+                    sget = self._count_slot.get
+                    idx = np.fromiter(
+                        (sget(n, -1) for n in names),
+                        dtype=np.int64, count=len(names),
+                    )
+                    cache = (names, n_slots, idx)
+                    self._gather_cache = cache
+                idx = cache[2]
+                valid = idx >= 0
+                out[valid] += self._count_arr[idx[valid]]
+            return out
+
     def bind_burst(self, burst: _PodBurst, node_table, node_idx, now=None):
         """Columnar bind: row ``i`` -> ``node_table[node_idx[i]]`` (``-1``
         leaves the row pending). One lock transaction applies the whole
         column and stamps ``sched_version`` and resourceVersions exactly
         as per-pod ``bind_pods`` would; Event objects are built only for
-        the bounded log's tail (the deque would evict the rest). Returns
+        the bounded log's tail (the deque would evict the rest) and for
+        subscribers without columnar support, and columnar subscribers get
+        ``(node_table, node_idx_bound, now)`` outside the lock. Returns
         the bound row indices (ascending = event order). Like the
         reference, it leaves ``pod_version`` and the pod-change journal
         alone: burst rows are bare pods."""
@@ -839,9 +1013,17 @@ class ClusterState:
             self._sched_version += n
             rv_base = self._rv_next
             self._rv_next += n
+            handlers = list(self._event_handlers)
+            batch = list(zip(self._batch_handlers, self._batch_columnar))
+            need_full = bool(handlers) or any(c is None for _, c in batch)
+            # materialize the log tail (the deque would evict everything
+            # older), or everything when a subscriber needs Event objects
+            maxlen = self._events.maxlen
+            first = 0 if need_full else max(0, n - maxlen)
+            tail_events: list[Event] = []
             ns = burst.namespace
             names = burst.names
-            for k in range(max(0, n - _MAX_EVENTS), n):
+            for k in range(first, n):
                 pod_name = names[int(rows[k])]
                 # raw construction: field-identical to Event(...) without
                 # the frozen-dataclass __init__, which costs milliseconds
@@ -861,7 +1043,19 @@ class ClusterState:
                     last_timestamp=now,
                     resource_version=rv_base + k,
                 )
+                tail_events.append(ev)
+            for ev in tail_events[-maxlen:] if need_full else tail_events:
                 self._events.append(ev)
+                self._event_index[f"{ev.namespace}/{ev.name}"] = ev
+        if n:
+            for ev in tail_events if need_full else ():
+                for handler in handlers:
+                    handler(ev)
+            for handler, columnar in batch:
+                if columnar is not None:
+                    columnar(node_table, bound_idx, now)
+                elif tail_events:
+                    handler(tail_events)
         return rows
 
     # -- events ------------------------------------------------------------
@@ -871,6 +1065,68 @@ class ClusterState:
         self._rv_next = v + 1
         return v
 
+    def _record_event_locked(self, event: Event) -> Event:
+        """Stamp + append + index an event; the recording invariant lives
+        only here (callers hold the lock)."""
+        event = replace(event, resource_version=self._next_rv())
+        self._events.append(event)
+        self._event_index[f"{event.namespace}/{event.name}"] = event
+        return event
+
+    def emit_event(self, event: Event) -> None:
+        with self._lock:
+            event = self._record_event_locked(event)
+            handlers = list(self._event_handlers)
+            batch_handlers = list(self._batch_handlers)
+        for handler in handlers:
+            handler(event)
+        single = [event]
+        for handler in batch_handlers:
+            handler(single)
+
+    def emit_events(self, events) -> None:
+        """Batched emit: stamp + record every event under ONE lock hold,
+        then deliver — per-event handlers in order, batch handlers once
+        with the whole list (a ``bind_pods``-shaped delivery)."""
+        events = list(events)
+        if not events:
+            return
+        with self._lock:
+            stamped = [self._record_event_locked(e) for e in events]
+            handlers = list(self._event_handlers)
+            batch_handlers = list(self._batch_handlers)
+        for event in stamped:
+            for handler in handlers:
+                handler(event)
+        for handler in batch_handlers:
+            handler(stamped)
+
+    def get_event(self, key: str) -> Event | None:
+        with self._lock:
+            return self._event_index.get(key)
+
     def list_events(self) -> list[Event]:
         with self._lock:
             return list(self._events)
+
+    def subscribe_events(self, handler: EventHandler) -> None:
+        """Informer-style subscription (new events only, like a watch)."""
+        with self._lock:
+            self._event_handlers.append(handler)
+
+    def subscribe_events_batch(
+        self,
+        handler: Callable[[list[Event]], None],
+        columnar: Callable | None = None,
+    ) -> None:
+        """Like ``subscribe_events`` but delivered in bursts: a single
+        emit arrives as a 1-element list, ``bind_pods`` delivers the
+        whole burst in one call (event order preserved).
+
+        ``columnar``: optional fast-path alternative for columnar binds
+        (``bind_burst``) — called as ``columnar(node_table, node_idx,
+        ts)`` instead of materializing one Event per pod for ``handler``.
+        Subscribers without it still get full Event lists."""
+        with self._lock:
+            self._batch_handlers.append(handler)
+            self._batch_columnar.append(columnar)

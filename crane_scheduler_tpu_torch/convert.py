@@ -13,7 +13,7 @@ from dataclasses import fields
 
 import numpy as np
 
-from .cluster.state import ClusterState, Node
+from .cluster.state import ClusterState, Node, NodeAddress
 from .loadstore.store import DeviceSnapshot
 from .policy.compile import PolicyTensors
 from .topology.types import (
@@ -94,14 +94,17 @@ def nrt_lister_from_crs(crs) -> InMemoryNRTLister:
 def cluster_from_nodes(nodes) -> ClusterState:
     """A ``ClusterState`` holding ``nodes``, given as plain mappings in
     insertion order: ``name``, and optionally ``annotations``, ``labels``
-    and ``allocatable`` (copied into plain dicts). The port's ``Node`` has
-    no addresses yet, so a mapping's ``addresses`` are dropped."""
+    and ``allocatable`` (copied into plain dicts) and ``addresses`` (a
+    list of ``(type, address)`` pairs)."""
     cluster = ClusterState()
     for n in nodes:
         cluster.add_node(Node(
             name=str(n["name"]),
             annotations=dict(n.get("annotations") or {}),
             labels=dict(n.get("labels") or {}),
+            addresses=tuple(
+                NodeAddress(str(t), str(a)) for t, a in n.get("addresses") or ()
+            ),
             allocatable=dict(n.get("allocatable") or {}),
         ))
     return cluster

@@ -37,7 +37,7 @@ import numpy as np
 
 from ..constants import NODE_HOT_VALUE_KEY
 from ..policy.compile import PolicyTensors
-from .codec import bulk_decode_annotations
+from .codec import bulk_decode_annotations, decode_annotation_or_missing
 
 _NEG_INF = float("-inf")
 
@@ -358,6 +358,15 @@ class NodeLoadStore:
         ))
         if len(self._column_log) > self._COLUMN_LOG_CAP:
             del self._column_log[0]
+
+    def ingest_annotation(self, node: str, key: str, raw: str) -> None:
+        """Decode one ``"value,timestamp"`` annotation into the store (the
+        annotator's direct-mode backfill write)."""
+        value, ts = decode_annotation_or_missing(raw)
+        if key == NODE_HOT_VALUE_KEY:
+            self.set_hot_value(node, value, ts)
+        else:
+            self.set_metric(node, key, value, ts)
 
     @_locked
     def ingest_node_annotations(self, node: str, anno: Mapping[str, str] | None) -> None:

@@ -1,7 +1,7 @@
 """Shared fault-domain resilience layer.
 
 Counterpart of ``crane_scheduler_tpu/resilience/__init__.py``, with the
-three pieces the scoring sidecar uses:
+four pieces the scoring sidecar and the annotator use:
 
 - ``CircuitBreaker`` — closed/open/half-open over a sliding failure
   window, one instance per fault target (``device-dispatch`` for the
@@ -13,16 +13,20 @@ three pieces the scoring sidecar uses:
   ``value,timestamp`` annotations with enter/exit hysteresis; while
   active the sidecar serves spread-only scores.
 
-The reference's ``chaos``, ``loadgen``, ``retry`` and ``recovery``
-modules (the fault injectors, the open-loop storm generator, retry
-budgets and the crash-safe intent journal) belong to the host planes
-around the kube mirror and are not ported yet (``ROADMAP.md`` Queue 1
-item 8).
+- ``RetryPolicy`` — full-jitter exponential backoff with per-call
+  deadline budgets and ``Retry-After`` awareness (the Prometheus
+  client's retries).
+
+The reference's ``chaos``, ``loadgen`` and ``recovery`` modules (the
+fault injectors, the open-loop storm generator and the crash-safe intent
+journal) belong to the host planes around the kube mirror and are not
+ported yet (``ROADMAP.md`` Queue 1 item 8).
 """
 
 from .breaker import BreakerOpenError, BreakerState, CircuitBreaker
 from .degraded import DegradedModeController
 from .health import HealthRegistry, HealthState
+from .retry import RetryBudgetExceeded, RetryPolicy
 
 __all__ = [
     "BreakerOpenError",
@@ -31,4 +35,6 @@ __all__ = [
     "DegradedModeController",
     "HealthRegistry",
     "HealthState",
+    "RetryBudgetExceeded",
+    "RetryPolicy",
 ]

@@ -1,14 +1,16 @@
 """The scoring sidecar: ``ScoringService`` behind an HTTP front end.
 
-Counterpart of ``crane_scheduler_tpu/service/__init__.py``. The
-reference's leader election (``LeaderElector``, ``kube_leader``) waits
-for the kube mirror (``ROADMAP.md`` Queue 1 item 8), its replicated tier
-(``ServingReplica``, ``ReplicaRouter``) for item 6b.
+Counterpart of ``crane_scheduler_tpu/service/__init__.py``, with the
+replicated tier (``ServingReplica``, ``ReplicaRouter``) and the file-lock
+``LeaderElector``. The reference's lease against a kube apiserver
+(``kube_leader``) waits for the kube mirror (``ROADMAP.md`` Queue 1
+item 8).
 """
 
 from . import deadline
 from .scoring import ScoringService
 from .http import ScoringHTTPServer, HealthServer
+from .leader import LeaderElector
 from .overload import (
     AdmissionController,
     BrownoutController,
@@ -16,14 +18,19 @@ from .overload import (
     TenantQueues,
     TokenBucket,
 )
+from .replica import ServingReplica
+from .router import ReplicaRouter
 
 __all__ = [
     "AdmissionController",
     "BrownoutController",
     "GradientLimiter",
     "HealthServer",
+    "LeaderElector",
+    "ReplicaRouter",
     "ScoringHTTPServer",
     "ScoringService",
+    "ServingReplica",
     "TenantQueues",
     "TokenBucket",
     "deadline",

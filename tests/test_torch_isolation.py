@@ -152,3 +152,33 @@ def test_drip_entry_points_without_device_need_cuda(monkeypatch):
     # the CPU is used only when asked for
     assert Scheduler(ClusterState(), device="cpu").device.type == "cpu"
     assert DripBatchKernel(device="cpu").device.type == "cpu"
+
+
+def test_metrics_sync_plane_entry_points_default_to_cuda(monkeypatch, capsys):
+    from crane_scheduler_tpu_torch.cli import annotator_main, sim_main
+    from crane_scheduler_tpu_torch.policy import DEFAULT_POLICY
+    from crane_scheduler_tpu_torch.service import ServingReplica
+    from crane_scheduler_tpu_torch.sim import SimConfig, Simulator
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    sim = Simulator(SimConfig(n_nodes=4))
+    for make in (sim.build_batch_scheduler, sim.build_scheduler,
+                 lambda: ServingReplica(DEFAULT_POLICY),
+                 lambda: sim_main.main(["--nodes", "4", "--pods", "2"]),
+                 lambda: annotator_main.main(["--demo-nodes", "2", "--health-port", "0"])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    # the CPU only when asked for
+    assert sim.build_batch_scheduler(device="cpu").device.type == "cpu"
+    replica = ServingReplica(DEFAULT_POLICY, device="cpu")
+    assert replica.service.device.type == "cpu"
+    replica.stop()
+    for argv, item in ((["--master", "https://apiserver:6443"], "item 8"),
+                       (["--token-file", "/dev/null"], "item 8")):
+        with pytest.raises(SystemExit) as exc:
+            annotator_main.main(["--device", "cpu", *argv])
+        assert exc.value.code == 2
+        assert f"ROADMAP.md Queue 1 {item}" in capsys.readouterr().err
+    with pytest.raises(SystemExit) as exc:
+        sim_main.main(["--device", "cpu", "--mode", "sharded"])
+    assert exc.value.code == 2 and "Queue 1 item 7" in capsys.readouterr().err

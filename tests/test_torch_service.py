@@ -614,9 +614,9 @@ def test_cli_serves_on_cpu():
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--demo-nodes", "10"], "item 8"),
+    (["--token-file", "/dev/null"], "item 8"),
     (["--master", "https://apiserver:6443"], "item 8"),
-    (["--replicas", "2"], "item 6b"),
+    (["--num-processes", "2"], "item 7"),
     (["--coordinator-address", "127.0.0.1:1234"], "item 7"),
 ])
 def test_cli_refuses_unported_planes(flags, item, capsys):
@@ -627,3 +627,66 @@ def test_cli_refuses_unported_planes(flags, item, capsys):
     assert exc.value.code == 2
     err = capsys.readouterr().err
     assert f"ROADMAP.md Queue 1 {item}" in err and flags[0] in err
+
+
+def _wait_healthz(proc, port, timeout=45.0):
+    """Poll ``/healthz`` until the CLI answers; returns (conn, response)."""
+    deadline = time.monotonic() + timeout
+    while True:
+        try:
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=5)
+            conn.request("GET", "/healthz")
+            return conn, conn.getresponse()
+        except OSError:
+            assert proc.poll() is None, proc.communicate()
+            assert time.monotonic() < deadline, "CLI did not come up"
+            time.sleep(0.1)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--demo-nodes", "24"],
+    ["--demo-nodes", "24", "--replicas", "2", "--lag-budget", "8"],
+], ids=["demo-nodes", "replicas"])
+def test_cli_demo_nodes_and_replicas_serve_on_cpu(flags):
+    port = _free_port()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "crane_scheduler_tpu_torch.cli.service_main",
+         "--device", "cpu", "--f32", "--port", str(port), "--now-bucket", "0",
+         "--run-seconds", "90", *flags],
+        cwd=REPO, env=_cli_env(), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+    )
+    try:
+        conn, resp = _wait_healthz(proc, port)
+        resp.read()
+        assert resp.status == 200
+        if "--replicas" in flags:
+            # genesis: wait until the feed published and both replicas
+            # applied it
+            deadline = time.monotonic() + 45.0
+            while True:
+                conn.request("GET", "/v1/router/status")
+                st = json.loads(conn.getresponse().read())
+                reps = st["replicas"]
+                if (st["publishedVersion"] >= 0 and len(reps) == 2
+                        and all(r["routable"] and r["appliedVersion"] == st["publishedVersion"]
+                                for r in reps)):
+                    break
+                assert time.monotonic() < deadline, st
+                time.sleep(0.1)
+        conn.request("POST", "/v1/score", body=b'{"now": 1753776000.0}',
+                     headers={"Content-Type": "application/json", "crane-tenant": "t1"})
+        resp = conn.getresponse()
+        body = json.loads(resp.read())
+        assert resp.status == 200 and body["backend"] == "cpu"
+        assert len(body["scores"]) == 24
+        if "--replicas" in flags:
+            assert body["version"] == st["publishedVersion"]
+            conn.request("GET", "/metrics", headers={"Accept": "text/plain"})
+            fams = parse_exposition(conn.getresponse().read().decode())
+            served = sum(v for _, _, v in fams["crane_router_requests_total"]["samples"])
+            assert served == 1
+        conn.close()
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        _, err = proc.communicate(timeout=30)
+    assert proc.returncode == 0, err
