@@ -216,15 +216,64 @@ non-zero without printing a result.
    its exit line), crane-annotator one pass over a 1,000-node JSON file
    with its score check on the card, crane-sim one 4,000-pod burst on
    the card.
+21. desched: bench config 11's closed loop widened to 50,000 nodes on the
+   in-memory ``ClusterState`` (2 hot nodes with 12 one-CPU workers, a
+   DaemonSet and a kube-system decoy each; 49,998 nodes with one one-CPU
+   pod; allocatable cpu 16, pods 110). ``LoadAwareDescheduler`` with a
+   ``cpu_usage_avg_5m`` watermark (target 0.32, threshold 0.35), 2
+   consecutive syncs, at most 2 evictions per node and 4 per cycle, no
+   cooldown; 8 cycles of 60 s (config 11 runs 12; the hot nodes are
+   drained by cycle 5), each writing the six metrics from pod
+   requests (``patch_node_annotations_bulk``), then ``sync_once``, then
+   the evictees re-placed with ResourceFit x1 and Dynamic x3. Three legs:
+   no descheduler; re-placement through the drip window on the card
+   (``schedule_queue``, window 4); and a CPU twin (``schedule_one``,
+   ``device="cpu"``). The card leg's cycle reports and re-placement nodes
+   equal the twin's; no DaemonSet or kube-system victim, both budgets in
+   every cycle, requested cpu conserved, every evictee re-placed, and the
+   imbalance (max / mean requested cpu) down by at least 2x against the
+   no-descheduler leg. The line carries the annotate, ``sync_once`` and
+   re-placement ms per cycle and one profiled window's device kernels and
+   launch calls; neither K1 nor K2 may launch on the card leg;
+22. front_doors: crane-scheduler (``cli/scheduler_main.py``) in sim mode at
+   50,000 demo nodes, in-process on the card: batch (20,000 pods in
+   bursts of 10,000), plugin (256 pods) and the NUMA profile in plugin
+   mode (64 pods); each result line equals the same flags with
+   ``--device cpu`` run as a subprocess meanwhile (this script's
+   ``--scheduler-twin`` child mode), apart from ``wall_seconds``, and so
+   does the digest of every sorted (pod, node) placement of the run's
+   simulation; float64 batch scoring launches no K1 and one K2 per
+   burst, plugin modes neither. crane-descheduler
+   (``cli/descheduler_main.py``) runs as a subprocess at 50,000 demo nodes
+   in dry-run for 8 s, its ``/metrics`` scraped once mid-run and the
+   ``crane_desched_*`` families strictly parsed; it exits 0 with its stats
+   line;
+23. storm: bench config 17's shape at 50,000 nodes: a ``Simulator`` (seed
+   17) after one annotator pass, a float32 ``ScoringService``
+   (``now_bucket_s=0``) on the card behind the async front end with a
+   gradient limiter (min 2, max 4), tenant queues of depth 2, brownout and
+   a 5 s idle reaper. 6 warm requests, 40 sequential ones (the unloaded
+   p99), a 0.8 s closed-loop peak with 4 workers, then a seeded open-loop
+   ``StormSchedule`` at 3x peak (at most 1.5 s and 600 requests, 10 s
+   deadlines) through ``run_open_loop`` with a ``/healthz`` prober every
+   50 ms, the deadline leg (budgets -1 and 0.001 ms) and two
+   ``replay_admission`` runs. No transport error; accepted plus shed
+   equals sent; every probe 200; no expired request at dispatch; budget
+   -1 answers 504; equal replays; every accepted body from the card, no
+   fallback; K1 launches equal the service's renders. Goodput as a share
+   of peak and the accepted p99 against twice the unloaded p99 plus 50 ms
+   are reported beside config 17's gates, not held to them.
 
 Before each path (main path, delta, column, overlap, hybrid scorer, the
 drip queue, serve, scalar and dirty phases, telemetry, the gang
 sequential, window and mixed legs, the NUMA gang, queue, mixed and
-per-pod legs, the service's score, HTTP and assign legs, and the
-replicated phase's sim, replicas and router-assign legs) the kernels'
+per-pod legs, the service's score, HTTP and assign legs, the
+replicated phase's sim, replicas and router-assign legs, the descheduler's
+card leg, each crane-scheduler run and the storm) the kernels'
 launch counters are set to 0, and after it each
 kernel the path runs must have launched; the ``kernels`` line lists the
-counts per path (the drip paths and the per-pod NUMA leg run neither
+counts per path (the drip paths, the per-pod NUMA leg, the descheduler's
+re-placement windows and crane-scheduler's plugin modes run neither
 kernel).
 
 A kernel's device time is the mean duration of its launches under
@@ -239,6 +288,7 @@ line, and the final ``{"ok": true, ...}`` line. Exit codes: 0 on success,
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -252,6 +302,7 @@ from crane_scheduler_tpu_torch.cluster import (
     ClusterState,
     Container,
     Node,
+    OwnerReference,
     Pod,
     ResourceRequirements,
 )
@@ -261,7 +312,12 @@ from crane_scheduler_tpu_torch.config import (
     SchedulerProfile,
     build_scheduler_from_config,
 )
-from crane_scheduler_tpu_torch.fit import FitTracker, ResourceFitPlugin
+from crane_scheduler_tpu_torch.descheduler import (
+    DeschedulerConfig,
+    LoadAwareDescheduler,
+    WatermarkPolicy,
+)
+from crane_scheduler_tpu_torch.fit import FitTracker, ResourceFitPlugin, pod_fit_request
 from crane_scheduler_tpu_torch.framework.scheduler import (
     BURST_STAGES,
     BatchScheduler,
@@ -3135,10 +3191,12 @@ def cli_env() -> tuple:
     return root, env
 
 
-def start_cli(args) -> tuple:
-    """Start ``python -m args`` from the checkout's root: (process, start)."""
+def start_cli(args, script: bool = False) -> tuple:
+    """Start ``python -m args`` (``script``: this script with ``args``) from
+    the checkout's root: (process, start)."""
     root, env = cli_env()
-    proc = subprocess.Popen([sys.executable, "-m", *args], cwd=root, env=env,
+    head = [__file__] if script else ["-m"]
+    proc = subprocess.Popen([sys.executable, *head, *args], cwd=root, env=env,
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     return proc, time.perf_counter()
 
@@ -3361,6 +3419,570 @@ def phase_replicated(dev) -> tuple:
     return out, by_path
 
 
+# -- the operator front doors: the descheduler's closed loop, crane-scheduler,
+#    crane-descheduler and the open-loop storm ---------------------------------
+
+DESCHED_HOT = 2  # bench config 11's hot nodes; the rest are cool
+DESCHED_HOT_WORKERS = 12  # one-CPU workers per hot node, beside two decoys
+DESCHED_CYCLES = 8  # config 11 runs 12; the hot nodes are drained by cycle 5
+DESCHED_STEP_S = 60.0
+DESCHED_WINDOW = 4  # the cycle budget: one cycle's evictees fill one drip window
+DESCHED_ALLOC_MILLI = 16_000
+DESCHED_ALLOCATABLE = {"cpu": "16", "pods": "110"}
+DESCHED_METRICS = ("cpu_usage_avg_5m", "cpu_usage_max_avg_1h", "cpu_usage_max_avg_1d",
+                   "mem_usage_avg_5m", "mem_usage_max_avg_1h", "mem_usage_max_avg_1d")
+ONE_CPU = (Container("c", ResourceRequirements(requests={"cpu": "1"})),)
+
+
+def desched_cluster(n: int) -> tuple:
+    """Config 11's cluster widened to ``n`` nodes: DESCHED_HOT hot nodes with
+    12 one-CPU workers, a DaemonSet and a kube-system decoy each (14/16
+    cpus requested); every other node one one-CPU pod."""
+    cluster = ClusterState()
+    hot = [f"hot-{i}" for i in range(DESCHED_HOT)]
+    cool = [f"cool-{i}" for i in range(n - DESCHED_HOT)]
+    for name in hot + cool:
+        cluster.add_node(Node(name=name, allocatable=DESCHED_ALLOCATABLE))
+    pods = []
+    for node in hot:
+        pods += [Pod(name=f"{node}-w{j}", containers=ONE_CPU, node_name=node)
+                 for j in range(DESCHED_HOT_WORKERS)]
+        pods.append(Pod(name=f"{node}-ds", containers=ONE_CPU, node_name=node,
+                        owner_references=(OwnerReference(kind="DaemonSet", name="agent"),)))
+        pods.append(Pod(name=f"{node}-sys", namespace="kube-system", containers=ONE_CPU,
+                        node_name=node))
+    pods += [Pod(name=f"{node}-w0", containers=ONE_CPU, node_name=node) for node in cool]
+    cluster.add_pods(pods)
+    return cluster, hot + cool
+
+
+def requested_milli(cluster: ClusterState, names) -> dict:
+    return {n: sum(pod_fit_request(p).milli_cpu for p in cluster.list_pods(n)) for n in names}
+
+
+def imbalance(milli: dict) -> float:
+    vals = list(milli.values())
+    return max(vals) / (sum(vals) / len(vals))
+
+
+def profile_once(fn) -> tuple:
+    """``fn()`` under ``torch.profiler``: its result, and the device kernels,
+    device us and host kernel-launch calls the session recorded (late in a
+    long process a short session can keep every host call and only some
+    device records, or none: then the device fields are None)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        result = fn()
+        torch.cuda.synchronize()
+    device = device_events(prof)
+    return result, {
+        "device_kernels": sum(count for key, (count, _) in device.items()
+                              if not key.startswith(("Memcpy", "Memset"))) if device else None,
+        "device_us": sum(us for _, us in device.values()) if device else None,
+        "cuda_launch_kernel_calls": sum(e.count for e in prof.key_averages()
+                                        if e.key == "cudaLaunchKernel"),
+    }
+
+
+def desched_leg(mode: str, dev) -> dict:
+    """One leg of config 11's closed loop at N_NODES nodes: every cycle the
+    six metrics are written from pod requests (``patch_node_annotations_bulk``),
+    then (``mode`` "card" or "cpu") ``sync_once`` and the re-placement of
+    the cycle's evictees: the card leg through the drip window
+    (``schedule_queue`` on the card), the CPU twin one by one
+    (``schedule_one``, ``device="cpu"``). ``mode`` "none" runs no descheduler."""
+    cluster, names = desched_cluster(N_NODES)
+    milli = requested_milli(cluster, names)
+    total, start = sum(milli.values()), imbalance(milli)
+    clock = [NOW]
+    desched = sched = None
+    if mode != "none":
+        desched = LoadAwareDescheduler(
+            cluster, DEFAULT_POLICY,
+            DeschedulerConfig(
+                watermarks=(WatermarkPolicy("cpu_usage_avg_5m", target=0.32, threshold=0.35),),
+                consecutive_syncs=2, max_evictions_per_node=2, max_evictions_per_cycle=4,
+                node_cooldown_seconds=0.0),
+            clock=lambda: clock[0])
+        sched = Scheduler(cluster, clock=lambda: clock[0], device=dev if mode == "card" else "cpu")
+        sched.register(ResourceFitPlugin(FitTracker(cluster)), weight=1)
+        sched.register(DynamicPlugin(DEFAULT_POLICY, clock=lambda: clock[0]), weight=3)
+    reports, placed, timings, profiled = [], [], [], None
+    for cycle in range(DESCHED_CYCLES):
+        clock[0] = NOW + cycle * DESCHED_STEP_S
+        t0 = time.perf_counter()
+        stamp = format_local_time(clock[0])
+        cluster.patch_node_annotations_bulk({
+            n: {m: f"{u / DESCHED_ALLOC_MILLI:.5f},{stamp}" for m in DESCHED_METRICS}
+            for n, u in requested_milli(cluster, names).items()})
+        t1 = time.perf_counter()
+        row = {"annotate_ms": (t1 - t0) * 1e3}
+        if desched is not None:
+            report = desched.sync_once(clock[0])
+            t2 = time.perf_counter()
+            per_node: dict = {}
+            for ev in report.evicted:
+                per_node[ev.node] = per_node.get(ev.node, 0) + 1
+            if len(report.evicted) > 4 or any(c > 2 for c in per_node.values()):
+                raise AssertionError(f"desched {mode}: cycle {cycle} over budget: {per_node}")
+            moved = [Pod(name=f"moved-{cycle}-{i}", containers=ONE_CPU)
+                     for i in range(len(report.evicted))]
+            cluster.add_pods(moved)
+            if mode == "card":
+                replace = lambda: sched.schedule_queue(moved, window=DESCHED_WINDOW)  # noqa: E731
+                # profile the second window: the first builds and uploads
+                # the columns, and its time is kept unprofiled
+                if moved and profiled is None and sched.drip_stats()["batch"]["dispatches"]:
+                    results, prof = profile_once(replace)
+                    profiled = {"cycle": cycle, **prof}
+                else:
+                    results = replace()
+            else:
+                results = [sched.schedule_one(p) for p in moved]
+            t3 = time.perf_counter()
+            row.update(sync_ms=(t2 - t1) * 1e3, replace_ms=(t3 - t2) * 1e3, moved=len(moved))
+            reports.append(dataclasses.asdict(report))
+            placed.append([r.node for r in results])
+        timings.append(row)
+    milli = requested_milli(cluster, names)
+    out = {"reports": reports, "placed": placed, "timings": timings, "profiled": profiled,
+           "imbalance_start": start, "imbalance_final": imbalance(milli),
+           "max_util_final": max(milli.values()) / DESCHED_ALLOC_MILLI,
+           "mean_util_final": sum(milli.values()) / len(milli) / DESCHED_ALLOC_MILLI,
+           "total_milli": total, "final_milli": sum(milli.values())}
+    if sched is not None:
+        out["drip_stats"] = {k: v for k, v in sched.drip_stats().items() if k != "batch"}
+        out["windows"] = sched.drip_stats()["batch"]["dispatches"]
+        out["window_ms"] = [s * 1e3 for s in sched.drip_stats()["batch"]["kernel_seconds"]]
+    return out
+
+
+def phase_desched(dev) -> tuple:
+    """Config 11's closed loop at N_NODES nodes: no descheduler; the
+    descheduler with re-placement through the drip window on the card; and
+    its CPU twin (``schedule_one`` on the CPU). The card leg's cycle
+    reports and re-placements equal the twin's; no protected victim, both
+    budgets in every cycle, requested cpu conserved, every evictee
+    re-placed, and the imbalance down by at least 2x (config 11's gate)."""
+    t_phase = time.perf_counter()
+    none = desched_leg("none", dev)
+    reset_launches()
+    card = desched_leg("card", dev)
+    launched = read_launches("desched window", need=())
+    # the re-placement is the drip window: neither K1 nor K2 lies on it
+    if launched != {"score": 0, "gang": 0}:
+        raise AssertionError(f"desched: K1/K2 launched on the re-placement path: {launched}")
+    cpu = desched_leg("cpu", dev)
+    if card["reports"] != cpu["reports"] or card["placed"] != cpu["placed"]:
+        raise AssertionError("desched: the card leg's reports or re-placements != the CPU twin's")
+    evicted = [e for r in card["reports"] for e in r["evicted"]]
+    placed = [node for cyc in card["placed"] for node in cyc]
+    if not evicted or len(placed) != len(evicted) or any(node is None for node in placed):
+        raise AssertionError(f"desched: {len(evicted)} evicted, re-placed {placed}")
+    if any(not e["pod_key"].startswith("default/") or e["pod_key"].endswith("-ds")
+           for e in evicted):
+        raise AssertionError(f"desched: a protected victim: {evicted}")
+    for leg in (none, card, cpu):
+        if leg["final_milli"] != leg["total_milli"]:
+            raise AssertionError("desched: requested cpu not conserved")
+    reduction = none["imbalance_final"] / card["imbalance_final"]
+    if reduction < 2.0:
+        raise AssertionError(f"desched: imbalance reduction {reduction:.3f}x < 2x")
+    if card["windows"] < 1:
+        raise AssertionError("desched: no drip window dispatched on the card")
+
+    def ms(leg, key):
+        return [round(t[key], 3) for t in leg["timings"] if key in t]
+
+    out = {
+        "nodes": N_NODES, "cycles": DESCHED_CYCLES, "evictions": len(evicted),
+        "evictions_per_cycle": [len(r["evicted"]) for r in card["reports"]],
+        "hot_per_cycle": [len(r["hot"]) for r in card["reports"]],
+        "card_equals_cpu_twin": True, "imbalance_reduction": reduction,
+        "imbalance": {"no_descheduler": none["imbalance_final"],
+                      "descheduler": card["imbalance_final"], "start": card["imbalance_start"]},
+        "max_util_final": card["max_util_final"], "mean_util_final": card["mean_util_final"],
+        "annotate_ms": ms(card, "annotate_ms"), "sync_once_ms": ms(card, "sync_ms"),
+        "replace_window_ms": ms(card, "replace_ms"), "cpu_twin_sync_once_ms": ms(cpu, "sync_ms"),
+        "cpu_twin_replace_ms": ms(cpu, "replace_ms"),
+        "no_descheduler_annotate_ms": ms(none, "annotate_ms"),
+        "windows": card["windows"], "window_dispatch_ms": card["window_ms"],
+        "profiled_window": card["profiled"], "drip_stats": card["drip_stats"],
+        "launches": launched, "seconds": time.perf_counter() - t_phase,
+    }
+    log("desched", **out)
+    return out, launched
+
+
+FD_DEMO_NODES = str(N_NODES)
+NUMA_CONFIG = "deploy/noderesourcetopology/scheduler-config.yaml"
+FD_CASES = {  # crane-scheduler's sim mode: flags, the bursts (K2 launches) it makes
+    "cli_batch": (["--demo-nodes", FD_DEMO_NODES, "--pods", "20000", "--batch-size", "10000"], 2),
+    "cli_plugin": (["--demo-nodes", FD_DEMO_NODES, "--pods", "256"], 0),
+    "cli_numa": (["--config", NUMA_CONFIG, "--demo-nodes", FD_DEMO_NODES, "--pods", "64"], 0),
+}
+DESCHED_CLI_SECONDS = 8.0
+SCHEDULER_TWIN_ARG = "--scheduler-twin"  # the child mode of front_doors' CPU twins
+
+
+class DeschedulerCLI:
+    """crane-descheduler as a subprocess at N_NODES demo nodes in dry-run;
+    a thread reads its output, finds its health port and scrapes
+    ``/metrics`` once, mid-run, strictly parsed."""
+
+    def __init__(self):
+        import tempfile
+        import threading
+
+        root, env = cli_env()
+        self.err = tempfile.TemporaryFile(mode="w+")
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "crane_scheduler_tpu_torch.cli.descheduler_main",
+             "--demo-nodes", FD_DEMO_NODES, "--dry-run", "--sync-period-seconds", "1",
+             "--run-seconds", str(DESCHED_CLI_SECONDS), "--health-port", "0"],
+            cwd=root, env=env, stdout=subprocess.PIPE, stderr=self.err, text=True)
+        self.lines: list = []
+        self.scrape: dict = {}
+        self.thread = threading.Thread(target=self._watch, daemon=True)
+        self.thread.start()
+
+    def _watch(self) -> None:
+        import re
+
+        for line in self.proc.stdout:
+            self.lines.append(line.strip())
+            m = re.search(r"healthz\+metrics on :(\d+)", line)
+            if m and not self.scrape:
+                time.sleep(DESCHED_CLI_SECONDS / 2)  # a few cycles in
+                try:
+                    status, body = http_json(int(m.group(1)), "GET", "/metrics", timeout=30)
+                    self.scrape = {"status": status, "text": body.decode()}
+                except OSError as e:
+                    self.scrape = {"status": 0, "error": repr(e)}
+
+    def finish(self) -> dict:
+        try:
+            self.proc.wait(timeout=120)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait()
+        self.thread.join(timeout=30)
+        self.err.seek(0)
+        err = self.err.read()
+        self.err.close()
+        if self.proc.returncode != 0:
+            raise AssertionError(f"crane-descheduler exited {self.proc.returncode}: {err[-600:]!r}")
+        stats = json.loads(self.lines[-1])
+        if sorted(stats) != ["cycles", "evictions", "hot_streaks"] or stats["cycles"] < 1 \
+                or stats["evictions"] != 0:
+            raise AssertionError(f"crane-descheduler stats {stats}")
+        if self.scrape.get("status") != 200:
+            raise AssertionError(f"crane-descheduler /metrics: {self.scrape}")
+        families = expfmt.parse_exposition(self.scrape["text"])
+        want = ("crane_desched_evictions_total", "crane_desched_hotspot_nodes",
+                "crane_desched_skips_total", "crane_desched_cycle_seconds")
+        missing = [f for f in want if f not in families]
+        cycles_seen = sum(v for name, _, v in families["crane_desched_cycle_seconds"]["samples"]
+                          if name.endswith("_count"))
+        if missing or cycles_seen < 1:
+            raise AssertionError(f"crane-descheduler /metrics: missing {missing}, "
+                                 f"{cycles_seen} cycles")
+        return {"stats": stats, "seconds": time.perf_counter() - self.t0,
+                "metrics_cycles_at_scrape": cycles_seen,
+                "desched_samples": {f: [s for s in families[f]["samples"]
+                                        if not s[0].endswith("_bucket")] for f in want}}
+
+
+def scheduler_cli(argv) -> dict:
+    """crane-scheduler's ``main`` in this process: its result line, and the
+    sorted (pod, node) placements of the simulation it built, as a count
+    and a sha256 digest (``Simulator`` is wrapped for the call to keep
+    the instance)."""
+    import contextlib
+    import hashlib
+    import io
+
+    from crane_scheduler_tpu_torch import sim as sim_module
+    from crane_scheduler_tpu_torch.cli import scheduler_main
+
+    built, base = [], sim_module.Simulator
+
+    class Recorded(base):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            built.append(self)
+
+    buf = io.StringIO()
+    sim_module.Simulator = Recorded
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = scheduler_main.main(argv)
+    finally:
+        sim_module.Simulator = base
+    if rc != 0 or len(built) != 1:
+        raise AssertionError(f"crane-scheduler {argv} exited {rc}, {len(built)} simulations")
+    pairs = sorted((p.key(), p.node_name) for p in built[0].cluster.list_pods() if p.node_name)
+    return {"line": json.loads(buf.getvalue().strip().splitlines()[-1]),
+            "placements": {"pods": len(pairs),
+                           "sha256": hashlib.sha256(json.dumps(pairs).encode()).hexdigest()}}
+
+
+def scheduler_twin_child(argv) -> int:
+    """The child mode ``SCHEDULER_TWIN_ARG``: ``scheduler_cli(argv)`` as one
+    JSON line (front_doors' CPU twins run so, beside the card runs)."""
+    print(json.dumps(scheduler_cli(argv)), flush=True)
+    return 0
+
+
+def run_scheduler_cli(argv, dev) -> dict:
+    """crane-scheduler in-process on ``dev`` (the card): ``scheduler_cli``'s
+    line and placements, and the kernels' launches over the call."""
+    reset_launches()
+    t0 = time.perf_counter()
+    out = scheduler_cli([*argv, "--device", dev.type])
+    seconds = time.perf_counter() - t0
+    return {**out, "launches": {name: kernel.launches for name, kernel in KERNELS.items()},
+            "seconds": seconds}
+
+
+def phase_front_doors(dev) -> tuple:
+    """crane-scheduler's sim mode at N_NODES demo nodes in batch, plugin and
+    NUMA-plugin mode, in-process on the card, each line equal to the same
+    flags on ``--device cpu`` (run as subprocesses meanwhile), K2 once per
+    batch burst; crane-descheduler as a subprocess in dry-run, its
+    ``/metrics`` scraped mid-run. The subprocesses start first, so all
+    overlap."""
+    t_phase = time.perf_counter()
+    desched_cli = DeschedulerCLI()
+    twins = {case: start_cli([SCHEDULER_TWIN_ARG, *argv, "--device", "cpu"], script=True)
+             for case, (argv, _) in FD_CASES.items()}
+    by_path, runs = {}, {}
+    try:
+        for case, (argv, bursts) in FD_CASES.items():
+            runs[case] = run_scheduler_cli(argv, dev)
+            launched = runs[case]["launches"]
+            # float64 scoring (the CLI's default) launches no K1; each batch
+            # burst is one combined step with one K2 launch
+            if launched != {"score": 0, "gang": bursts}:
+                raise AssertionError(f"crane-scheduler {case}: launches {launched}, "
+                                     f"want K1 0, K2 {bursts}")
+            by_path[case] = launched
+        for case, started in twins.items():
+            twin_out, twin_s = finish_cli(started, timeout=600)
+            twin, card = dict(twin_out["line"]), dict(runs[case]["line"])
+            card_s = card.pop("wall_seconds")
+            runs[case]["cpu_wall_seconds"] = twin.pop("wall_seconds")
+            runs[case]["cpu_process_seconds"] = twin_s
+            runs[case]["wall_seconds"] = card_s
+            if card != twin:
+                raise AssertionError(f"crane-scheduler {case}: card {card} != cpu {twin}")
+            # the same counts could hide a different placement: hold every
+            # (pod, node) pair equal too
+            placed = runs[case]["placements"]
+            if placed != twin_out["placements"] or \
+                    placed["pods"] != card["scheduled"]:
+                raise AssertionError(f"crane-scheduler {case}: card placements {placed} != "
+                                     f"cpu {twin_out['placements']}")
+    finally:
+        for proc, _ in twins.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        descheduler = desched_cli.finish()
+    out = {
+        "nodes": N_NODES,
+        "scheduler": {case: {"line": r["line"], "placements": r["placements"],
+                             "wall_seconds": r.get("wall_seconds"),
+                             "in_process_seconds": r["seconds"],
+                             "cpu_wall_seconds": r.get("cpu_wall_seconds"),
+                             "cpu_process_seconds": r.get("cpu_process_seconds"),
+                             "launches": r["launches"]} for case, r in runs.items()},
+        "card_equals_cpu": True, "placements_equal_cpu": True, "descheduler": descheduler,
+        "seconds": time.perf_counter() - t_phase,
+    }
+    log("front_doors", **out)
+    return out, by_path
+
+
+STORM_SEED = 17  # bench config 17's seed
+STORM_WARM = 6
+STORM_UNLOADED = 40
+STORM_PEAK_S = 0.8
+STORM_PEAK_WORKERS = 4
+STORM_X = 3.0
+STORM_MAX_S = 1.5
+STORM_MAX_REQUESTS = 600  # config 17's cap on the thread-per-request harness
+STORM_DEADLINE_MS = 10_000.0
+STORM_PROBE_S = 0.05
+
+
+def storm_admission(clock=None, brownout=None, telemetry=None):
+    from crane_scheduler_tpu_torch.service import AdmissionController
+    from crane_scheduler_tpu_torch.service.overload import GradientLimiter, TenantQueues
+
+    return AdmissionController(
+        limiter=GradientLimiter(min_limit=2, max_limit=4, initial=4),
+        queues=TenantQueues(depth=2), brownout=brownout, telemetry=telemetry,
+        clock=clock or time.monotonic)
+
+
+def phase_storm(dev) -> tuple:
+    """Bench config 17's shape at N_NODES nodes: a float32 ``ScoringService``
+    (``now_bucket_s=0``) on the card behind the async front end with
+    admission control, brownout and the idle reaper; warm, unloaded,
+    closed-loop peak, the seeded open-loop storm at 3x peak with a
+    ``/healthz`` prober, the deadline leg, and two virtual-time replays."""
+    import threading
+
+    from crane_scheduler_tpu_torch.resilience import (
+        StormSchedule,
+        replay_admission,
+        run_open_loop,
+        timeline_counts,
+    )
+    from crane_scheduler_tpu_torch.service import BrownoutController
+    from crane_scheduler_tpu_torch.sim import SimConfig, Simulator
+
+    t_phase = time.perf_counter()
+    sim = Simulator(SimConfig(n_nodes=N_NODES, seed=STORM_SEED))
+    sim.sync_metrics()
+    setup_s = time.perf_counter() - t_phase
+    svc = ScoringService(sim.cluster, DEFAULT_POLICY, dtype=torch.float32, device=dev,
+                         now_bucket_s=0.0)
+    svc.refresh()
+    brownout = BrownoutController(telemetry=svc.telemetry)
+    admission = storm_admission(brownout=brownout, telemetry=svc.telemetry)
+    server = ScoringHTTPServer(svc, port=0, frontend="async", admission=admission,
+                               brownout=brownout, idle_timeout_s=5.0)
+    server.start()
+    now0 = sim.clock.now()
+    counter, lock = [0], threading.Lock()
+    bad_bodies = []
+
+    def fresh_body(*_):
+        # a unique `now` per request: every accepted request is a render
+        with lock:
+            counter[0] += 1
+            return json.dumps({"now": now0 + counter[0] * 1e-4, "refresh": False}).encode()
+
+    def post(body, headers=None):
+        t0 = time.perf_counter()
+        status, data = http_json(server.port, "POST", "/v1/score", json.loads(body),
+                                 headers=headers, timeout=60)
+        if status == 200 and not data.startswith(CARD_BODY):
+            bad_bodies.append(data[:80])
+        return status, time.perf_counter() - t0
+
+    before = svc.metrics()
+    reset_launches()
+    try:
+        for _ in range(STORM_WARM):
+            if post(fresh_body())[0] != 200:
+                raise AssertionError("storm: a warm request failed")
+        unloaded = []
+        for _ in range(STORM_UNLOADED):
+            status, dt = post(fresh_body())
+            if status != 200:
+                raise AssertionError(f"storm: an unloaded request answered {status}")
+            unloaded.append(dt)
+        unloaded_p99 = percentile(unloaded, 99)
+        peak_stop = time.perf_counter() + STORM_PEAK_S
+        served = [0] * STORM_PEAK_WORKERS
+
+        def closed(slot):
+            while time.perf_counter() < peak_stop:
+                if post(fresh_body())[0] == 200:
+                    served[slot] += 1
+                else:
+                    time.sleep(0.002)
+
+        workers = [threading.Thread(target=closed, args=(i,)) for i in range(STORM_PEAK_WORKERS)]
+        t0 = time.perf_counter()
+        for w in workers:
+            w.start()
+        for w in workers:
+            w.join()
+        peak_rps = max(sum(served) / (time.perf_counter() - t0), 1.0)
+
+        storm_rps = STORM_X * peak_rps
+        duration = min(STORM_MAX_S, STORM_MAX_REQUESTS / storm_rps)
+        schedule = StormSchedule(STORM_SEED, duration_s=duration, phases=[(0.0, storm_rps)],
+                                 deadline_ms=STORM_DEADLINE_MS)
+        probes, probe_stop = [], threading.Event()
+
+        def prober():
+            while not probe_stop.is_set():
+                try:
+                    probes.append(http_json(server.port, "GET", "/healthz", timeout=5)[0])
+                except OSError:
+                    probes.append(0)
+                probe_stop.wait(STORM_PROBE_S)
+
+        probe_thread = threading.Thread(target=prober, daemon=True)
+        probe_thread.start()
+        t0 = time.perf_counter()
+        results = run_open_loop("127.0.0.1", server.port, schedule.arrivals,
+                                target="/v1/score", body_fn=fresh_body, timeout_s=60.0)
+        storm_wall = time.perf_counter() - t0
+        probe_stop.set()
+        probe_thread.join(timeout=5.0)
+        accepted = [r for r in results if r.status == 200]
+        shed = [r for r in results if r.status in (429, 503, 504)]
+        errors = [r for r in results if r.status == 0]
+        if errors:
+            raise AssertionError(f"storm: transport errors {[r.error for r in errors[:3]]}")
+        if len(accepted) + len(shed) != len(results):
+            raise AssertionError(f"storm: statuses {sorted({r.status for r in results})}")
+        if not probes or any(c != 200 for c in probes):
+            raise AssertionError(f"storm: /healthz answered {[c for c in probes if c != 200]}")
+        goodput_rps = len(accepted) / duration
+        accepted_p99 = percentile([r.latency_s for r in accepted], 99) if accepted else None
+
+        expired = [post(fresh_body(), {"crane-deadline-ms": "-1"})[0] for _ in range(10)]
+        if any(s != 504 for s in expired):
+            raise AssertionError(f"storm: budget -1 answered {expired}")
+        tight = [post(fresh_body(), {"crane-deadline-ms": "0.001"})[0] for _ in range(10)]
+        m = svc.metrics()
+        if m["expired_at_dispatch"] != 0 or m["fallbacks"] != 0 or bad_bodies:
+            raise AssertionError(f"storm: expired at dispatch {m['expired_at_dispatch']}, "
+                                 f"fallbacks {m['fallbacks']}, bodies {bad_bodies[:2]}")
+        renders = m["score_calls"] - before["score_calls"]
+        launched = {name: kernel.launches for name, kernel in KERNELS.items()}
+
+        service_time = max(1.0 / peak_rps, 1e-4)
+        t1 = replay_admission(schedule.arrivals, storm_admission, service_time_s=service_time)
+        t2 = replay_admission(schedule.arrivals, storm_admission, service_time_s=service_time)
+        if t1 != t2:
+            raise AssertionError("storm: the same seed replayed to different timelines")
+        shed_stats = dict(admission.stats)
+    finally:
+        server.stop()
+    out = {
+        "nodes": N_NODES, "setup_s": setup_s, "unloaded_p99_ms": unloaded_p99 * 1e3,
+        "unloaded_p50_ms": percentile(unloaded, 50) * 1e3, "peak_rps": peak_rps,
+        "storm_rps": storm_rps, "storm_s": duration, "storm_wall_s": storm_wall,
+        "arrivals": len(results), "accepted": len(accepted), "shed": len(shed),
+        "shed_by_status": {s: sum(r.status == s for r in shed) for s in (429, 503, 504)},
+        "goodput_rps": goodput_rps, "goodput_share_of_peak": goodput_rps / peak_rps,
+        "accepted_p99_ms": accepted_p99 * 1e3 if accepted_p99 is not None else None,
+        "p99_limit_ms": (2.0 * unloaded_p99 + 0.050) * 1e3,
+        "reference_gates": {"goodput_share_of_peak_min": 0.8,
+                            "accepted_p99_max": "2 x unloaded p99 + 50 ms"},
+        "healthz_probes": len(probes), "expired_at_dispatch": 0,
+        "deadline_minus_1": expired, "deadline_1us_504": sum(s == 504 for s in tight),
+        "replay_equal": True, "replay_counts": timeline_counts(t1),
+        "card_renders": renders, "brownout_served": m["brownout_served"] - before["brownout_served"],
+        "admission": shed_stats, "launches": launched,
+        "seconds": time.perf_counter() - t_phase,
+    }
+    if launched != {"score": renders, "gang": 0} or renders < 1:
+        raise AssertionError(f"storm: launches {launched} for {renders} card renders")
+    log("storm", **out)
+    return out, launched
+
+
 # per kernel in the `kernels` line: `ms` is the kernel's own device time
 KERNEL_KEYS = ("ms", "plain_ms", "bound_ms", "bound_by", "device_us", "bound_us",
                "pct_of_bound", "host_launch_ms", "device_launches_seen")
@@ -3369,6 +3991,8 @@ KERNEL_KEYS = ("ms", "plain_ms", "bound_ms", "bound_by", "device_us", "bound_us"
 def main() -> int:
     if sys.argv[1:] == [PROFILE_RENDERS_ARG]:
         return profile_renders_child()
+    if sys.argv[1:2] == [SCHEDULER_TWIN_ARG]:
+        return scheduler_twin_child(sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
         return 2
@@ -3414,6 +4038,10 @@ def main() -> int:
     by_path.update(service_paths)
     _, replicated_paths = phase_replicated(dev)
     by_path.update(replicated_paths)
+    _, by_path["desched_window"] = phase_desched(dev)
+    _, front_door_paths = phase_front_doors(dev)
+    by_path.update(front_door_paths)
+    _, by_path["storm"] = phase_storm(dev)
 
     kernels = [
         {

@@ -39,11 +39,19 @@ class BindingRecords:
         self._gc_time_range = gc_time_range_seconds
         self._heap: list[tuple[int, int, Binding]] = []
         self._seq = 0
+        self._version = 0  # moves on every push and pop
         self._lock = threading.RLock()
 
     def __len__(self) -> int:
         with self._lock:
             return len(self._heap)
+
+    @property
+    def version(self) -> int:
+        """Moves on every change of the heap (a push or a GC pop): the
+        key of the annotator's per-sweep hot-value memo."""
+        with self._lock:
+            return self._version
 
     def add_binding(self, binding: Binding) -> None:
         """Push; evict the oldest first when full (ref: binding.go:69-78)."""
@@ -53,6 +61,7 @@ class BindingRecords:
         """Push a burst under one lock hold; the evict+push invariant
         lives only here (``add_binding`` delegates)."""
         with self._lock:
+            self._version += 1
             for binding in bindings:
                 if len(self._heap) == self._size:
                     heapq.heappop(self._heap)
@@ -137,6 +146,7 @@ class BindingRecords:
                 if binding.timestamp > timeline:
                     heapq.heappush(self._heap, (ts, seq, binding))
                     return
+                self._version += 1
 
 
 def max_hot_value_time_range(hot_value_policies) -> float:

@@ -170,6 +170,8 @@ class NodeAnnotator:
             max_hot_value_time_range(policy.spec.hot_value),
         )
         self.event_ingestor = EventIngestor(cluster, self.binding_records)
+        # ((now, heap version), hot values of every node with bindings)
+        self._hot_memo: tuple | None = None
         self.queue = RateLimitedQueue()
         self.synced = 0
         self.sync_errors = 0
@@ -406,29 +408,28 @@ class NodeAnnotator:
 
     def hot_value(self, node_name: str, now: float) -> int:
         """hotValue = Σ_p count(node, window_p) // count_p — integer
-        division per policy entry (ref: node.go:113-121)."""
-        value = 0
-        for p in self.policy.spec.hot_value:
-            value += (
-                self.binding_records.get_last_node_binding_count(
-                    node_name, p.time_range_seconds, now
-                )
-                // p.count
-            )
-        return value
+        division per policy entry (ref: node.go:113-121).
 
-    def hot_values_batch(self, now: float) -> dict[str, int] | None:
+        A per-node sweep asks this of every node at one ``now``. The
+        reference rescans the heap per (node, window); here one
+        ``hot_values_batch`` pass per (``now``, heap version) answers
+        them all, with the same values."""
+        key = (now, self.binding_records.version)
+        memo = self._hot_memo
+        if memo is None or memo[0] != key:
+            memo = (key, self.hot_values_batch(now))
+            self._hot_memo = memo
+        return memo[1].get(node_name, 0)
+
+    def hot_values_batch(self, now: float) -> dict[str, int]:
         """Hot values for every node with bindings, in ONE heap pass.
 
         Same per-entry integer division as ``hot_value`` (ref:
         node.go:113-121), but the windowed counts come from the backend's
         ``counts_batch`` (one O(|heap|·|windows|) sweep) instead of a
         per-(node, window) heap rescan. Nodes absent from the result have
-        hot value 0. Returns None when the backend lacks the batch API.
+        hot value 0.
         """
-        counts_batch = getattr(self.binding_records, "counts_batch", None)
-        if counts_batch is None:
-            return None
         policies = self.policy.spec.hot_value
         if not policies:
             return {}
@@ -439,7 +440,7 @@ class NodeAnnotator:
                 raise ZeroDivisionError("hotValue policy count is 0")
         import numpy as np
 
-        names, counts = counts_batch(
+        names, counts = self.binding_records.counts_batch(
             [p.time_range_seconds for p in policies], now
         )
         if not names:
@@ -638,11 +639,8 @@ class NodeAnnotator:
                 hot_names = names
         hot_annos: list[str] = []
         if hot_names:
-            if hot_by_node is not None:
-                hget = hot_by_node.get
-                hots = [hget(n, 0) for n in hot_names]
-            else:
-                hots = [self.hot_value(n, now) for n in hot_names]
+            hget = hot_by_node.get
+            hots = [hget(n, 0) for n in hot_names]
             hot_annos = [f"{h},{ts_str}" for h in hots]
         suffix = "," + ts_str
         annos = [v + suffix for v in vals]

@@ -8,9 +8,12 @@ through a lazy overlay, and column groups), pods with containers, owner
 references, init containers and overhead, as objects or as columnar
 bursts, binds that stamp ``Scheduled`` events into a bounded log and
 deliver them to subscribers (per event, in batches, or as columns),
-PreBind's pod-annotation patch, the mirror's bulk transactions
+PreBind's pod-annotation patch, the eviction subresource (``evict_pod``,
+with its ``Evicted`` event), the mirror's bulk transactions
 (``apply_node_changes``, ``replace_nodes``), the ``sched_version``,
-``node_version``, ``node_set_version`` and ``pod_version`` counters, the
+``node_version``, ``node_set_version`` and ``pod_version`` counters (and
+the port's own ``bound_version``, which keys the simulator's bound-count
+caches), the
 pod-change journal behind ``pod_changes_since``, and the global
 dirty-name journal behind ``dirty_nodes_since`` (every named node write
 journals its name; a name-less columnar sweep or relist resets the
@@ -230,6 +233,9 @@ class ClusterState:
         self._batch_columnar: list[Callable | None] = []
         self._rv_next = 1  # next event resourceVersion
         self._sched_version = 0
+        # moves whenever a node's bound-pod count may change (never on an
+        # annotation patch): the key of per-sweep bound-count caches
+        self._bound_version = 0
         # columnar pod bursts (see add_pod_burst)
         self._bursts: list[_PodBurst] = []
         self._burst_index: dict[str, tuple[_PodBurst, int]] | None = None
@@ -267,6 +273,15 @@ class ClusterState:
         (unbound) pod does NOT bump it."""
         with self._lock:
             return self._sched_version
+
+    @property
+    def bound_version(self) -> int:
+        """Moves whenever a node's bound-pod count may change: a bound
+        pod added, replaced or deleted (object or burst row), a bind.
+        Annotation patches do not move it, so a metric sweep that reads
+        ``count_pods_all`` per node can cache it across its own writes."""
+        with self._lock:
+            return self._bound_version
 
     @property
     def pod_version(self) -> int:
@@ -658,6 +673,7 @@ class ClusterState:
         self._index_add(pod)
         if pod.node_name or (prev is not None and prev.node_name) or prev_burst_bound:
             self._sched_version += 1
+            self._bound_version += 1
         # journal only real changes: re-adding an identical bound pod
         # leaves pod_version where it was
         same = (
@@ -687,6 +703,36 @@ class ClusterState:
         with self._lock:
             self._delete_pod_locked(key)
 
+    def evict_pod(self, key: str, now: float | None = None) -> bool:
+        """Eviction-subresource semantics for the in-memory apiserver:
+        remove the pod and emit the ``Evicted`` event (the signal the
+        closed placement loop observes). Returns False when the pod
+        does not exist — the 404 the real subresource answers."""
+        if now is None:
+            now = time.time()
+        with self._lock:
+            pod = self._pods.get(key)
+            if pod is None and self._bursts:
+                hit = self._burst_lookup_locked(key)
+                if hit is not None:
+                    pod = hit[0].materialize(hit[1])
+            if pod is None:
+                return False
+            node_name = pod.node_name
+            self._delete_pod_locked(key)
+        self.emit_event(
+            Event(
+                namespace=pod.namespace,
+                name=f"{pod.name}.evicted",
+                type="Normal",
+                reason="Evicted",
+                message=f"Evicted pod {key} from {node_name}",
+                count=1,
+                last_timestamp=now,
+            )
+        )
+        return True
+
     def _delete_pod_locked(self, key: str) -> None:
         pod = self._pods.pop(key, None)
         if pod is None and self._bursts:
@@ -700,11 +746,13 @@ class ClusterState:
                 # reference (burst rows are outside the journal)
                 if pod.node_name:
                     self._sched_version += 1
+                    self._bound_version += 1
                 return
         if pod is not None:
             self._index_remove(pod)
         if pod is not None and pod.node_name:
             self._sched_version += 1
+            self._bound_version += 1
             self._note_pod_change_locked(pod.node_name)
 
     def get_pod(self, key: str) -> Pod | None:
@@ -806,6 +854,7 @@ class ClusterState:
                 pods[pod_key] = new_pod
                 self._index_add(new_pod)
                 self._sched_version += 1
+                self._bound_version += 1
                 self._note_pod_change_locked(node_name)
                 bound.append(pod_key)
                 event = Event(
@@ -1011,6 +1060,7 @@ class ClusterState:
             self._count_arr[slots] += bc
             self._count_version += 1
             self._sched_version += n
+            self._bound_version += 1
             rv_base = self._rv_next
             self._rv_next += n
             handlers = list(self._event_handlers)

@@ -1,7 +1,7 @@
 """Shared fault-domain resilience layer.
 
 Counterpart of ``crane_scheduler_tpu/resilience/__init__.py``, with the
-four pieces the scoring sidecar and the annotator use:
+pieces the scoring sidecar, the annotator and the descheduler use:
 
 - ``CircuitBreaker`` — closed/open/half-open over a sliding failure
   window, one instance per fault target (``device-dispatch`` for the
@@ -17,18 +17,36 @@ four pieces the scoring sidecar and the annotator use:
   deadline budgets and ``Retry-After`` awareness (the Prometheus
   client's retries).
 
-The reference's ``chaos``, ``loadgen`` and ``recovery`` modules (the
-fault injectors, the open-loop storm generator and the crash-safe intent
-journal) belong to the host planes around the kube mirror and are not
-ported yet (``ROADMAP.md`` Queue 1 item 8).
+- ``loadgen`` — the serving plane's open-loop storm generator: a seeded
+  ``StormSchedule`` (arrival timelines that do not negotiate with a
+  slowing server), ``replay_admission`` for virtual-time deterministic
+  replays of the admission state machine, ``run_open_loop`` for firing
+  the same schedule on real sockets, and ``SlowClientSwarm`` as the
+  slowloris injector the front end's idle reaper must defeat.
+
+The reference's ``chaos`` and ``recovery`` modules (the fault injectors
+driven against the kube stub and the crash-safe intent journal) belong
+to the kube mirror and are not ported yet (``ROADMAP.md`` Queue 1
+item 8).
 """
 
 from .breaker import BreakerOpenError, BreakerState, CircuitBreaker
 from .degraded import DegradedModeController
 from .health import HealthRegistry, HealthState
+from .loadgen import (
+    Arrival,
+    SlowClientSwarm,
+    StormSchedule,
+    VirtualClock,
+    WireResult,
+    replay_admission,
+    run_open_loop,
+    timeline_counts,
+)
 from .retry import RetryBudgetExceeded, RetryPolicy
 
 __all__ = [
+    "Arrival",
     "BreakerOpenError",
     "BreakerState",
     "CircuitBreaker",
@@ -37,4 +55,11 @@ __all__ = [
     "HealthState",
     "RetryBudgetExceeded",
     "RetryPolicy",
+    "SlowClientSwarm",
+    "StormSchedule",
+    "VirtualClock",
+    "WireResult",
+    "replay_admission",
+    "run_open_loop",
+    "timeline_counts",
 ]

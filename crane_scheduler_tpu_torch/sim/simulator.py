@@ -85,9 +85,13 @@ class Simulator:
         self.stats = SimStats()
         self._base: dict[tuple[str, str], float] = {}
         self._pod_seq = 0
-        # (sched_version, counts) — a metric sweep reads bound-pod counts
-        # for |nodes| x |metrics| streams; one count_pods_all per cluster
-        # mutation generation replaces that many per-node lock hits
+        # (bound_version, counts) — a metric sweep reads bound-pod counts
+        # for |nodes| x |metrics| streams; one count_pods_all per bound-pod
+        # generation replaces that many per-node lock hits. The reference
+        # keys these caches on sched_version, which each annotation patch
+        # of a per-node sweep moves, so its sweep recounts every node's
+        # pods once per (node, metric): O(nodes x nodes with pods). The
+        # counts are the same either way.
         self._counts_cache: tuple[int, dict[str, int]] | None = None
         self._counts_vec_cache: tuple | None = None
 
@@ -125,7 +129,7 @@ class Simulator:
     # -- load streams ------------------------------------------------------
 
     def _bound_counts(self) -> dict[str, int]:
-        version = self.cluster.sched_version
+        version = self.cluster.bound_version
         cache = self._counts_cache
         if cache is None or cache[0] != version:
             cache = (version, self.cluster.count_pods_all())
@@ -145,10 +149,10 @@ class Simulator:
 
     def _counts_vector(self):
         """Bound-pod counts aligned with ``self._pairs`` (cached on the
-        cluster's mutation generation alongside ``_bound_counts``)."""
+        cluster's bound-pod generation alongside ``_bound_counts``)."""
         import numpy as np
 
-        version = self.cluster.sched_version
+        version = self.cluster.bound_version
         cache = self._counts_vec_cache
         if cache is None or cache[0] != version:
             bc_for = getattr(self.cluster, "bound_counts_for", None)

@@ -9,12 +9,20 @@ from .timeutil import (
     now_epoch,
 )
 from .score import normalize_score, go_trunc
+from .system import (
+    DEFAULT_SYSTEM_NAMESPACE,
+    SYSTEM_NAMESPACE_ENV,
+    system_namespace,
+)
 from .logging import set_verbosity, verbosity, vlog
 
 __all__ = [
     "set_verbosity",
     "verbosity",
     "vlog",
+    "DEFAULT_SYSTEM_NAMESPACE",
+    "SYSTEM_NAMESPACE_ENV",
+    "system_namespace",
     "parse_go_duration",
     "format_go_duration",
     "TIME_FORMAT",

@@ -182,3 +182,26 @@ def test_metrics_sync_plane_entry_points_default_to_cuda(monkeypatch, capsys):
     with pytest.raises(SystemExit) as exc:
         sim_main.main(["--device", "cpu", "--mode", "sharded"])
     assert exc.value.code == 2 and "Queue 1 item 7" in capsys.readouterr().err
+
+
+def test_front_doors_default_to_cuda(monkeypatch, capsys):
+    """crane-scheduler without --device needs the card, before it builds
+    its simulation; only --device cpu runs on the CPU. The descheduler,
+    the storm generator and the new modules import without JAX (above)."""
+    from crane_scheduler_tpu_torch.cli import scheduler_main
+
+    monkeypatch.chdir(REPO)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for argv in (["--demo-nodes", "4", "--pods", "2"],
+                 ["--demo-nodes", "4", "--pods", "2", "--batch-size", "2"],
+                 ["--demo-nodes", "4", "--device", "cuda"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            scheduler_main.main(argv)
+    assert capsys.readouterr().out == ""
+    assert scheduler_main.main(["--demo-nodes", "4", "--pods", "2", "--device", "cpu"]) == 0
+    assert '"scheduled": 2' in capsys.readouterr().out
+    for name in ("descheduler", "descheduler.config", "descheduler.descheduler",
+                 "cli.descheduler_main", "cli.scheduler_main", "resilience.loadgen",
+                 "utils.system"):
+        assert (PORT / (name.replace(".", "/") + ".py")).exists() or \
+            (PORT / name.replace(".", "/") / "__init__.py").exists()
