@@ -134,8 +134,8 @@ non-zero without printing a result.
    the 224 pods as pending pods, float32 hybrid equal to float64. The line
    carries ms per gang of each leg, dispatch host ms per window,
    ``kernel_dispatches``, ``free_uploads`` and both ``ensure()`` times.
-   (config 22's wire leg waits for the kube mirror; clusters are built
-   with ``add_node``.)
+   (Clusters are built with ``add_node``; config 22's wire leg is in
+   ``kube``.)
 18. numa_gang: config 22's cluster at 50,000 nodes with one NRT CR per
    node (two zones of 8 cores, 32Gi and 50Gi; CPU policy ``None`` on
    ``i % 50 == 3``, node-aware on ``i % 4 == 0``, no CR on ``i % 100 ==
@@ -263,18 +263,52 @@ non-zero without printing a result.
    fallback; K1 launches equal the service's renders. Goodput as a share
    of peak and the accepted p99 against twice the unloaded p99 plus 50 ms
    are reported beside config 17's gates, not held to them.
+24. kube: the kube mirror (``cluster.kube.KubeClusterClient``) over
+   ``tests/kube_stub.py``, each stub in its own process
+   (``KubeStubSubprocess``). read (bench config 9's shape): 50,000 nodes
+   with the 12 metrics of ``deploy/dynamic/policy-12metrics.yaml`` and
+   allocatable {cpu 16, memory 64Gi, ephemeral-storage 100Gi, pods 110},
+   pages of 2,000: the bootstrap (its node pages and decode ms), the mirror
+   equal to the stub node for node; the first ``BatchScheduler.refresh()``
+   through the columnar branch equal (store rows) to a ``list_nodes`` sweep
+   into a second store; a forced relist; a 20,000-event node MODIFIED storm
+   (events/s, mirror transactions; the mirror equal to the stub after it);
+   a relist; a 1% ``patch_node_annotations_bulk`` over the wire (500 nodes)
+   and the refresh through ``dirty_ingest``, again equal to a sweep.
+   burst: on that stub, two float32 ``schedule_pod_burst`` of 10,000 pods
+   (creation POSTs, K1 and K2, binding POSTs) equal to a ``device="cpu"``
+   ``BatchScheduler`` over an in-memory cluster with the mirror's nodes, the
+   same `now` and pod names; ``bind_posts`` equal to the pods placed, no
+   duplicate bind, every pod tracked to its lifecycle ``watch_confirm``, K1
+   and K2 once per burst. drip (config 15 over the wire): a fresh
+   50,000-node stub, 4,096 pods created with ``add_pod``,
+   ``schedule_queue(window=128)`` on ``Scheduler(client, columnar=True)``
+   (ResourceFit x1, Dynamic x3) equal to the same queue on an in-memory
+   cluster on the card; 4,096 binding POSTs, no duplicate, K1 and K2 0. gang
+   (config 22's wire leg): 5,000 nodes, 24 gangs (224 pods),
+   ``schedule_gang_queue(window=8)`` equal to the in-memory queue; 224
+   binding POSTs, K2 once per gang. cli: a 5,000-node stub with fresh
+   annotations and 1,024 pending pods: crane-scorer ``--master --f32`` on
+   the card and on ``--device cpu`` (subprocesses) answer one ``/v1/score``
+   with equal bytes (``stalenessSeconds`` aside), one K1 launch;
+   crane-scheduler ``--master --batch-size 256`` in-process on the card
+   equals its ``--device cpu`` twin (this script's ``--kube-scheduler-twin``
+   child mode, on its own identically seeded stub) in result line and the
+   sha256 of the stub's sorted (pod, node) bindings; K2 once per batch, no
+   K1.
 
 Before each path (main path, delta, column, overlap, hybrid scorer, the
 drip queue, serve, scalar and dirty phases, telemetry, the gang
 sequential, window and mixed legs, the NUMA gang, queue, mixed and
 per-pod legs, the service's score, HTTP and assign legs, the
 replicated phase's sim, replicas and router-assign legs, the descheduler's
-card leg, each crane-scheduler run and the storm) the kernels'
+card leg, each crane-scheduler run, the storm, and the kube phase's
+burst, drip, gang and crane-scheduler legs) the kernels'
 launch counters are set to 0, and after it each
 kernel the path runs must have launched; the ``kernels`` line lists the
 counts per path (the drip paths, the per-pod NUMA leg, the descheduler's
-re-placement windows and crane-scheduler's plugin modes run neither
-kernel).
+re-placement windows, crane-scheduler's plugin modes and the kube drip
+storm run neither kernel; crane-scorer's counts come from its exit line).
 
 A kernel's device time is the mean duration of its launches under
 ``torch.profiler`` over 200 back-to-back wrapper calls at the main path's
@@ -3983,6 +4017,636 @@ def phase_storm(dev) -> tuple:
     return out, launched
 
 
+# -- kube: the kube mirror over the wire stub -----------------------------------
+
+KUBE_PAGE = 2000  # list_page_limit (bench config 9)
+KUBE_POLICY = "deploy/dynamic/policy-12metrics.yaml"  # config 9's 12 metrics
+KUBE_STAMP = "2026-07-30T00:00:00Z"  # the stub's seeded annotation timestamp
+KUBE_STORM = 20_000  # node MODIFIED events of the read leg's watch storm
+KUBE_PATCH_NODES = N_NODES // 100  # the 1% named patch before the dirty refresh
+KUBE_BURSTS = 2
+KUBE_BURST_PODS = 10_000
+KUBE_DRIP_PODS = DRIP_PODS
+KUBE_GANG_NODES = 5_000  # config 22's wire_nodes
+KUBE_CLI_NODES = 5_000
+KUBE_CLI_PODS = 1_024
+KUBE_CLI_BATCH = 256
+KUBE_TWIN_ARG = "--kube-scheduler-twin"  # the child mode of the --master CPU twin
+
+
+def load_kube_stub():
+    """``tests/kube_stub.py`` (standard library only), loaded by path."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent / "tests" / "kube_stub.py"
+    spec = importlib.util.spec_from_file_location("kube_stub", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def kube_now() -> float:
+    from crane_scheduler_tpu_torch.utils.timeutil import parse_local_time
+
+    return parse_local_time(KUBE_STAMP) + 30.0
+
+
+def kube_node_t(node) -> tuple:
+    return (node.name, dict(node.annotations),
+            tuple((a.type, a.address) for a in node.addresses), dict(node.allocatable))
+
+
+def seeded_node_t(i: int, metrics, extra=None) -> tuple:
+    """The stub's ``seed`` node ``i`` as ``kube_node_t`` sees it."""
+    anno = {m: f"{(i % 97) / 97:.5f},{KUBE_STAMP}" for m in metrics}
+    anno.update(extra or {})
+    return (f"node-{i:05d}", anno,
+            (("InternalIP", f"10.{(i >> 16) & 255}.{(i >> 8) & 255}.{i & 255}"),),
+            dict(DRIP_ALLOCATABLE))
+
+
+def settle(client, server, offsets: dict, what: str, timeout: float = 120.0,
+           rv: int | None = None) -> float:
+    """Wait until the client's watches delivered the stub's last write (or
+    resourceVersion ``rv``): for each kind, its stream's resourceVersion
+    within ``offsets[kind]`` of it (a bind's pod MODIFIED precedes its
+    Scheduled event by one). Returns the seconds waited."""
+    if rv is None:
+        rv = int(server.stats()["rv"])
+    t0 = time.perf_counter()
+    while not all(int(client._rvs.get(kind) or 0) >= rv - off for kind, off in offsets.items()):
+        if time.perf_counter() - t0 > timeout:
+            raise AssertionError(f"kube: {what}: the watch did not catch up to rv {rv}: "
+                                 f"{dict(client._rvs)}")
+        time.sleep(0.005)
+    return time.perf_counter() - t0
+
+
+def hist_count_sum(tel, family: str, **labels) -> tuple:
+    fams = expfmt.parse_exposition(tel.registry.render())
+    count = total = 0.0
+    for name, lab, value in fams.get(family, {}).get("samples", ()):
+        if any(dict(lab).get(k) != v for k, v in labels.items()):
+            continue
+        if name.endswith("_count"):
+            count += value
+        elif name.endswith("_sum"):
+            total += value
+    return count, total
+
+
+def sweep_store(client, policy) -> NodeLoadStore:
+    store = NodeLoadStore(compile_policy(policy))
+    nodes = client.list_nodes()
+    store.bulk_ingest((n.name, n.annotations) for n in nodes)
+    store.prune_absent(n.name for n in nodes)
+    return store
+
+
+def mirror_equals(client, want: list, what: str) -> None:
+    got = sorted(map(kube_node_t, client.list_nodes()))
+    if got != want:
+        bad = next((g, w) for g, w in zip(got + [None] * len(want), want + [None] * len(got))
+                   if g != w)
+        raise AssertionError(f"kube: {what}: the mirror != the stub ({len(got)} nodes, "
+                             f"first difference {bad})")
+
+
+def kube_read_leg(kube_stub, dev, tel) -> tuple:
+    """Config 9's read path at 50,000 nodes: bootstrap, the columnar refresh
+    against a sweep, a forced relist, a 20,000-event watch storm, a relist,
+    and a 1% named patch over the wire through ``dirty_ingest``. Returns
+    (line, server, client, batch scheduler, policy) for the bursts."""
+    from crane_scheduler_tpu_torch.cluster.kube import KubeClusterClient
+    from crane_scheduler_tpu_torch.policy import load_policy_from_file
+
+    policy = load_policy_from_file(KUBE_POLICY)
+    metrics = [sp.name for sp in policy.spec.sync_period]
+    now = kube_now()
+    server = kube_stub.KubeStubSubprocess()
+    client = None
+    try:
+        t0 = time.perf_counter()
+        server.seed(N_NODES, "node-", metrics=metrics, allocatable=DRIP_ALLOCATABLE)
+        seed_s = time.perf_counter() - t0
+        client = KubeClusterClient(server.url, list_page_limit=KUBE_PAGE, telemetry=tel)
+        t0 = time.perf_counter()
+        client.start()
+        bootstrap_ms = (time.perf_counter() - t0) * 1e3
+        pages, decode_s = hist_count_sum(tel, "crane_kube_list_decode_seconds", kind="nodes")
+        want = [seeded_node_t(i, metrics) for i in range(N_NODES)]
+        mirror_equals(client, want, "bootstrap")
+
+        batch = BatchScheduler(client, policy, dtype=torch.float32, clock=lambda: now,
+                               device=dev, telemetry=tel)
+        stats = batch.refresh_stats
+        t0 = time.perf_counter()
+        batch.refresh()
+        columnar_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        sweep = sweep_store(client, policy)
+        sweep_ms = (time.perf_counter() - t0) * 1e3
+        if stats["columnar_ingest"] != 1 or not rows_equal(store_rows(batch.store),
+                                                           store_rows(sweep)):
+            raise AssertionError(f"kube: the columnar refresh != the sweep ({stats})")
+
+        t0 = time.perf_counter()
+        client._relist_nodes()
+        relist_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        batch.refresh()
+        relist_refresh_ms = (time.perf_counter() - t0) * 1e3
+        if stats["columnar_ingest"] != 2 or not rows_equal(
+                store_rows(batch.store), store_rows(sweep_store(client, policy))):
+            raise AssertionError("kube: the refresh after a relist != the sweep")
+
+        applied0, batches0 = client.watch_applied, client.watch_batches
+        coalesced0 = client.watch_coalesced
+        rv0 = int(server.stats()["rv"])
+        t0 = time.perf_counter()
+        server.storm("nodes", KUBE_STORM)  # the stub generates it on a thread
+        storm_wait_s = settle(client, server, {"nodes": 0}, "storm", timeout=300.0,
+                              rv=rv0 + KUBE_STORM)
+        storm_s = time.perf_counter() - t0
+        applied = client.watch_applied - applied0
+        want = [seeded_node_t(i, metrics, {"crane.io/storm": str(i)} if i < KUBE_STORM else None)
+                for i in range(N_NODES)]
+        mirror_equals(client, want, "watch storm")
+
+        t0 = time.perf_counter()
+        client._relist_nodes()
+        storm_relist_ms = (time.perf_counter() - t0) * 1e3
+        batch.refresh()
+        rng = np.random.default_rng(SEED + 11)
+        patched = sorted(rng.choice(N_NODES, KUBE_PATCH_NODES, replace=False).tolist())
+        values = rng.uniform(0.0, 1.0, (len(patched), len(metrics)))
+        stamp = KUBE_STAMP.replace(":00Z", ":10Z")
+        per_node = {f"node-{i:05d}": {m: f"{values[j, k]:.5f},{stamp}"
+                                      for k, m in enumerate(metrics)}
+                    for j, i in enumerate(patched)}
+        t0 = time.perf_counter()
+        n_patched = client.patch_node_annotations_bulk(per_node)
+        patch_ms = (time.perf_counter() - t0) * 1e3
+        echo_s = settle(client, server, {"nodes": 0}, "patch echoes")
+        dirty0 = stats["dirty_ingest"]
+        t0 = time.perf_counter()
+        batch.refresh()
+        dirty_ms = (time.perf_counter() - t0) * 1e3
+        if n_patched != KUBE_PATCH_NODES or stats["dirty_ingest"] != dirty0 + 1:
+            raise AssertionError(f"kube: the 1% patch: {n_patched} patched, refresh {stats}")
+        if not rows_equal(store_rows(batch.store), store_rows(sweep_store(client, policy))):
+            raise AssertionError("kube: the dirty refresh != the sweep")
+        for j, i in enumerate(patched):
+            want[i][1].update(per_node[f"node-{i:05d}"])
+        mirror_equals(client, want, "1% patch")
+        if stats["columnar_ingest"] < 1 or stats["dirty_ingest"] < 1:
+            raise AssertionError(f"kube: refresh counters {stats}")
+        line = {
+            "nodes": N_NODES, "metrics": len(metrics), "page_limit": KUBE_PAGE,
+            "stub_seed_s": seed_s, "bootstrap_ms": bootstrap_ms, "node_pages": pages,
+            "node_decode_ms": decode_s * 1e3, "mirror_equals_stub": True,
+            "columnar_refresh_ms": columnar_ms, "sweep_refresh_ms": sweep_ms,
+            "relist_ms": relist_ms, "refresh_after_relist_ms": relist_refresh_ms,
+            "storm_events": KUBE_STORM, "storm_applied": applied, "storm_s": storm_s,
+            "storm_wait_s": storm_wait_s,
+            "storm_events_per_s": KUBE_STORM / storm_s,
+            "storm_transactions": client.watch_batches - batches0,
+            "storm_coalesced": client.watch_coalesced - coalesced0,
+            "relist_after_storm_ms": storm_relist_ms, "patch_nodes": n_patched,
+            "patch_ms": patch_ms, "patch_echo_s": echo_s, "dirty_refresh_ms": dirty_ms,
+            "columnar_ingest": stats["columnar_ingest"], "dirty_ingest": stats["dirty_ingest"],
+            "relists": client.relists, "watch_errors": client.watch_errors,
+        }
+        return line, server, client, batch, policy
+    except BaseException:
+        if client is not None:
+            client.stop()
+        server.stop()
+        raise
+
+
+def kube_burst_leg(server, client, batch, policy, tel) -> tuple:
+    """Two float32 bursts of 10,000 pods over the wire (creation POSTs, K1
+    and K2, binding POSTs) against a CPU twin over an in-memory cluster
+    with the mirror's nodes, the same `now` and pod names."""
+    now = kube_now()
+    twin_cluster = ClusterState()
+    for node in client.list_nodes():
+        twin_cluster.add_node(node)
+    twin = BatchScheduler(twin_cluster, policy, dtype=torch.float32, clock=lambda: now,
+                          device="cpu")
+    tel.lifecycle.batch_sample = KUBE_BURST_PODS  # track every pod to its watch_confirm
+    confirmed0 = tel.lifecycle.confirmed_total
+    e2e0 = hist_count_sum(tel, "crane_placement_e2e_seconds")[0]
+    posts0 = server.stats()["requests"].get("POST", 0)
+    reset_launches()
+    burst_ms, stage_ms, settle_s, placed, card = [], [], [], 0, []
+    for k in range(KUBE_BURSTS):
+        names = [f"kb{k}-{i:05d}" for i in range(KUBE_BURST_PODS)]
+        batch.burst_stage_ms = dict.fromkeys(BURST_STAGES, 0.0)
+        t0 = time.perf_counter()
+        result = batch.schedule_pod_burst("kube", names)
+        burst_ms.append((time.perf_counter() - t0) * 1e3)
+        stage_ms.append(dict(batch.burst_stage_ms))
+        settle_s.append(settle(client, server, {"pods": 1, "events": 0}, f"burst {k}"))
+        idx = np.asarray(result.node_idx)
+        placed += int((idx >= 0).sum())
+        card.append([result.node_table[j] if j >= 0 else None for j in idx.tolist()])
+    launched = read_launches("kube burst")
+    if launched != {"score": KUBE_BURSTS, "gang": KUBE_BURSTS}:
+        raise AssertionError(f"kube burst: launches {launched}, want K1 and K2 once per burst")
+    for k in range(KUBE_BURSTS):
+        result = twin.schedule_pod_burst("kube", [f"kb{k}-{i:05d}" for i in range(KUBE_BURST_PODS)])
+        want = [result.node_table[j] if j >= 0 else None
+                for j in np.asarray(result.node_idx).tolist()]
+        if card[k] != want:
+            raise AssertionError(f"kube burst {k}: wire placements != the in-memory CPU twin's")
+    stats = server.stats()
+    confirmed = tel.lifecycle.confirmed_total - confirmed0
+    e2e = hist_count_sum(tel, "crane_placement_e2e_seconds")[0] - e2e0
+    if stats["duplicate_binds"] != 0 or stats["bind_posts"] != placed:
+        raise AssertionError(f"kube burst: bind_posts {stats['bind_posts']}, duplicates "
+                             f"{stats['duplicate_binds']}, placed {placed}")
+    if confirmed != placed or e2e != placed:
+        raise AssertionError(f"kube burst: watch_confirm {confirmed}, e2e observations {e2e}, "
+                             f"placed {placed}")
+    if sum(client.count_pods_all().values()) != placed:
+        raise AssertionError("kube burst: the mirror's bound counts != the pods placed")
+    posts = stats["requests"].get("POST", 0) - posts0
+    line = {
+        "bursts": KUBE_BURSTS, "pods_per_burst": KUBE_BURST_PODS, "placed": placed,
+        "equal_to_cpu_twin": True, "ms_per_burst": burst_ms, "stage_ms_per_burst": stage_ms,
+        "settle_s_per_burst": settle_s, "posts": posts,
+        "posts_per_s": posts / (sum(burst_ms) / 1e3), "bind_posts": stats["bind_posts"],
+        "duplicate_binds": stats["duplicate_binds"], "watch_confirm": confirmed,
+        "placement_e2e_observations": e2e,
+        "placement_e2e_mean_ms": 1e3 * (lambda c, s: s / c if c else 0.0)(
+            *hist_count_sum(tel, "crane_placement_e2e_seconds")),
+        "refresh_stats": dict(batch.refresh_stats), "launches": launched,
+    }
+    return line, launched
+
+
+def kube_drip_scheduler(cluster, dev) -> Scheduler:
+    clock = kube_now
+    sched = Scheduler(cluster, clock=clock, columnar=True, device=dev)
+    sched.register(ResourceFitPlugin(FitTracker(cluster)), weight=1)
+    sched.register(DynamicPlugin(DEFAULT_POLICY, clock=clock), weight=3)
+    return sched
+
+
+def kube_drip_pods(prefix: str, count: int, cpu: str = "100m") -> list:
+    return [Pod(name=f"{prefix}-{i:05d}", containers=(Container("c", ResourceRequirements(
+        requests={"cpu": cpu, "memory": "128Mi"})),)) for i in range(count)]
+
+
+def kube_drip_leg(kube_stub, dev) -> tuple:
+    """Config 15's drip storm over the wire at 50,000 nodes: 4,096 pods
+    created with ``add_pod``, ``schedule_queue(window=128)`` on
+    ``Scheduler(client, columnar=True)`` (ResourceFit x1, Dynamic x3),
+    against the same queue on an in-memory cluster with the same nodes,
+    on the card."""
+    from crane_scheduler_tpu_torch.cluster.kube import KubeClusterClient
+
+    metrics = [sp.name for sp in DEFAULT_POLICY.spec.sync_period]
+    server = kube_stub.KubeStubSubprocess()
+    client = None
+    try:
+        server.seed(N_NODES, "node-", metrics=metrics, allocatable=DRIP_ALLOCATABLE)
+        client = KubeClusterClient(server.url, list_page_limit=KUBE_PAGE)
+        t0 = time.perf_counter()
+        client.start()
+        bootstrap_ms = (time.perf_counter() - t0) * 1e3
+        twin = ClusterState()
+        for node in client.list_nodes():
+            twin.add_node(node)
+        sched = kube_drip_scheduler(client, dev)
+        warm = kube_drip_pods("kwarm", DRIP_WINDOW, cpu="100000")
+        pods = kube_drip_pods("kdrip", KUBE_DRIP_PODS)
+        t0 = time.perf_counter()
+        for pod in warm + pods:
+            client.add_pod(pod)
+        create_s = time.perf_counter() - t0
+        settle(client, server, {"pods": 0}, "drip creations")
+        if any(r.node for r in sched.schedule_queue(warm, window=DRIP_WINDOW)):
+            raise AssertionError("kube drip: a warm-up pod was placed")
+        pre = sched.drip_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        results = sched.schedule_queue(pods, window=DRIP_WINDOW)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        launched = read_launches("kube drip", need=())
+        if launched != {"score": 0, "gang": 0}:
+            raise AssertionError(f"kube drip: launches {launched}")
+        drip = sched.drip_stats()
+        stats = server.stats()
+        binds = sum(r.node is not None for r in results)
+        if (binds != KUBE_DRIP_PODS or stats["bind_posts"] != KUBE_DRIP_PODS
+                or stats["duplicate_binds"] != 0 or drip["fallbacks"]
+                or drip["folds"] - pre["folds"] != KUBE_DRIP_PODS):
+            raise AssertionError(f"kube drip: {binds} binds, bind_posts {stats['bind_posts']}, "
+                                 f"duplicates {stats['duplicate_binds']}, drip {drip}")
+        twin_sched = kube_drip_scheduler(twin, dev)
+        twin.add_pods(warm + pods)
+        twin_sched.schedule_queue(warm, window=DRIP_WINDOW)
+        t0 = time.perf_counter()
+        want = twin_sched.schedule_queue(pods, window=DRIP_WINDOW)
+        twin_ms = (time.perf_counter() - t0) * 1e3
+        if placements(results) != placements(want):
+            raise AssertionError("kube drip: wire placements != the in-memory queue's")
+        windows = drip["batch"]["dispatches"] - pre["batch"]["dispatches"]
+        line = {
+            "nodes": N_NODES, "pods": KUBE_DRIP_PODS, "window": DRIP_WINDOW,
+            "bootstrap_ms": bootstrap_ms, "add_pod_s": create_s,
+            "ms_per_pod": wall_ms / KUBE_DRIP_PODS, "wall_ms": wall_ms,
+            "binds_per_s": binds / (wall_ms / 1e3), "windows": windows,
+            "in_memory_ms_per_pod": twin_ms / KUBE_DRIP_PODS, "equal_to_in_memory": True,
+            "bind_posts": stats["bind_posts"], "duplicate_binds": stats["duplicate_binds"],
+            "folds": drip["folds"] - pre["folds"], "launches": launched,
+        }
+        return line, launched
+    finally:
+        if client is not None:
+            client.stop()
+        server.stop()
+
+
+def kube_gang_leg(kube_stub, dev) -> tuple:
+    """Config 22's gangs over the wire: 24 gangs (224 pods) through
+    ``schedule_gang_queue(window=8)`` on a 5,000-node stub, against the
+    same queue on an in-memory cluster with the mirror's nodes."""
+    from crane_scheduler_tpu_torch.cluster.kube import KubeClusterClient
+
+    metrics = [sp.name for sp in DEFAULT_POLICY.spec.sync_period]
+    now = kube_now()
+    server = kube_stub.KubeStubSubprocess()
+    client = None
+    total = sum(c for _, c in GANG_SHAPES)
+    kw = dict(window=GANG_WINDOW, dynamic_weight=GANG_DYN_W, topology_weight=GANG_TOPO_W)
+    try:
+        server.seed(KUBE_GANG_NODES, "node-", metrics=metrics, allocatable=DRIP_ALLOCATABLE)
+        client = KubeClusterClient(server.url, list_page_limit=KUBE_PAGE)
+        client.start()
+        twin = ClusterState()
+        for node in client.list_nodes():
+            twin.add_node(node)
+        wire = BatchScheduler(client, DEFAULT_POLICY, dtype=torch.float32, clock=lambda: now,
+                              device=dev)
+        reset_launches()
+        t0 = time.perf_counter()
+        out = wire.schedule_gang_queue(gang_requests("w"), **kw)
+        wire_ms = (time.perf_counter() - t0) * 1e3
+        launched = read_launches("kube gang", need=("gang",))
+        if launched["gang"] != len(GANG_SHAPES):
+            raise AssertionError(f"kube gang: launches {launched} for {len(GANG_SHAPES)} gangs")
+        stats = server.stats()
+        placed = sum(len(o.assignments) for o in out)
+        if (placed != total or stats["bind_posts"] != placed or stats["duplicate_binds"] != 0
+                or wire.gang_stats()["fallbacks"]):
+            raise AssertionError(f"kube gang: {placed}/{total} placed, bind_posts "
+                                 f"{stats['bind_posts']}, duplicates {stats['duplicate_binds']}")
+        mem = BatchScheduler(twin, DEFAULT_POLICY, dtype=torch.float32, clock=lambda: now,
+                             device=dev)
+        t0 = time.perf_counter()
+        want = mem.schedule_gang_queue(gang_requests("w"), **kw)
+        mem_ms = (time.perf_counter() - t0) * 1e3
+        if [dict(o.assignments) for o in out] != [dict(o.assignments) for o in want]:
+            raise AssertionError("kube gang: wire placements != the in-memory queue's")
+        line = {
+            "nodes": KUBE_GANG_NODES, "gangs": len(GANG_SHAPES), "pods": placed,
+            "ms_per_gang": wire_ms / len(GANG_SHAPES),
+            "in_memory_ms_per_gang": mem_ms / len(GANG_SHAPES), "equal_to_in_memory": True,
+            "bind_posts": stats["bind_posts"], "duplicate_binds": stats["duplicate_binds"],
+            "launches": launched,
+        }
+        return line, launched
+    finally:
+        if client is not None:
+            client.stop()
+        server.stop()
+
+
+def kube_cli_stub(kube_stub, stamp_epoch: float):
+    """A 5,000-node stub with fresh seeded annotations stamped at
+    ``stamp_epoch`` and 1,024 pending pods (500m cpu, 256Mi)."""
+    from crane_scheduler_tpu_torch.cluster.kube import KubeClusterClient
+
+    metrics = [sp.name for sp in DEFAULT_POLICY.spec.sync_period]
+    server = kube_stub.KubeStubSubprocess()
+    try:
+        server.seed(KUBE_CLI_NODES, "node-", allocatable=DRIP_ALLOCATABLE)
+        writer = KubeClusterClient(server.url)  # writes only: never started
+        rng = np.random.default_rng(SEED + 23)
+        values = rng.uniform(0.0, 1.0, (KUBE_CLI_NODES, len(metrics)))
+        stamp = format_local_time(stamp_epoch)
+        per_node = {f"node-{i:05d}": {m: f"{values[i, k]:.5f},{stamp}"
+                                      for k, m in enumerate(metrics)}
+                    for i in range(KUBE_CLI_NODES)}
+        patched = writer.patch_node_annotations_bulk(per_node)
+        writer.add_pods(kube_drip_pods("fd", KUBE_CLI_PODS, cpu="500m"))
+        writer.stop()
+        if patched != KUBE_CLI_NODES or server.stats()["requests"].get("POST", 0) \
+                < KUBE_CLI_PODS:
+            raise AssertionError(f"kube cli stub: {patched} nodes annotated")
+        return server
+    except BaseException:
+        server.stop()
+        raise
+
+
+def stub_bindings(url: str) -> dict:
+    """The sorted (pod, node) bindings the stub holds: count and sha256."""
+    import hashlib
+    import urllib.request
+
+    with urllib.request.urlopen(url + "/api/v1/pods", timeout=120) as resp:  # noqa: S310
+        items = json.loads(resp.read())["items"]
+    pairs = sorted((f"{o['metadata']['namespace']}/{o['metadata']['name']}",
+                    (o.get("spec") or {}).get("nodeName") or "") for o in items)
+    bound = [p for p in pairs if p[1]]
+    return {"pods": len(pairs), "bound": len(bound),
+            "sha256": hashlib.sha256(json.dumps(pairs).encode()).hexdigest()}
+
+
+def kube_scheduler_cli(url: str, device: str) -> dict:
+    """crane-scheduler ``--master`` in this process: its result line (no
+    ``wall_seconds`` and ``master``), its wall seconds and the stub's
+    bindings after it."""
+    import contextlib
+    import io
+
+    from crane_scheduler_tpu_torch.cli import scheduler_main
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = scheduler_main.main(["--master", url, "--batch-size", str(KUBE_CLI_BATCH),
+                                  "--device", device])
+    if rc != 0:
+        raise AssertionError(f"crane-scheduler --master exited {rc}")
+    line = json.loads(buf.getvalue().strip().splitlines()[-1])
+    wall = line.pop("wall_seconds")
+    line.pop("master")
+    return {"line": line, "wall_seconds": wall, "bindings": stub_bindings(url)}
+
+
+def kube_scheduler_twin_child(stamp_epoch: float) -> int:
+    """The child mode ``KUBE_TWIN_ARG``: crane-scheduler ``--master --device
+    cpu`` on its own identically seeded stub, as one JSON line."""
+    server = kube_cli_stub(load_kube_stub(), stamp_epoch)
+    try:
+        out = kube_scheduler_cli(server.url, "cpu")
+    finally:
+        server.stop()
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def kube_scorer_cli(url: str, now: float) -> dict:
+    """crane-scorer ``--master --f32`` on the card and ``--device cpu`` as
+    subprocesses over one stub: one ``POST /v1/score`` each at ``now``;
+    the bodies, their exit lines and launches."""
+    import re
+    import signal
+    import socket
+
+    def free_port():
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            return s.getsockname()[1]
+
+    runs = {}
+    for name, extra in (("card", []), ("cpu", ["--device", "cpu"])):
+        port = free_port()
+        runs[name] = (port, start_cli(
+            ["crane_scheduler_tpu_torch.cli.service_main", "--master", url, "--f32",
+             "--port", str(port), "--now-bucket", "0", "--run-seconds", "300", *extra]))
+    bodies, exits = {}, {}
+    try:
+        for name, (port, (proc, t0)) in runs.items():
+            while True:
+                try:
+                    status, _ = http_json(port, "GET", "/healthz", timeout=10)
+                    if status == 200:
+                        break
+                except OSError:
+                    pass
+                if proc.poll() is not None or time.perf_counter() - t0 > 180:
+                    raise AssertionError(f"kube cli: crane-scorer ({name}) did not come up")
+                time.sleep(0.1)
+            status, body = http_json(port, "POST", "/v1/score", {"now": now})
+            if status != 200:
+                raise AssertionError(f"kube cli: crane-scorer ({name}) answered {status}")
+            bodies[name] = body
+    finally:
+        for name, (port, (proc, t0)) in runs.items():
+            proc.send_signal(signal.SIGTERM)
+            try:
+                stdout, err = proc.communicate(timeout=60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                stdout, err = proc.communicate()
+            exits[name] = (proc.returncode, stdout, err)
+    for name, (rc, stdout, err) in exits.items():
+        if rc != 0:
+            raise AssertionError(f"kube cli: crane-scorer ({name}) exited {rc}: {err[-400:]!r}")
+    drop = lambda b: re.sub(rb'"stalenessSeconds": [0-9.e-]+, ', b"", b)  # noqa: E731
+    card = drop(bodies["card"])
+    if not card.startswith(CARD_BODY) or \
+            card.replace(CARD_BODY, b'{"backend": "cpu"', 1) != drop(bodies["cpu"]):
+        raise AssertionError("kube cli: crane-scorer card body != the CPU twin's")
+    launches = {name: json.loads(stdout.strip().splitlines()[-1])["kernel_launches"]
+                for name, (_, stdout, _) in exits.items()}
+    if launches != {"card": {"score": 1, "gang": 0}, "cpu": {"score": 0, "gang": 0}}:
+        raise AssertionError(f"kube cli: crane-scorer launches {launches}")
+    nodes = len(json.loads(bodies["card"])["scores"])
+    if nodes != KUBE_CLI_NODES:
+        raise AssertionError(f"kube cli: crane-scorer scored {nodes} nodes")
+    return {"bytes": len(bodies["card"]), "nodes": nodes, "card_equals_cpu": True,
+            "launches": launches["card"]}
+
+
+def kube_cli_leg(kube_stub, dev) -> tuple:
+    """crane-scorer and crane-scheduler with ``--master`` on a 5,000-node
+    stub with 1,024 pending pods, each against a CPU twin: the scorer's
+    body bytes, the scheduler's result line and the stub's bindings (the
+    scheduler's twin, on its own identically seeded stub, in this
+    script's child mode)."""
+    stamp_epoch = time.time()
+    twin_run = start_cli([KUBE_TWIN_ARG, repr(stamp_epoch)], script=True)
+    by_path = {}
+    try:
+        server = kube_cli_stub(kube_stub, stamp_epoch)
+        try:
+            scorer = kube_scorer_cli(server.url, stamp_epoch + 5.0)
+            by_path["kube_cli_scorer"] = scorer["launches"]
+            reset_launches()
+            t0 = time.perf_counter()
+            card = kube_scheduler_cli(server.url, dev.type)
+            card["in_process_seconds"] = time.perf_counter() - t0
+            launched = read_launches("kube cli scheduler", need=("gang",))
+        finally:
+            server.stop()
+        batches = -(-KUBE_CLI_PODS // KUBE_CLI_BATCH)
+        if launched != {"score": 0, "gang": batches}:
+            raise AssertionError(f"kube cli: crane-scheduler launches {launched}, "
+                                 f"want K1 0, K2 {batches}")
+        by_path["kube_cli_scheduler"] = launched
+        twin, twin_s = finish_cli(twin_run, timeout=600)
+        twin_run = None
+        if card["line"] != twin["line"] or card["bindings"] != twin["bindings"]:
+            raise AssertionError(f"kube cli: crane-scheduler card {card['line']} "
+                                 f"{card['bindings']} != cpu {twin['line']} {twin['bindings']}")
+        if card["bindings"]["bound"] != card["line"]["scheduled"] or \
+                card["line"]["nodes"] != KUBE_CLI_NODES:
+            raise AssertionError(f"kube cli: crane-scheduler {card}")
+    finally:
+        if twin_run is not None and twin_run[0].poll() is None:
+            twin_run[0].kill()
+            twin_run[0].communicate()
+    line = {"nodes": KUBE_CLI_NODES, "pods": KUBE_CLI_PODS, "batch_size": KUBE_CLI_BATCH,
+            "scheduler": {**card, "cpu_wall_seconds": twin["wall_seconds"],
+                          "cpu_process_seconds": twin_s, "launches": launched,
+                          "equal_to_cpu": True},
+            "scorer": scorer}
+    return line, by_path
+
+
+def phase_kube(dev) -> tuple:
+    """The kube mirror over the wire stub (each stub in its own process):
+    the read path, two bursts, the drip storm, config 22's gangs and the
+    ``--master`` front doors."""
+    t_phase = time.perf_counter()
+    kube_stub = load_kube_stub()
+    tel = Telemetry(lifecycle_capacity=4 * KUBE_BURST_PODS)
+    by_path = {}
+    t0 = time.perf_counter()
+    read, server, client, batch, policy = kube_read_leg(kube_stub, dev, tel)
+    read["seconds"] = time.perf_counter() - t0
+    try:
+        t0 = time.perf_counter()
+        burst, by_path["kube_burst"] = kube_burst_leg(server, client, batch, policy, tel)
+        burst["seconds"] = time.perf_counter() - t0
+    finally:
+        client.stop()
+        server.stop()
+    t0 = time.perf_counter()
+    drip, by_path["kube_drip"] = kube_drip_leg(kube_stub, dev)
+    drip["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gang, by_path["kube_gang"] = kube_gang_leg(kube_stub, dev)
+    gang["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cli, cli_paths = kube_cli_leg(kube_stub, dev)
+    cli["seconds"] = time.perf_counter() - t0
+    by_path.update(cli_paths)
+    out = {"read": read, "burst": burst, "drip": drip, "gang": gang, "cli": cli,
+           "seconds": time.perf_counter() - t_phase}
+    log("kube", **out)
+    return out, by_path
+
+
+
 # per kernel in the `kernels` line: `ms` is the kernel's own device time
 KERNEL_KEYS = ("ms", "plain_ms", "bound_ms", "bound_by", "device_us", "bound_us",
                "pct_of_bound", "host_launch_ms", "device_launches_seen")
@@ -3993,6 +4657,8 @@ def main() -> int:
         return profile_renders_child()
     if sys.argv[1:2] == [SCHEDULER_TWIN_ARG]:
         return scheduler_twin_child(sys.argv[2:])
+    if sys.argv[1:2] == [KUBE_TWIN_ARG]:
+        return kube_scheduler_twin_child(float(sys.argv[2]))
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
         return 2
@@ -4042,6 +4708,8 @@ def main() -> int:
     _, front_door_paths = phase_front_doors(dev)
     by_path.update(front_door_paths)
     _, by_path["storm"] = phase_storm(dev)
+    _, kube_paths = phase_kube(dev)
+    by_path.update(kube_paths)
 
     kernels = [
         {

@@ -9,7 +9,7 @@ pops expired records (older than the max hot-value window).
 Copy of ``crane_scheduler_tpu/annotator/bindings.py``. The reference's
 annotator prefers its C++ heap (``native/bindings.py``) when the host
 library loads; the port has no binding of that library yet (``ROADMAP.md``
-Queue 1 item 8), so this pure-Python heap is the port's only backend. Both
+Queue 1 item 8.4), so this pure-Python heap is the port's only backend. Both
 give the same counts.
 """
 

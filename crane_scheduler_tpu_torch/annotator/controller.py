@@ -4,7 +4,7 @@ Copy of ``crane_scheduler_tpu/annotator/controller.py``. The reference
 reaches its host library (``native/``) on two paths when it loads: the C++
 binding heap, and ``bulk_parse_values`` for a direct-mode sweep's value
 column. The port has no binding of that library yet (``ROADMAP.md`` Queue 1
-item 8) and takes the reference's own fallbacks: the pure-Python
+item 8.4) and takes the reference's own fallbacks: the pure-Python
 ``BindingRecords`` and the per-string Go ``ParseFloat``
 (``go_parse_float``). Both give the reference's results bit for bit.
 

@@ -4,9 +4,12 @@ Counterpart of ``crane_scheduler_tpu/cli/annotator_main.py``. Flags
 mirror the reference controller
 (ref: cmd/controller/app/options/options.go:61-76): policy file,
 Prometheus address, binding heap size, concurrent syncs, health port and
-leader election (file-lock based). Nodes come from a JSON file
+leader election. Nodes come from a live apiserver through the kube
+mirror (``--master URL``, ``--token-file``; election then takes the
+apiserver Lease, ``service/kube_leader.py``), a JSON file
 (``--nodes-file``: [{"name": ..., "ip": ...}]) or a demo cluster
-(``--demo-nodes N`` with synthetic metrics); the metrics from Prometheus
+(``--demo-nodes N`` with synthetic metrics); without ``--master`` the
+election is a file lock. The metrics come from Prometheus
 (``--prometheus-address``) or a fake source at 0.25 per metric.
 
 ``--device`` (default ``cuda``, which needs a GPU; or ``cpu``) is where
@@ -16,13 +19,13 @@ the float32 ``BatchedScorer`` (the fused score kernel on the card), and
 the stats line reports the schedulable count beside ``synced`` and
 ``sync_errors``.
 
-``--master`` and ``--token-file`` (the kube mirror and the apiserver
-lease) exit with a usage error naming ``ROADMAP.md`` Queue 1 item 8.
-
 Usage:
   python -m crane_scheduler_tpu_torch.cli.annotator_main \
       --policy-config-path policy.yaml --prometheus-address http://prom:9090 \
       --nodes-file nodes.json [--leader-elect --lock-file /tmp/crane.lock]
+  python -m crane_scheduler_tpu_torch.cli.annotator_main \
+      --master https://apiserver:6443 --token-file /path/to/token \
+      --prometheus-address http://prom:9090 --leader-elect
 """
 
 from __future__ import annotations
@@ -36,6 +39,10 @@ import threading
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="crane-annotator")
+    parser.add_argument("--master", default=None,
+                        help="kube-apiserver URL: annotate the live "
+                             "cluster through the kube mirror")
+    parser.add_argument("--token-file", default=None)
     parser.add_argument("--policy-config-path", default=None)
     parser.add_argument("--prometheus-address", default="")
     parser.add_argument("--binding-heap-size", type=int, default=1024)
@@ -62,18 +69,7 @@ def main(argv=None) -> int:
                         help="raise [crane] log verbosity (-v sweeps/"
                              "windows, -vv cycles, -vvv per-pod); "
                              "default run is quiet")
-    # the kube mirror's flags: accepted by the parser only to refuse them
-    unported = parser.add_argument_group("not ported yet")
-    unported.add_argument("--master", default=None)
-    unported.add_argument("--token-file", default=None)
     args = parser.parse_args(argv)
-    for flag, value in (("--master", args.master),
-                        ("--token-file", args.token_file)):
-        if value is not None:
-            parser.error(
-                f"{flag} needs the kube mirror, which the PyTorch port does "
-                "not have yet (ROADMAP.md Queue 1 item 8)"
-            )
 
     if args.flight_dir:
         os.environ["CRANE_FLIGHT_DIR"] = args.flight_dir
@@ -113,21 +109,37 @@ def main(argv=None) -> int:
     prom_breaker = CircuitBreaker("prometheus", telemetry=tel)
     health_reg.watch_breaker(prom_breaker)
 
-    cluster = ClusterState()
-    if args.nodes_file:
-        with open(args.nodes_file) as f:
-            for doc in json.load(f):
-                cluster.add_node(
-                    Node(
-                        name=doc["name"],
-                        addresses=(NodeAddress("InternalIP", doc.get("ip", doc["name"])),),
+    mirror = None
+    if args.master:
+        from ..cluster.kube import KubeClusterClient
+
+        cluster = mirror = KubeClusterClient.from_flags(
+            args.master, args.token_file,
+            concurrent_syncs=args.concurrent_syncs,
+        )
+        cluster.read_breaker = CircuitBreaker("kube-read", telemetry=tel)
+        cluster.write_breaker = CircuitBreaker("kube-write", telemetry=tel)
+        health_reg.watch_breaker(cluster.read_breaker)
+        health_reg.watch_breaker(cluster.write_breaker)
+        cluster.start()
+        print(f"kube mirror: {len(cluster.list_nodes())} nodes from {args.master}",
+              flush=True)
+    else:
+        cluster = ClusterState()
+        if args.nodes_file:
+            with open(args.nodes_file) as f:
+                for doc in json.load(f):
+                    cluster.add_node(
+                        Node(
+                            name=doc["name"],
+                            addresses=(NodeAddress("InternalIP", doc.get("ip", doc["name"])),),
+                        )
                     )
+        elif args.demo_nodes:
+            for i in range(args.demo_nodes):
+                cluster.add_node(
+                    Node(name=f"node-{i}", addresses=(NodeAddress("InternalIP", f"10.0.0.{i}"),))
                 )
-    elif args.demo_nodes:
-        for i in range(args.demo_nodes):
-            cluster.add_node(
-                Node(name=f"node-{i}", addresses=(NodeAddress("InternalIP", f"10.0.0.{i}"),))
-            )
 
     if args.prometheus_address:
         from ..metrics import PrometheusClient
@@ -196,13 +208,32 @@ def main(argv=None) -> int:
         os._exit(1)
 
     if args.leader_elect:
-        elector = LeaderElector(
-            args.lock_file,
-            identity=f"crane-annotator-{os.getpid()}",
-            on_started_leading=run_annotator,
-            on_stopped_leading=lost_lease,
-        )
-        print(f"leader election on {args.lock_file}", flush=True)
+        if args.master:
+            # lease-based election against the apiserver (ref:
+            # server.go:86-126): works across pods, unlike a file lock
+            import socket
+
+            from ..service.kube_leader import KubeLeaderElector
+
+            elector = KubeLeaderElector(
+                cluster,
+                lease_name="crane-scheduler-tpu-annotator",
+                # the hostname (the pod name in k8s) must be in the
+                # identity: every container's entrypoint is PID 1
+                identity=f"crane-annotator-{socket.gethostname()}-{os.getpid()}",
+                on_started_leading=run_annotator,
+                on_stopped_leading=lost_lease,
+            )
+            print("leader election on lease crane-scheduler-tpu-annotator",
+                  flush=True)
+        else:
+            elector = LeaderElector(
+                args.lock_file,
+                identity=f"crane-annotator-{os.getpid()}",
+                on_started_leading=run_annotator,
+                on_stopped_leading=lost_lease,
+            )
+            print(f"leader election on {args.lock_file}", flush=True)
         elector_box.append(elector)
         thread = threading.Thread(target=elector.run, daemon=True)
         thread.start()
@@ -219,6 +250,8 @@ def main(argv=None) -> int:
         ),
         flush=True,
     )
+    if mirror is not None:
+        mirror.stop()
     return 0
 
 

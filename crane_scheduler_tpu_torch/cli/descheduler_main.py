@@ -11,8 +11,10 @@ evicts; a health + metrics port; ``--dry-run`` plans without evicting.
 The descheduler is host Python: it has no device work, so this entry
 point takes no ``--device``.
 
-The kube mirror is not ported yet: ``--master`` and ``--token-file``
-exit with a usage error naming ``ROADMAP.md`` Queue 1 item 8.
+The descheduler on the kube mirror (eviction POSTs, the apiserver lease
+and the intent journal) is not ported yet: ``--master`` and
+``--token-file`` exit with a usage error naming ``ROADMAP.md`` Queue 1
+item 8.2b.
 ``--journal-dir`` acts only with ``--master`` in the reference, so here
 it parses and does nothing.
 
@@ -32,8 +34,8 @@ import threading
 
 # flag -> the ROADMAP.md Queue 1 item that brings its plane
 _UNPORTED = (
-    ("master", "--master", "the kube mirror", "item 8"),
-    ("token_file", "--token-file", "the kube mirror", "item 8"),
+    ("master", "--master", "the descheduler on the kube mirror", "item 8.2b"),
+    ("token_file", "--token-file", "the descheduler on the kube mirror", "item 8.2b"),
 )
 
 

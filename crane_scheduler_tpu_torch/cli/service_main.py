@@ -16,7 +16,9 @@ scrapers, legacy JSON otherwise); ``GET /debug/decisions`` serves
 sampled decision traces and ``GET /debug/trace`` the Chrome
 trace-event spans.
 
-The cluster is a simulated one after one annotator pass
+The cluster is a live apiserver mirror (``--master URL``, with
+``--token-file`` and ``--concurrent-syncs``: the port's
+``KubeClusterClient``), a simulated one after one annotator pass
 (``--demo-nodes N``, through the port's ``Simulator``), or an empty
 ``ClusterState``. The replicated tier runs as in the reference:
 ``--publish-feed`` publishes the delta feed (``GET
@@ -26,16 +28,16 @@ replica of that primary; ``--replicas N`` runs N in-process replicas fed
 by this primary behind a router on ``--port`` (``--router hash|rr``,
 catch-up gate ``--lag-budget``), with the fleet plane federating them.
 
-The reference's kube mirror and multi-process planes are not ported yet,
-and their flags exit with a usage error naming the ``ROADMAP.md`` Queue 1
-item that brings them: ``--master``, ``--token-file``,
-``--concurrent-syncs`` (the kube mirror), item 8;
-``--coordinator-address``, ``--num-processes``, ``--process-id``,
-item 7.
+The reference's multi-process plane is not ported yet, and its flags
+exit with a usage error naming the ``ROADMAP.md`` Queue 1 item that
+brings it: ``--coordinator-address``, ``--num-processes``,
+``--process-id``, item 7.
 
 Usage:
   python -m crane_scheduler_tpu_torch.cli.service_main --port 8080 --f32
   python -m crane_scheduler_tpu_torch.cli.service_main --port 8080 --device cpu
+  python -m crane_scheduler_tpu_torch.cli.service_main --port 8080 --f32 \
+      --master https://apiserver:6443 --token-file /path/to/token
   python -m crane_scheduler_tpu_torch.cli.service_main --port 8080 --f32 \
       --demo-nodes 2000 --replicas 2 --router hash --lag-budget 8
 """
@@ -50,9 +52,6 @@ import threading
 
 # flag -> the ROADMAP.md Queue 1 item that brings its plane
 _UNPORTED = (
-    ("master", "--master", "the kube mirror", "item 8"),
-    ("token_file", "--token-file", "the kube mirror", "item 8"),
-    ("concurrent_syncs", "--concurrent-syncs", "the kube mirror", "item 8"),
     ("coordinator_address", "--coordinator-address", "multi-GPU serving", "item 7"),
     ("num_processes", "--num-processes", "multi-GPU serving", "item 7"),
     ("process_id", "--process-id", "multi-GPU serving", "item 7"),
@@ -62,6 +61,12 @@ _UNPORTED = (
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="crane-scorer")
     parser.add_argument("--port", type=int, default=8080)
+    parser.add_argument("--master", default=None,
+                        help="kube-apiserver URL: score the live cluster "
+                             "through the kube mirror")
+    parser.add_argument("--token-file", default=None)
+    parser.add_argument("--concurrent-syncs", type=int, default=4,
+                        help="--master: keep-alive write workers")
     parser.add_argument("--policy-config-path", default=None)
     parser.add_argument("--demo-nodes", type=int, default=0)
     parser.add_argument("--device", default="cuda",
@@ -147,9 +152,6 @@ def main(argv=None) -> int:
     # the reference's flags whose planes are not ported: accepted by the
     # parser only to refuse them by name
     unported = parser.add_argument_group("not ported yet")
-    unported.add_argument("--master", default=None)
-    unported.add_argument("--token-file", default=None)
-    unported.add_argument("--concurrent-syncs", type=int, default=None)
     unported.add_argument("--coordinator-address", default=None)
     unported.add_argument("--num-processes", type=int, default=None)
     unported.add_argument("--process-id", type=int, default=None)
@@ -215,7 +217,17 @@ def main(argv=None) -> int:
         print(json.dumps({"kernel_launches": kernel_launches()}), flush=True)
         return 0
 
-    if args.demo_nodes:
+    mirror = None
+    if args.master:
+        from ..cluster.kube import KubeClusterClient
+
+        cluster = mirror = KubeClusterClient.from_flags(
+            args.master, args.token_file,
+            concurrent_syncs=args.concurrent_syncs,
+        )
+        cluster.start()
+        print(f"kube mirror: {len(cluster.list_nodes())} nodes", flush=True)
+    elif args.demo_nodes:
         from ..sim import SimConfig, Simulator
 
         sim = Simulator(SimConfig(n_nodes=args.demo_nodes), policy=policy)
@@ -367,6 +379,8 @@ def main(argv=None) -> int:
     if publisher is not None:
         publisher.stop()
     server.stop()
+    if mirror is not None:
+        mirror.stop()
     print(json.dumps({"kernel_launches": kernel_launches()}), flush=True)
     return 0
 

@@ -10,16 +10,20 @@ bursts, binds that stamp ``Scheduled`` events into a bounded log and
 deliver them to subscribers (per event, in batches, or as columns),
 PreBind's pod-annotation patch, the eviction subresource (``evict_pod``,
 with its ``Evicted`` event), the mirror's bulk transactions
-(``apply_node_changes``, ``replace_nodes``), the ``sched_version``,
+(``apply_node_changes``, ``replace_nodes``, ``apply_pod_changes``,
+``replace_pods``) and the kube mirror's pieces (``count_pods``,
+``retire_burst_rows``, ``notify=False`` binds, a watch echo shadowing its
+burst row), the ``sched_version``,
 ``node_version``, ``node_set_version`` and ``pod_version`` counters (and
 the port's own ``bound_version``, which keys the simulator's bound-count
 caches), the
 pod-change journal behind ``pod_changes_since``, and the global
 dirty-name journal behind ``dirty_nodes_since`` (every named node write
 journals its name; a name-less columnar sweep or relist resets the
-floor). The per-shard journals and fences, the ring resharding, the
-``notify=False`` binds and the pod relist transactions belong to the kube
-mirror and the shard plane (``ROADMAP.md`` Queue 1 item 8).
+floor). The per-shard journals and fences, the crc index and the ring
+resharding belong to the shard plane (``ROADMAP.md`` Queue 1 item 8.3).
+``node_annotations_since`` is the port's own: the kube mirror re-keys its
+relist columns through it (``cluster/kube.py``).
 
 The reference coordinates its two processes exclusively through the
 Kubernetes API — the controller JSON-patches node annotations
@@ -561,6 +565,58 @@ class ClusterState:
             if set_changed:
                 self._node_set_version += 1
 
+    def apply_pod_changes(self, changes) -> None:
+        """Pod twin of ``apply_node_changes`` (same event order and
+        per-pod semantics as add_pod/delete_pod, one transaction)."""
+        with self._lock:
+            v0 = self._sched_version
+            for change_type, pod in changes:
+                if change_type == "DELETED":
+                    self._delete_pod_locked(pod.key())
+                else:
+                    self._add_pod_locked(pod)
+            if self._sched_version > v0:
+                self._sched_version = v0 + 1
+
+    def replace_pods(self, pods) -> None:
+        """Pod twin of ``replace_nodes`` (burst rows the server no longer
+        lists are retired too, like delete_pod would)."""
+        pods = list(pods)
+        with self._lock:
+            v0 = self._sched_version
+            for pod in pods:
+                self._add_pod_locked(pod)
+            live = {p.key() for p in pods}
+            stale = [k for k in self._pods if k not in live]
+            if self._bursts:
+                stale += [
+                    p.key() for p in self._burst_pods_locked(None)
+                    if p.key() not in live
+                ]
+            for key in stale:
+                self._delete_pod_locked(key)
+            if self._sched_version > v0:
+                self._sched_version = v0 + 1
+
+    def node_annotations_since(self, version: int):
+        """``(node_version, {name: annotations})`` for every node the
+        dirty-name journal records after node-fence ``version``, read in
+        one lock hold; None when the journal does not cover the interval
+        or a name joined or left the node set. The port's own: the kube
+        mirror patches its relist columns with it
+        (``KubeClusterClient.node_annotation_columns``)."""
+        with self._lock:
+            dirty = self._dirty_global.since(version)
+            if dirty is None or dirty[1]:
+                return None
+            out = {}
+            for name in dirty[0]:
+                node = self._nodes.get(name)
+                if node is None:
+                    return None
+                out[name] = self._merged_annotations_locked(node)
+            return self._node_version, out
+
     def patch_node_annotation(self, name: str, key: str, value: str) -> bool:
         """The annotator's write primitive: one (node, key) annotation.
         The node's map is replaced, so ``bulk_ingest``'s identity skip
@@ -654,18 +710,27 @@ class ClusterState:
         if pod.node_name:
             self._pods_by_node.setdefault(pod.node_name, {})[pod.key()] = None
 
-    def _add_pod_locked(self, pod: Pod) -> None:
-        """Add or replace (caller holds the lock). An object pod added
-        under a live burst key retires that row; replacing a bound pod,
-        object or burst row, counts as a bound-pod change."""
-        key = pod.key()
-        prev_burst_bound = False
+    def _shadow_burst_locked(self, key: str) -> bool:
+        """An object pod added under a live burst key replaces the row
+        (add_pod's replace semantics; a kube watch echo of a created pod
+        lands here). Returns True when the retired row was bound: the
+        caller counts that as replacing a bound pod."""
         hit = self._burst_lookup_locked(key)
-        if hit is not None:
-            burst, row = hit
-            prev_burst_bound = int(burst.node_ids[row]) >= 0
-            self._burst_retire_row_locked(burst, row)
+        if hit is None:
+            return False
+        burst, row = hit
+        was_bound = int(burst.node_ids[row]) >= 0
+        self._burst_retire_row_locked(burst, row)
+        if self._burst_index is not None:
             self._burst_index.pop(key, None)
+        return was_bound
+
+    def _add_pod_locked(self, pod: Pod) -> None:
+        """Add or replace (caller holds the lock): shadow any live burst
+        row, replace the object entry; replacing a bound pod, object or
+        burst row, counts as a bound-pod change."""
+        key = pod.key()
+        prev_burst_bound = self._shadow_burst_locked(key) if self._bursts else False
         prev = self._pods.get(key)
         if prev is not None:
             self._index_remove(prev)
@@ -792,6 +857,16 @@ class ClusterState:
             out.extend(b.materialize(r) for r in rows)
         return out
 
+    def count_pods(self, node_name: str) -> int:
+        """Bound pods on ``node_name``, O(1) through the per-node index."""
+        with self._lock:
+            keys = self._pods_by_node.get(node_name)
+            count = len(keys) if keys else 0
+            burst_counts = self._burst_counts_locked()
+            if burst_counts:
+                count += burst_counts.get(node_name, 0)
+            return count
+
     def count_pods_all(self) -> dict[str, int]:
         """Bound-pod counts for every node (object pods and burst rows)."""
         with self._lock:
@@ -828,13 +903,18 @@ class ClusterState:
         is the single implementation)."""
         return bool(self.bind_pods(((pod_key, node_name),), now))
 
-    def bind_pods(self, assignments, now: float | None = None) -> list[str]:
+    def bind_pods(self, assignments, now: float | None = None,
+                  notify: bool = True) -> list[str]:
         """Batch bind: one lock hold moves every pod and stamps its
         ``Scheduled`` event, then handlers run outside the lock in bind
         order — the same pods, events, order and feedback as binding one
         pod at a time. ``assignments`` is a ``{pod_key: node_name}``
         mapping (or iterable of pairs); returns the keys actually bound
-        (missing pods are skipped)."""
+        (missing pods are skipped).
+
+        ``notify=False`` applies the placements without recording or
+        delivering events: the kube mirror's optimistic apply, whose
+        authoritative events arrive through the watch."""
         if now is None:
             now = time.time()
         items = assignments.items() if hasattr(assignments, "items") else assignments
@@ -857,6 +937,8 @@ class ClusterState:
                 self._bound_version += 1
                 self._note_pod_change_locked(node_name)
                 bound.append(pod_key)
+                if not notify:
+                    continue
                 event = Event(
                     namespace=pod.namespace,
                     name=f"{pod.name}.scheduled",
@@ -933,10 +1015,22 @@ class ClusterState:
         """Copy-on-write: move a burst row into the object world."""
         pod = burst.materialize(row)
         self._burst_retire_row_locked(burst, row)
-        self._burst_index.pop(pod.key(), None)
+        if self._burst_index is not None:
+            self._burst_index.pop(pod.key(), None)
         self._pods[pod.key()] = pod
         self._index_add(pod)
         return pod
+
+    def retire_burst_rows(self, burst: _PodBurst, rows) -> None:
+        """Remove burst rows entirely (pod creations an apiserver
+        refused): marked dead, dropped from the key index, invisible to
+        every read."""
+        with self._lock:
+            ns = burst.namespace
+            for row in rows:
+                self._burst_retire_row_locked(burst, row)
+                if self._burst_index is not None:
+                    self._burst_index.pop(f"{ns}/{burst.names[row]}", None)
 
     def _count_slots_for_locked(self, table: list) -> np.ndarray:
         """Slot indices for a node table, cached on the table OBJECT
@@ -1006,7 +1100,8 @@ class ClusterState:
                 out[valid] += self._count_arr[idx[valid]]
             return out
 
-    def bind_burst(self, burst: _PodBurst, node_table, node_idx, now=None):
+    def bind_burst(self, burst: _PodBurst, node_table, node_idx, now=None,
+                   notify: bool = True):
         """Columnar bind: row ``i`` -> ``node_table[node_idx[i]]`` (``-1``
         leaves the row pending). One lock transaction applies the whole
         column and stamps ``sched_version`` and resourceVersions exactly
@@ -1016,7 +1111,9 @@ class ClusterState:
         ``(node_table, node_idx_bound, now)`` outside the lock. Returns
         the bound row indices (ascending = event order). Like the
         reference, it leaves ``pod_version`` and the pod-change journal
-        alone: burst rows are bare pods."""
+        alone: burst rows are bare pods. ``notify=False`` records and
+        delivers no event (the kube mirror's optimistic apply; the
+        apiserver's events arrive through the watch)."""
         if now is None:
             now = time.time()
         node_idx = np.asarray(node_idx, dtype=np.int32)
@@ -1063,13 +1160,21 @@ class ClusterState:
             self._bound_version += 1
             rv_base = self._rv_next
             self._rv_next += n
-            handlers = list(self._event_handlers)
-            batch = list(zip(self._batch_handlers, self._batch_columnar))
+            if notify:
+                handlers = list(self._event_handlers)
+                batch = list(zip(self._batch_handlers, self._batch_columnar))
+            else:
+                handlers, batch = [], []
             need_full = bool(handlers) or any(c is None for _, c in batch)
             # materialize the log tail (the deque would evict everything
             # older), or everything when a subscriber needs Event objects
             maxlen = self._events.maxlen
-            first = 0 if need_full else max(0, n - maxlen)
+            if not notify:
+                first = n  # no local events: the server's arrive instead
+            elif need_full:
+                first = 0
+            else:
+                first = max(0, n - maxlen)
             tail_events: list[Event] = []
             ns = burst.namespace
             names = burst.names

@@ -498,6 +498,11 @@ class BatchScheduler:
         self._prepared_n = 0
         self._rescan_counted = None
         self._node_table_cache = None
+        # the columnar refresh's fences: the column version last ingested,
+        # and the cluster node fence at that ingest (keys the dirty-name
+        # lookup that narrows the next columnar ingest)
+        self._columns_consumed = None
+        self._ingest_node_ver: int | None = None
         # host ms per stage of the burst cycle, summed over bursts (reset
         # by assigning a fresh ``dict.fromkeys(BURST_STAGES, 0.0)``). No
         # device syncs: "dispatch" is the step's launch cost and "wait"
@@ -543,15 +548,53 @@ class BatchScheduler:
 
     def refresh(self) -> None:
         """Bulk re-ingest node annotations (the store is a cache). A
-        direct-mode store skips this: the annotator keeps it current."""
+        direct-mode store skips this: the annotator keeps it current.
+
+        When the cluster is a kube mirror with decoded LIST columns
+        (``node_annotation_columns``), they feed the store directly
+        (``ingest_annotation_columns``): no Node objects, no per-node
+        dict walk. The columns carry a version, so an unchanged mirror
+        costs nothing, and when the dirty-name journal covers the gap
+        since the last ingest with no membership change, only the dirty
+        rows are written. Without columns, the object sweep below."""
         if not self._refresh_from_cluster:
             self._update_anno_ts()  # the annotator owns the store
             return
         t0 = time.perf_counter()
         with maybe_span(self._telemetry, "ingest"):
-            nodes = self.cluster.list_nodes()
-            self.store.bulk_ingest((n.name, n.annotations) for n in nodes)
-            self.store.prune_absent(n.name for n in nodes)
+            # fence BEFORE the column snapshot: a write landing between
+            # the two reads re-processes next refresh instead of being
+            # skipped
+            node_ver = getattr(self.cluster, "node_version", None)
+            cols_fn = getattr(self.cluster, "node_annotation_columns", None)
+            cols = cols_fn() if cols_fn is not None else None
+            if cols is not None:
+                version, names, keys, values, offsets = cols
+                if version != self._columns_consumed:
+                    only = None
+                    dirty_fn = getattr(self.cluster, "dirty_nodes_since", None)
+                    if dirty_fn is not None and self._ingest_node_ver is not None:
+                        d = dirty_fn(self._ingest_node_ver)
+                        if d is not None and not d[1]:
+                            # the journal covers the gap and membership is
+                            # untouched: patch only the dirty rows
+                            only = d[0]
+                    self.store.ingest_annotation_columns(
+                        names, keys, values, offsets, only_names=only
+                    )
+                    if only is None:
+                        self.store.prune_absent(names)
+                    else:
+                        self.refresh_stats["dirty_ingest"] += 1
+                    self._columns_consumed = version
+                    self._ingest_node_ver = node_ver
+                    self.refresh_stats["columnar_ingest"] += 1
+            else:
+                self._columns_consumed = None
+                self._ingest_node_ver = node_ver  # the full sweep covers it
+                nodes = self.cluster.list_nodes()
+                self.store.bulk_ingest((n.name, n.annotations) for n in nodes)
+                self.store.prune_absent(n.name for n in nodes)
         self.refresh_stats["ingest_ms"] += (time.perf_counter() - t0) * 1e3
         self._update_anno_ts()
         self._last_refresh_wall = self._clock()

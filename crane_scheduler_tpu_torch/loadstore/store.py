@@ -5,7 +5,8 @@ decode through ``codec.bulk_decode_annotations`` (the numpy codec). With
 the version and layout bookkeeping that lets a resident device snapshot
 follow the store by row deltas (``delta_since``) or by replaying
 whole-column writes (``column_delta_since``, fed by ``bulk_set_by_name``,
-the annotator's direct-mode sweep shape).
+the annotator's direct-mode sweep shape), and ``ingest_annotation_columns``,
+the columnar ingest that the kube mirror's decoded LIST columns feed.
 
 The reference's scoring inputs live as per-node annotation strings patched
 one (node, metric) at a time (ref: pkg/controller/annotator/node.go:123-146)
@@ -428,6 +429,12 @@ class NodeLoadStore:
                     raws.append(raw)
                     rows.append(i)
                     cols.append(col)
+        self._finish_ingest_locked(touched, raws, rows, cols, added)
+
+    def _finish_ingest_locked(self, touched, raws, rows, cols, added: bool) -> None:
+        """Shared tail of the bulk ingest paths: one version and layout
+        bump, one fancy-indexed row reset, one batch decode, scattered
+        metric and hot writes (callers hold the lock)."""
         if not touched:
             return
         self._version += 1
@@ -449,6 +456,50 @@ class NodeLoadStore:
         self.ts[rows_arr[metric], cols_arr[metric]] = ts[metric]
         self.hot_value[rows_arr[~metric]] = values[~metric]
         self.hot_ts[rows_arr[~metric]] = ts[~metric]
+
+    @_locked
+    def ingest_annotation_columns(self, names, keys, values, offsets,
+                                  only_names=None) -> None:
+        """Columnar twin of ``bulk_ingest``: per-node annotation maps
+        arrive as flat aligned key/value columns (row ``i`` owns
+        ``keys[offsets[i]:offsets[i+1]]``, the LIST decoder's shape), so a
+        relist-sized refresh needs no per-node dict or Node object. Each
+        row is authoritative for its node. There is no identity skip:
+        callers gate on the cluster version, as
+        ``BatchScheduler.refresh`` does. ``only_names`` narrows the write
+        to a dirty subset; rows of other names are ignored."""
+        index = self._index
+        metric_get = self.tensors.metric_index.get
+        raws: list = []
+        rows: list[int] = []
+        cols: list[int] = []  # -1 == hot value
+        touched: list[int] = []
+        added = False
+        off = offsets.tolist() if hasattr(offsets, "tolist") else list(offsets)
+        last = self._last_anno
+        for j, name in enumerate(names):
+            if only_names is not None and name not in only_names:
+                continue
+            i = index.get(name)
+            if i is None:
+                if self._n == self._cap:
+                    self._grow(self._cap * 2)
+                i = self._n
+                self._n += 1
+                self._names.append(name)
+                index[name] = i
+                added = True
+            else:
+                last.pop(name, None)
+            touched.append(i)
+            for k in range(off[j], off[j + 1]):
+                key = keys[k]
+                col = -1 if key == NODE_HOT_VALUE_KEY else metric_get(key)
+                if col is not None:
+                    raws.append(values[k])
+                    rows.append(i)
+                    cols.append(col)
+        self._finish_ingest_locked(touched, raws, rows, cols, added)
 
     # -- snapshot ----------------------------------------------------------
 

@@ -25,9 +25,9 @@ pieces the scoring sidecar, the annotator and the descheduler use:
   slowloris injector the front end's idle reaper must defeat.
 
 The reference's ``chaos`` and ``recovery`` modules (the fault injectors
-driven against the kube stub and the crash-safe intent journal) belong
-to the kube mirror and are not ported yet (``ROADMAP.md`` Queue 1
-item 8).
+driven against the kube stub and the crash-safe intent journal) are the
+control plane on the kube mirror, not ported yet (``ROADMAP.md`` Queue 1
+item 8.2b).
 """
 
 from .breaker import BreakerOpenError, BreakerState, CircuitBreaker

@@ -1,10 +1,8 @@
 """The scoring sidecar: ``ScoringService`` behind an HTTP front end.
 
 Counterpart of ``crane_scheduler_tpu/service/__init__.py``, with the
-replicated tier (``ServingReplica``, ``ReplicaRouter``) and the file-lock
-``LeaderElector``. The reference's lease against a kube apiserver
-(``kube_leader``) waits for the kube mirror (``ROADMAP.md`` Queue 1
-item 8).
+replicated tier (``ServingReplica``, ``ReplicaRouter``), the file-lock
+``LeaderElector`` and the apiserver lease (``kube_leader``).
 """
 
 from . import deadline

@@ -1,8 +1,7 @@
 """Single-writer guard: the leader-election equivalent.
 
 Copy of ``crane_scheduler_tpu/service/leader.py``. The lease against a
-kube apiserver (``service/kube_leader.py``) comes with the kube mirror
-(``ROADMAP.md`` Queue 1 item 8).
+kube apiserver is ``service/kube_leader.py``.
 
 The reference elects an annotator leader through a ``leases`` lock with
 15s lease / 10s renew deadline / 2s retry

@@ -6,7 +6,7 @@ raises without one); ``mesh=`` raises until the multi-GPU slice
 (``ROADMAP.md`` Queue 1 item 7). A metric column renders each value with
 ``format_metric_value``, the reference's own fallback when its host
 library (``native/``) does not load; the port has no binding of that
-library yet (item 8). The base loads come from ``random.Random(seed)`` in
+library yet (item 8.4). The base loads come from ``random.Random(seed)`` in
 node order, exactly as in the reference.
 
 SURVEY §4: the reference has no integration tests and no benchmarks — its

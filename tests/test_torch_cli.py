@@ -12,9 +12,13 @@ stats line must have the reference's keys and the same ``evictions`` and
 annotations, so that run suspends every cycle; the mapping from its flags
 to the ``DeschedulerConfig`` is held to the reference's in-process, up to
 the descheduler's construction. The flags of the kube
-mirror exit with a usage error naming its ``ROADMAP.md`` item. The
-config loaders give the reference's configuration from every committed
-deploy document (PyYAML is on the card, so they read YAML there too).
+mirror run against the wire stub (``tests/kube_stub.py``): crane-scheduler
+``--master`` in-process (result line and the stub's bindings),
+crane-annotator and crane-scorer as subprocesses (annotation strings,
+``/v1/score`` bytes); the master-mode planes not ported yet exit with a
+usage error naming their ``ROADMAP.md`` item. The config loaders give
+the reference's configuration from every committed deploy document
+(PyYAML is on the card, so they read YAML there too).
 Equality throughout.
 """
 
@@ -138,11 +142,16 @@ def test_crane_scheduler_master_only_flags_do_nothing_in_sim_mode(capsys):
     ["--concurrent-syncs", "4"],
 ])
 def test_crane_scheduler_refuses_kube_mirror_flags(flags, capsys):
+    """The kube mirror's flags are accepted (item 8.2a); with ``--master``
+    the serving plane that stands on it is still refused at parse time,
+    naming its item (8.2b). The apiserver is a local address with nothing
+    behind it: the refusal comes before any connection."""
     with pytest.raises(SystemExit) as exc:
-        scheduler_main.main(["--device", "cpu", *flags])
+        scheduler_main.main(["--device", "cpu", *flags, "--master", "http://127.0.0.1:1",
+                             "--serve"])
     assert exc.value.code == 2
     err = capsys.readouterr().err
-    assert "ROADMAP.md Queue 1 item 8" in err and flags[0] in err
+    assert "ROADMAP.md Queue 1 item 8.2b" in err and flags[0] in err
 
 
 def test_batch_mode_sweep_caches_follow_binds():
@@ -310,3 +319,201 @@ def test_scheduler_config_equals_reference(path):
 def test_policy_document_equals_reference(path):
     assert dataclasses.asdict(load_policy_from_file(path)) == \
         dataclasses.asdict(ref_load_policy(path))
+
+
+# -- --master: the front doors on the kube mirror, over the wire stub ---------------
+
+def _load_stub():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("kube_stub_torch_cli", REPO / "tests" / "kube_stub.py")
+    stub = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(stub)
+    return stub
+
+
+kube_stub = _load_stub()
+MASTER_NODES = 24
+MASTER_PODS = 40
+
+
+def _master_stub(now, numa=False):
+    """A stub apiserver with annotated nodes (fresh at ``now``),
+    allocatable, and pending pods; with ``numa``, NRT CRs on half the
+    nodes and guaranteed pods among the pending ones."""
+    from crane_scheduler_tpu_torch.policy import DEFAULT_POLICY
+    from crane_scheduler_tpu_torch.utils import format_local_time
+
+    server = kube_stub.KubeStubServer().start()
+    st = server.state
+    stamp = format_local_time(now)
+    metrics = [sp.name for sp in DEFAULT_POLICY.spec.sync_period]
+    for i in range(MASTER_NODES):
+        st.add_node(f"node-{i:03d}", f"10.4.0.{i}",
+                    annotations={m: f"{((i * 7 + j) % 10) / 10:.5f},{stamp}"
+                                 for j, m in enumerate(metrics)},
+                    allocatable={"cpu": "8", "memory": "32Gi", "pods": "30"})
+        if numa and i % 2 == 0:
+            st.add_nrt(f"node-{i:03d}", zones=[
+                {"name": f"node{z}", "type": "Node",
+                 "resources": {"allocatable": {"cpu": "4", "memory": "16Gi"}}}
+                for z in range(2)])
+    for i in range(MASTER_PODS):
+        guaranteed = numa and i % 4 == 0
+        res = {"requests": {"cpu": "2" if guaranteed else "500m", "memory": "1Gi"}}
+        if guaranteed:
+            res["limits"] = dict(res["requests"])
+        st.add_pod("default", f"pend-{i:03d}",
+                   spec={"containers": [{"name": "c", "resources": res}]})
+    return server
+
+
+def _bindings(state):
+    with state.lock:
+        return sorted((k, (p.get("spec") or {}).get("nodeName") or "")
+                      for k, p in state.pods.items())
+
+
+MASTER_CASES = {
+    "batch": (["--batch-size", "16"], False),
+    "plugin": ([], False),
+    "batch_numa": (["--config", NUMA_CONFIG, "--batch-size", "16"], True),
+    "first_pods": (["--batch-size", "8", "--pods", "20"], False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(MASTER_CASES))
+def test_crane_scheduler_master_equals_reference(case, capsys):
+    """crane-scheduler ``--master`` (one shot) on two identically seeded
+    stubs, in-process: the result lines equal (apart from
+    ``wall_seconds`` and the stub's URL), and so do the stubs' bindings,
+    with no pod bound twice."""
+    import time as _time
+
+    flags, numa = MASTER_CASES[case]
+    now = _time.time()
+    out = []
+    for main, extra in ((ref_scheduler_main.main, []),
+                        (scheduler_main.main, ["--device", "cpu"])):
+        server = _master_stub(now, numa)
+        try:
+            line = _result_line(main, ["--master", server.url, *flags, *extra], capsys)
+            assert line.pop("master") == server.url
+            out.append((line, _bindings(server.state), server.state.duplicate_binds()))
+        finally:
+            server.stop()
+    ref, port = out
+    assert port == ref
+    assert ref[0]["nodes"] == MASTER_NODES and ref[2] == 0
+    want = 20 if case == "first_pods" else MASTER_PODS
+    assert ref[0]["scheduled"] + ref[0]["unschedulable"] == want
+    assert sum(1 for _, node in ref[1] if node) == ref[0]["scheduled"] > 0
+
+
+def _annotations(state):
+    with state.lock:
+        return {n: dict(o["metadata"]["annotations"]) for n, o in state.nodes.items()}
+
+
+def test_crane_annotator_master_equals_reference():
+    """crane-annotator ``--master --leader-elect`` as a subprocess of each
+    package, each on its own stub: it takes the apiserver Lease, syncs
+    every node through merge-patches, and writes the reference's
+    annotation strings (the timestamp is the wall clock of each run, so
+    it is compared as a parseable stamp)."""
+    from crane_scheduler_tpu_torch.utils import parse_local_time
+
+    servers = [kube_stub.KubeStubServer().start() for _ in range(2)]
+    for server in servers:
+        for i in range(8):
+            server.state.add_node(f"node-{i}", f"10.3.0.{i}")
+    procs = [_start(module, ["--master", server.url, "--leader-elect", "--run-seconds", "3",
+                             "--health-port", "0", *extra])
+             for server, (module, extra) in zip(servers, (
+                 ("crane_scheduler_tpu.cli.annotator_main", []),
+                 ("crane_scheduler_tpu_torch.cli.annotator_main", ["--device", "cpu"])))]
+    try:
+        stats = [_stats(p) for p in procs]
+        written = []
+        for server in servers:
+            annos = _annotations(server.state)
+            for node in annos.values():
+                for k, v in list(node.items()):
+                    value, stamp = v.split(",")
+                    assert parse_local_time(stamp) is not None
+                    node[k] = value
+            with server.state.lock:
+                lease = server.state.leases["crane-system/crane-scheduler-tpu-annotator"]
+            written.append((annos, lease["spec"]["holderIdentity"].startswith("crane-annotator-")))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+        for server in servers:
+            server.stop()
+    ref, port = written
+    assert port == ref and ref[1]
+    from crane_scheduler_tpu_torch.policy import DEFAULT_POLICY
+
+    metrics = {sp.name for sp in DEFAULT_POLICY.spec.sync_period}
+    assert all(metrics <= set(a) for a in ref[0].values())  # every metric, every node
+    assert stats[0]["synced"] > 0 and stats[1]["synced"] > 0 and stats[1]["device"] == "cpu"
+
+
+def test_crane_scorer_master_equals_reference():
+    """crane-scorer ``--master --f32`` as a subprocess of each package on
+    one stub: ``POST /v1/score`` at an explicit ``now`` answers the same
+    bytes (the reference says ``"backend": "tpu"`` where the port names
+    its device; ``stalenessSeconds``, the age of each process's refresh,
+    is taken out)."""
+    import http.client
+    import socket
+    import time as _time
+
+    def free_port():
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            return s.getsockname()[1]
+
+    now = _time.time()
+    server = _master_stub(now)
+    ports = [free_port(), free_port()]
+    procs = [_start(module, ["--master", server.url, "--f32", "--port", str(port),
+                             "--now-bucket", "0", "--run-seconds", "90", *extra])
+             for port, (module, extra) in zip(ports, (
+                 ("crane_scheduler_tpu.cli.service_main", []),
+                 ("crane_scheduler_tpu_torch.cli.service_main", ["--device", "cpu"])))]
+    bodies = []
+    try:
+        for proc, port in zip(procs, ports):
+            deadline = _time.monotonic() + 90.0
+            while True:
+                try:
+                    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=10)
+                    conn.request("GET", "/healthz")
+                    conn.getresponse().read()
+                    break
+                except OSError:
+                    assert proc.poll() is None, proc.communicate()
+                    assert _time.monotonic() < deadline, "CLI did not come up"
+                    _time.sleep(0.1)
+            conn.request("POST", "/v1/score", body=json.dumps({"now": now + 5.0}).encode(),
+                         headers={"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            assert resp.status == 200
+            bodies.append(resp.read())
+            conn.close()
+    finally:
+        for proc in procs:
+            proc.send_signal(signal.SIGTERM)
+        outs = [proc.communicate(timeout=60) for proc in procs]
+        server.stop()
+    assert all(proc.returncode == 0 for proc in procs), [o[1][-400:] for o in outs]
+    # stalenessSeconds is each process's own age of its refresh
+    import re
+
+    ref, port = (re.sub(rb'"stalenessSeconds": [0-9.e-]+, ', b"", b) for b in bodies)
+    assert port == ref.replace(b'"backend": "tpu"', b'"backend": "cpu"')
+    assert len(json.loads(port)["scores"]) == MASTER_NODES
+    assert "kube mirror: 24 nodes" in outs[1][0]

@@ -173,12 +173,18 @@ def test_metrics_sync_plane_entry_points_default_to_cuda(monkeypatch, capsys):
     replica = ServingReplica(DEFAULT_POLICY, device="cpu")
     assert replica.service.device.type == "cpu"
     replica.stop()
-    for argv, item in ((["--master", "https://apiserver:6443"], "item 8"),
-                       (["--token-file", "/dev/null"], "item 8")):
-        with pytest.raises(SystemExit) as exc:
-            annotator_main.main(["--device", "cpu", *argv])
-        assert exc.value.code == 2
-        assert f"ROADMAP.md Queue 1 {item}" in capsys.readouterr().err
+    # the kube mirror's flags: without --device the card is needed before
+    # the mirror connects; with --device cpu the CLI goes on to list the
+    # apiserver (a local address with nothing behind it)
+    import urllib.error
+
+    for argv in (["--master", "http://127.0.0.1:1"],
+                 ["--token-file", "/dev/null", "--master", "http://127.0.0.1:1"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            annotator_main.main(["--health-port", "0", *argv])
+        with pytest.raises(urllib.error.URLError):
+            annotator_main.main(["--device", "cpu", "--health-port", "0", *argv])
+        assert "ROADMAP" not in capsys.readouterr().err
     with pytest.raises(SystemExit) as exc:
         sim_main.main(["--device", "cpu", "--mode", "sharded"])
     assert exc.value.code == 2 and "Queue 1 item 7" in capsys.readouterr().err
@@ -205,3 +211,41 @@ def test_front_doors_default_to_cuda(monkeypatch, capsys):
                  "utils.system"):
         assert (PORT / (name.replace(".", "/") + ".py")).exists() or \
             (PORT / name.replace(".", "/") / "__init__.py").exists()
+
+
+_KUBE_MIRROR = """
+import sys
+for name in ("jax", "crane_scheduler_tpu", "yaml"):
+    sys.modules[name] = None
+from crane_scheduler_tpu_torch.cluster import kube, kube_wire
+from crane_scheduler_tpu_torch.native import listdecode
+from crane_scheduler_tpu_torch.service import kube_leader
+from crane_scheduler_tpu_torch.cli import annotator_main, scheduler_main, service_main
+page = listdecode.decode_list_page(
+    b'{"metadata": {"resourceVersion": "3"}, "items": [{"metadata": {"name": "n"}}]}', 0)
+assert [n.name for n in page.materialize()] == ["n"] and page.backend == "python"
+client = kube.KubeClusterClient("http://127.0.0.1:1")
+assert client.node_annotation_columns() is None
+client.stop()
+assert not any(k == "jax" or k.startswith(("jax.", "crane_scheduler_tpu."))
+               for k, v in sys.modules.items() if v is not None)
+print("ok")
+"""
+
+
+def test_kube_mirror_modules_stand_alone():
+    """The kube mirror's modules (the client, its wire layer, the LIST
+    decoder, the apiserver Lease) and the three ``--master`` CLIs import
+    and run with JAX, the JAX package and PyYAML blocked; the decoder has
+    one route, the Python twin."""
+    for name in ("cluster/kube.py", "cluster/kube_wire.py", "native/listdecode.py",
+                 "service/kube_leader.py"):
+        assert (PORT / name).exists()
+    source = (PORT / "native/listdecode.py").read_text()
+    assert "load_native" not in source and "ctypes" not in source
+    path = os.pathsep.join(p for p in (str(REPO), os.environ.get("PYTHONPATH")) if p)
+    out = subprocess.run([sys.executable, "-c", _KUBE_MIRROR], cwd=REPO,
+                         env=dict(os.environ, PYTHONPATH=path, OMP_NUM_THREADS="1"),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "ok"

@@ -622,6 +622,16 @@ def test_cli_serves_on_cpu():
 def test_cli_refuses_unported_planes(flags, item, capsys):
     from crane_scheduler_tpu_torch.cli import service_main
 
+    if item == "item 8":
+        # the kube mirror is ported (item 8.2a): its flags are accepted and
+        # the CLI goes on to list the apiserver, a local address with
+        # nothing behind it
+        import urllib.error
+
+        with pytest.raises(urllib.error.URLError):
+            service_main.main(["--device", "cpu", *flags, "--master", "http://127.0.0.1:1"])
+        assert "item 8" not in capsys.readouterr().err
+        return
     with pytest.raises(SystemExit) as exc:
         service_main.main(["--device", "cpu", *flags])
     assert exc.value.code == 2
