@@ -140,22 +140,25 @@ non-zero without printing a result.
    node (two zones of 8 cores, 32Gi and 50Gi; CPU policy ``None`` on
    ``i % 50 == 3``, node-aware on ``i % 4 == 0``, no CR on ``i % 100 ==
    7``) and one bound background pod per node holding a seeded topology
-   result (0-8 cores, zone 0 overcommitted on ``i % 200 == 11``). 8 gangs
-   of guaranteed pods (54 pods, six CPU shapes, every third template
-   aware, every sixth not) through ``schedule_gang(topology=, bind=True)``
-   on a ``BatchScheduler(dtype=torch.float32)``: K1 and K2 once per gang,
-   K2 with the NUMA offsets and copy capacity. After each gang a second
-   scheduler's incremental NUMA vectors equal a fresh full build (both
-   evaluate on the card). The run equals a CPU twin (``device="cpu"``)
-   in placements, unassigned keys, topology-result annotations and
-   assume-cache contents; ``schedule_gang_queue(topology=)`` equals it
+   result (0-8 cores, zone 0 overcommitted on ``i % 200 == 11``). 7 gangs
+   of guaranteed pods (46 pods: the six request classes, 1000-8000 milli
+   with awareness by ``numa_awareness``, then the first again) through
+   ``schedule_gang(topology=, bind=True)`` on a
+   ``BatchScheduler(dtype=torch.float32)``: K1 and K2 once per gang, K2
+   with the NUMA offsets and copy capacity. On the repeated class's gangs
+   a second scheduler's incremental NUMA vectors equal a fresh full build
+   (both evaluate on the card). The run equals a CPU twin
+   (``device="cpu"``, this script's ``--numa-twin`` child mode, run
+   meanwhile) in placements, unassigned keys, topology-result annotations
+   and assume-cache contents; ``schedule_gang_queue(topology=)`` equals it
    with every outcome a fallback; a ``schedule_batch_mixed`` burst of the
-   54 pods as pending pods plus 64 best-effort pods gives f32 == f64;
+   46 pods as pending pods plus 64 best-effort pods gives f32 == f64 (the
+   f64 burst in the same child mode, on the card, run meanwhile);
    ``evaluate_topology_batch`` and ``copies_capacity`` on the card equal
    their CPU runs at 50,000 x 2 and on random nodes at Z 4 and 8 (whole-
    core, off-by-one-milli and overcommitted zones); and a per-pod
    ``Scheduler`` from ``build_scheduler_from_config`` with Dynamic x3 and
-   NodeResourceTopologyMatch x2 at 2,000 nodes places 16 pods alike on
+   NodeResourceTopologyMatch x2 at 2,000 nodes places 8 pods alike on
    the card and on a CPU twin. The line carries ms per gang with its
    stages (full vector builds, incremental ms and rows, bind, step), K1
    and K2 launches per gang, and the device us of one batched evaluation
@@ -191,7 +194,7 @@ non-zero without printing a result.
    per-node syncs) and ``sync_all_once_bulk`` ms per sweep, one column's
    render ms, and a direct-mode sweep whose store rows must equal a store
    refreshed from the annotations it emitted. sim: a CPU twin
-   (``device="cpu"``) from the same seed; 5 closed-loop steps of a bulk
+   (``device="cpu"``) from the same seed; 2 closed-loop steps of a bulk
    sweep, one 10,000-pod ``build_batch_scheduler(dtype=torch.float32)``
    burst on the card, its binds, bind events and hot values: placements
    and every node's annotation strings equal the twin's, K1 and K2 once
@@ -237,8 +240,8 @@ non-zero without printing a result.
    launch calls; neither K1 nor K2 may launch on the card leg;
 22. front_doors: crane-scheduler (``cli/scheduler_main.py``) in sim mode at
    50,000 demo nodes, in-process on the card: batch (20,000 pods in
-   bursts of 10,000), plugin (256 pods) and the NUMA profile in plugin
-   mode (64 pods); each result line equals the same flags with
+   bursts of 10,000), plugin (128 pods) and the NUMA profile in plugin
+   mode (32 pods); each result line equals the same flags with
    ``--device cpu`` run as a subprocess meanwhile (this script's
    ``--scheduler-twin`` child mode), apart from ``wall_seconds``, and so
    does the digest of every sorted (pod, node) placement of the run's
@@ -296,6 +299,65 @@ non-zero without printing a result.
    child mode, on its own identically seeded stub) in result line and the
    sha256 of the stub's sorted (pod, node) bindings; K2 once per batch, no
    K1.
+25. control: the control plane on the kube mirror. oneshot: crane-scheduler
+   ``--master --journal-dir --batch-size 256`` in-process on the card over
+   a 5,000-node stub with fresh annotations and 1,024 pending pods, after a
+   hand-written orphan bind intent for one of them: the recovery report is
+   ``{"unbound_reschedulable": 1}``, every pod is bound once, K2 once per
+   batch, result line and bindings digest equal to a ``--device cpu`` twin
+   (this script's ``--kube-scheduler-twin`` child mode with the same flags
+   and its own orphan). serve: a 50,000-node stub (config 15's
+   allocatable, fresh annotations) with 4,096 pending 100m pods seeded
+   before ``crane_scheduler_tpu_torch.cli.scheduler_main --master --serve
+   --window 32 --journal-dir`` starts on the card as a subprocess (this
+   script's ``--cli-child`` mode: the CLI's ``main`` in a process of its
+   own, which prints its kernel launches and its drip windows by device at
+   exit); SIGTERM once all are bound; one POST per pod, every intent acked
+   or tombstoned, drip windows on the card only, result line and digest
+   equal to a ``--device cpu`` twin on its own identically seeded stub
+   (``--serve-twin``, started with the phase); pods/s and ms per pod from
+   the first to the last bind. sigterm: on that stub, 4,096 more pods created while the
+   serve runs, SIGTERM after 1,024 binds, a restart on the same journal:
+   ``drained_at_exit`` and the restart's ``recovery`` reported, no
+   duplicate or lost bind. kill: config 16's kill sites against an
+   in-process 50,000-node stub (8 seeded mid-pipeline-fill kills with
+   ``KillSwitch`` and ``SimulatedCrash``, a half-filled drip window
+   abandoned on the card, an eviction whose response is lost; the re-armed
+   cooldown), run twice with one seed: no duplicate or lost bind, no
+   duplicate eviction, one timeline. standby: two ``--serve --lock-file``
+   processes over 4,096 more pods, the leader SIGKILLed after half bind,
+   the standby reconciles and binds the rest: its ``failover_seconds``
+   beside config 16's 5 s gate (report only), no duplicate or lost bind.
+   descheduler: ``crane_scheduler_tpu_torch.cli.descheduler_main --master
+   --journal-dir --leader-elect`` as a subprocess over config 11's world at
+   50,000 nodes on an in-process stub (one consecutive sync, 2 evictions per
+   node, 4 per cycle, a 300 s cooldown): 4 evictions, no DaemonSet or
+   kube-system victim, no duplicate, the Lease held, the journal closed
+   (the descheduler has no device, so no twin); meanwhile the two-life indeterminate eviction
+   (life 1: no eviction counted, ``unresolved``; life 2: ``evict_unapplied``,
+   the cooldown re-armed, no eviction POST). chaos: config 12's scripted
+   outage (6 nodes, 24 steps, outage 4 -> heal 16) and one generated plan
+   (seed 12) through the port's breaker, degraded controller, descheduler
+   and a scheduler on the card: no duplicate POST, no eviction while
+   degraded, the mirror converged and health green after the heal.
+26. shards: the shard plane. columns: config 18's 250,000-node mirror (cut
+   from config 21's 1,000,000) under ``HashRing(4, vnodes=64)``, one drip
+   scheduler per shard on the card: each shard's first probe builds its
+   columns; one named patch on a shard-0 node; on the re-probe only shard
+   0 patches, one row, and its columns equal a from-scratch build; then a
+   one-token and an eight-token ring move (ms per moved name), every
+   shard's columns equal a fresh build and its view its ring ownership.
+   scaling: 1, 2 and 4 schedulers over disjoint crc shards, 3 storms of
+   512 pods, window 128, threaded on the card: the median storm's pods/s
+   beside config 18's 1.8x / 3x
+   gates (report only: one card, one interpreter), every pod inside its
+   shard, placements equal to the same plane on CPU tensors with
+   ``threaded=False``. conflict: 2 schedulers, overlap 0.25, over a
+   4,000-node stub, 800 pods: the conflict rate beside config 18's 5%, one
+   POST per pod. wire: two ``--serve --shards 2 --shard-index {0,1}
+   --shard-ring`` processes over the control phase's 50,000-node stub and
+   4,096 new pods, a ring move written after 1,024 binds: both adopt it,
+   every pod bound once, drip windows on the card only.
 
 Before each path (main path, delta, column, overlap, hybrid scorer, the
 drip queue, serve, scalar and dirty phases, telemetry, the gang
@@ -303,12 +365,17 @@ sequential, window and mixed legs, the NUMA gang, queue, mixed and
 per-pod legs, the service's score, HTTP and assign legs, the
 replicated phase's sim, replicas and router-assign legs, the descheduler's
 card leg, each crane-scheduler run, the storm, and the kube phase's
-burst, drip, gang and crane-scheduler legs) the kernels'
-launch counters are set to 0, and after it each
-kernel the path runs must have launched; the ``kernels`` line lists the
-counts per path (the drip paths, the per-pod NUMA leg, the descheduler's
-re-placement windows, crane-scheduler's plugin modes and the kube drip
-storm run neither kernel; crane-scorer's counts come from its exit line).
+burst, drip, gang and crane-scheduler legs, and each leg of the control
+and shards phases) the kernels' launch counters are set to 0, and after
+it each kernel the path runs must have launched; the ``kernels`` line
+lists the counts per path (the drip paths, the per-pod NUMA leg, the
+descheduler's re-placement windows, crane-scheduler's plugin modes, the
+kube drip storm and every control and shards leg but the journaled
+one-shot run neither kernel). crane-scorer's counts come from its exit
+line; the serve, SIGTERM, standby, descheduler and wire legs' counts come
+from their processes' own exit lines (``--cli-child``), the SIGTERM and
+wire legs' summed over their two processes, the standby leg's from the
+standby (its SIGKILLed leader prints none).
 
 A kernel's device time is the mean duration of its launches under
 ``torch.profiler`` over 200 back-to-back wrapper calls at the main path's
@@ -409,16 +476,17 @@ GANG_WINDOW = 8
 GANG_DYN_W, GANG_TOPO_W = 3, 2  # Dynamic x3, topology x2: the deploy-config weights
 GANG_ORACLE_GANGS = 2  # the sequential oracle is O(pods x nodes) Python per gang
 DRIP_ALLOCATABLE = {"cpu": "16", "memory": "64Gi", "ephemeral-storage": "100Gi", "pods": "110"}
-# the NUMA gangs: guaranteed pods, (cpu milli, copies), 54 pods in all (8
-# gangs: each shape once, then the first two again, whose request classes
-# take the incremental vector path; the phase's depth, cut from 24 to keep
-# the script's wall time)
+# the NUMA gangs: guaranteed pods, (cpu milli, copies), 46 pods in all (7
+# gangs: each of the six request classes once, then the first again, whose
+# second gang takes the incremental vector path; the phase's depth, cut
+# from 24 to 8 and then to 7 to keep the script's wall time)
 _NUMA_CLASSES = ((1000, 12), (2000, 8), (3000, 6), (4000, 4), (6000, 2), (8000, 2))
-NUMA_SHAPES = _NUMA_CLASSES + _NUMA_CLASSES[:2]
+NUMA_SHAPES = _NUMA_CLASSES + _NUMA_CLASSES[:1]
+NUMA_TWIN_ARG = "--numa-twin"  # the child mode of the NUMA CPU twin and f64 mixed burst
 NUMA_BEST_EFFORT = 64  # best-effort pods beside the gang pods in the mixed burst
 NUMA_RANDOM_NODES = 4_096  # nodes of each random Z = 4, 8 batched-evaluation case
 NUMA_PER_POD_NODES = 2_000  # the per-pod scalar loop is O(plugins x nodes) per pod
-NUMA_PER_POD_PODS = 16
+NUMA_PER_POD_PODS = 8  # cut from 16 to keep the script's wall time
 SERVICE_NOWS = 5  # explicit `now`s of the card == CPU-twin body check
 SERVICE_MISS_RENDERS = 20  # timed cache-miss renders per dtype
 SERVICE_PROFILED_RENDERS = 5  # cache-miss renders per profiler session
@@ -2151,14 +2219,71 @@ def numa_batched_check(wrappers, requests, dev) -> int:
     return checks
 
 
+def numa_twin_run() -> dict:
+    """The NUMA gangs' sequential loop on the CPU (plain versions of K1
+    and K2, the evaluation on the CPU) from the same seeded world, as
+    JSON: per-gang (assignments, unassigned), the gang pods, the assume
+    cache, ms."""
+    world = numa_world(N_NODES)
+    twin, topo = numa_scheduler(numa_cluster(N_NODES, world), world, "cpu")
+    t0 = time.perf_counter()
+    results, _ = numa_gang_loop(twin, topo, numa_requests("g"))
+    ms = (time.perf_counter() - t0) * 1e3
+    return {"seq": [(r.assignments, r.unassigned) for r in results],
+            "pods": gang_pods(twin.cluster), "assumed": assumed(topo), "ms": ms}
+
+
+def numa_mixed_run(world, dev, dtype) -> dict:
+    """The gang pods as pending pods plus best-effort ones in one
+    ``schedule_batch_mixed`` burst at ``dtype``, as JSON: assignments, the
+    gang pods, the assume cache, ms."""
+    msched, mtopo = numa_scheduler(numa_cluster(N_NODES, world), world, dev, dtype=dtype)
+    pending = [Pod(name=f"{t.name}-{i}", annotations=dict(t.annotations),
+                   containers=t.containers) for t, c in numa_requests("m") for i in range(c)]
+    pending += [Pod(name=f"numa-be-{i}", containers=(Container("c"),))
+                for i in range(NUMA_BEST_EFFORT)]
+    msched.cluster.add_pods(pending)
+    t0 = time.perf_counter()
+    r = msched.schedule_batch_mixed(pending, topology=mtopo, dynamic_weight=GANG_DYN_W,
+                                    topology_weight=GANG_TOPO_W)
+    ms = (time.perf_counter() - t0) * 1e3
+    return json.loads(json.dumps({"assignments": r.assignments, "pods": gang_pods(msched.cluster),
+                                  "assumed": assumed(mtopo), "ms": ms}))
+
+
+def numa_twin_child(leg: str, device: str) -> int:
+    """The child mode ``NUMA_TWIN_ARG``: the sequential loop on the CPU
+    (``seq``) or the float64 mixed burst on ``device`` (``mixed``) as one
+    JSON line; each runs beside the parent's legs."""
+    if leg == "seq":
+        out = numa_twin_run()
+    else:
+        out = numa_mixed_run(numa_world(N_NODES), torch.device(device), torch.float64)
+    print(json.dumps(out), flush=True)
+    return 0
+
+
 def phase_numa_gang(dev) -> tuple:
     """config 22's cluster with one NRT CR and one background pod per node,
-    8 gangs of guaranteed pods through ``schedule_gang(topology=)`` on the
-    card (K1 and K2 per gang, NUMA offsets and capacity) against a CPU
-    twin; the vectors after each gang against a fresh full build; the
-    queue's fallbacks; a mixed burst f32 against f64; the batched zone
-    evaluation on the card against the CPU; the per-pod scheduler from
-    the NRT profile."""
+    7 gangs of guaranteed pods (all six request classes) through
+    ``schedule_gang(topology=)`` on the card (K1 and K2 per gang, NUMA
+    offsets and capacity) against a CPU twin; the repeated class's vectors
+    against a fresh full build; the queue's fallbacks; a mixed burst f32 against f64; the
+    batched zone evaluation on the card against the CPU; the per-pod
+    scheduler from the NRT profile. The CPU twin and the float64 mixed
+    burst run in child processes of this script beside the other legs."""
+    runs = [start_cli([NUMA_TWIN_ARG, "seq", "cpu"], script=True),
+            start_cli([NUMA_TWIN_ARG, "mixed", dev.type], script=True)]
+    try:
+        return numa_gang_legs(dev, *runs)
+    finally:
+        for proc, _ in runs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+
+
+def numa_gang_legs(dev, twin_run, mixed_run) -> tuple:
     from crane_scheduler_tpu_torch.framework.types import Resource
     from crane_scheduler_tpu_torch.topology import batched
 
@@ -2176,8 +2301,15 @@ def phase_numa_gang(dev) -> tuple:
     chk.refresh()
     chk._prepare(NOW)
     checks = {"compared": 0, "incremental_rows": 0}
+    reqs = numa_requests("g")
+    keys = [(cpu, numa_awareness(j)) for j, (cpu, _) in enumerate(NUMA_SHAPES)]
+    # only a class that comes back takes the incremental path: the second
+    # cache tracks those classes alone
+    tracked = {t.name for (t, _), key in zip(reqs, keys) if keys.count(key) > 1}
 
     def check(t):
+        if t.name not in tracked:
+            return
         rows0 = chk.numa_incremental_rows
         hit = chk._numa_vectors(t, topo, GANG_TOPO_W, chk._prepared_names, chk._prepared_n)
         if chk.numa_incremental_rows == rows0:
@@ -2189,7 +2321,6 @@ def phase_numa_gang(dev) -> tuple:
         checks["compared"] += 1
         checks["incremental_rows"] = chk.numa_incremental_rows
 
-    reqs = numa_requests("g")
     reset_launches()
     t0 = time.perf_counter()
     results, per_gang = numa_gang_loop(sched, topo, reqs, check)
@@ -2213,15 +2344,12 @@ def phase_numa_gang(dev) -> tuple:
                              "result")
     del chk
 
-    # -- the CPU twin: plain versions of K1 and K2, the evaluation on the CPU
-    twin, twin_topo = numa_scheduler(numa_cluster(n, world), world, "cpu")
-    t0 = time.perf_counter()
-    twin_results, _ = numa_gang_loop(twin, twin_topo, numa_requests("g"))
-    twin_ms = (time.perf_counter() - t0) * 1e3
-    if [(r.assignments, r.unassigned) for r in twin_results] != seq or \
-            gang_pods(twin.cluster) != pods_seq or assumed(twin_topo) != assumed_seq:
+    # -- the CPU twin (this script's child mode, started with the phase)
+    twin, _ = finish_cli(twin_run, timeout=600)
+    card = json.loads(json.dumps({"seq": seq, "pods": pods_seq, "assumed": assumed_seq}))
+    if any(twin[k] != card[k] for k in card):
         raise AssertionError("numa gang: the card != its CPU twin")
-    del twin, twin_topo
+    twin_ms = twin["ms"]
 
     # -- the queue: every gang falls back to schedule_gang, in order
     qsched, qtopo = numa_scheduler(numa_cluster(n, world), world, dev)
@@ -2238,26 +2366,13 @@ def phase_numa_gang(dev) -> tuple:
         raise AssertionError("numa queue: not all fallbacks, or != the sequential loop")
     del qsched, qtopo
 
-    # -- mixed: the gang pods as pending pods plus best-effort ones, f32 vs f64
-    mixed = {}
-    for label, dtype in (("f32", torch.float32), ("f64", torch.float64)):
-        msched, mtopo = numa_scheduler(numa_cluster(n, world), world, dev, dtype=dtype)
-        pending = [Pod(name=f"{t.name}-{i}", annotations=dict(t.annotations),
-                       containers=t.containers) for t, c in numa_requests("m") for i in range(c)]
-        pending += [Pod(name=f"numa-be-{i}", containers=(Container("c"),))
-                    for i in range(NUMA_BEST_EFFORT)]
-        msched.cluster.add_pods(pending)
-        if label == "f32":
-            reset_launches()
-        t0 = time.perf_counter()
-        r = msched.schedule_batch_mixed(pending, topology=mtopo, dynamic_weight=GANG_DYN_W,
-                                        topology_weight=GANG_TOPO_W)
-        mixed[label] = ((time.perf_counter() - t0) * 1e3, r.assignments,
-                        gang_pods(msched.cluster), assumed(mtopo))
-        if label == "f32":
-            by_path["numa_mixed"] = read_launches("numa mixed")
-        del msched, mtopo
-    if mixed["f32"][1:] != mixed["f64"][1:] or not mixed["f32"][1]:
+    # -- mixed: f32 here, f64 in the child started with the sequential leg
+    reset_launches()
+    mixed = {"f32": numa_mixed_run(world, dev, torch.float32)}
+    by_path["numa_mixed"] = read_launches("numa mixed")
+    mixed["f64"], _ = finish_cli(mixed_run, timeout=600)
+    if any(mixed["f32"][k] != mixed["f64"][k] for k in ("assignments", "pods", "assumed")) \
+            or not mixed["f32"]["assignments"]:
         raise AssertionError("numa mixed: f32 hybrid != float64, or nothing placed")
     mixed_classes = len({(t.annotations.get(NUMA_AWARE), c) for t, c in numa_requests("m")})
 
@@ -2307,7 +2422,7 @@ def phase_numa_gang(dev) -> tuple:
             t0 = time.perf_counter()
             got = []
             for j in range(NUMA_PER_POD_PODS):
-                cpu, _ = NUMA_SHAPES[j % 6]
+                cpu, _ = _NUMA_CLASSES[j % len(_NUMA_CLASSES)]
                 pod = numa_template(f"numa-pp-{j}", cpu, numa_awareness(j))
                 pcluster.add_pod(pod)
                 r = psched.schedule_one(pod)
@@ -2349,8 +2464,8 @@ def phase_numa_gang(dev) -> tuple:
         "last_gang_offsets": offsets_seen, "last_gang_capacity_zero_rows": capacity_zero,
         "twin_cpu_ms_per_gang": twin_ms / len(reqs), "queue_ms_per_gang": queue_ms / len(reqs),
         "queue_fallbacks": stats["fallbacks"],
-        "mixed_ms": {k: v[0] for k, v in mixed.items()}, "mixed_pods": total + NUMA_BEST_EFFORT,
-        "mixed_numa_classes": mixed_classes, "mixed_placed": len(mixed["f32"][1]),
+        "mixed_ms": {k: v["ms"] for k, v in mixed.items()}, "mixed_pods": total + NUMA_BEST_EFFORT,
+        "mixed_numa_classes": mixed_classes, "mixed_placed": len(mixed["f32"]["assignments"]),
         "batched": {"wrappers": len(wrappers), "zones": 2, "checks": batched_checks,
                     "random_nodes": NUMA_RANDOM_NODES, "random_zones": [4, 8],
                     "wrapper_build_ms": wrap_ms, "pack_ms": pack_ms,
@@ -2809,7 +2924,7 @@ REPL_RESUME_IN_RING = 3  # windows published while one replica's feed is down
 REPL_CLIENTS = 8  # closed-loop storm clients, one tenant each
 REPL_SECONDS = 3.0
 REPL_ASSIGN_CALLS = 3
-SIM_STEPS = 5  # closed-loop sim steps
+SIM_STEPS = 2  # closed-loop sim steps (cut from 5 to keep the script's wall time)
 SIM_BURST_PODS = 10_000
 SIM_DRIP_PODS = 256
 SIM_STEP_SECONDS = 30.0
@@ -3652,9 +3767,12 @@ def phase_desched(dev) -> tuple:
 FD_DEMO_NODES = str(N_NODES)
 NUMA_CONFIG = "deploy/noderesourcetopology/scheduler-config.yaml"
 FD_CASES = {  # crane-scheduler's sim mode: flags, the bursts (K2 launches) it makes
+    # depth cut for the script's wall time: plugin 256 -> 128 pods
     "cli_batch": (["--demo-nodes", FD_DEMO_NODES, "--pods", "20000", "--batch-size", "10000"], 2),
-    "cli_plugin": (["--demo-nodes", FD_DEMO_NODES, "--pods", "256"], 0),
-    "cli_numa": (["--config", NUMA_CONFIG, "--demo-nodes", FD_DEMO_NODES, "--pods", "64"], 0),
+    "cli_plugin": (["--demo-nodes", FD_DEMO_NODES, "--pods", "128"], 0),
+    # the NUMA profile's plugin loop is about 0.5 s per pod at 50,000 nodes:
+    # 32 pods (cut from 64 to keep the script's wall time)
+    "cli_numa": (["--config", NUMA_CONFIG, "--demo-nodes", FD_DEMO_NODES, "--pods", "32"], 0),
 }
 DESCHED_CLI_SECONDS = 8.0
 SCHEDULER_TWIN_ARG = "--scheduler-twin"  # the child mode of front_doors' CPU twins
@@ -4429,30 +4547,9 @@ def kube_gang_leg(kube_stub, dev) -> tuple:
 
 def kube_cli_stub(kube_stub, stamp_epoch: float):
     """A 5,000-node stub with fresh seeded annotations stamped at
-    ``stamp_epoch`` and 1,024 pending pods (500m cpu, 256Mi)."""
-    from crane_scheduler_tpu_torch.cluster.kube import KubeClusterClient
-
-    metrics = [sp.name for sp in DEFAULT_POLICY.spec.sync_period]
-    server = kube_stub.KubeStubSubprocess()
-    try:
-        server.seed(KUBE_CLI_NODES, "node-", allocatable=DRIP_ALLOCATABLE)
-        writer = KubeClusterClient(server.url)  # writes only: never started
-        rng = np.random.default_rng(SEED + 23)
-        values = rng.uniform(0.0, 1.0, (KUBE_CLI_NODES, len(metrics)))
-        stamp = format_local_time(stamp_epoch)
-        per_node = {f"node-{i:05d}": {m: f"{values[i, k]:.5f},{stamp}"
-                                      for k, m in enumerate(metrics)}
-                    for i in range(KUBE_CLI_NODES)}
-        patched = writer.patch_node_annotations_bulk(per_node)
-        writer.add_pods(kube_drip_pods("fd", KUBE_CLI_PODS, cpu="500m"))
-        writer.stop()
-        if patched != KUBE_CLI_NODES or server.stats()["requests"].get("POST", 0) \
-                < KUBE_CLI_PODS:
-            raise AssertionError(f"kube cli stub: {patched} nodes annotated")
-        return server
-    except BaseException:
-        server.stop()
-        raise
+    ``stamp_epoch`` and 1,024 pending pods (500m cpu, 128Mi)."""
+    return fresh_stub(kube_stub, KUBE_CLI_NODES, stamp_epoch,
+                      kube_drip_pods("fd", KUBE_CLI_PODS, cpu="500m"), seed=SEED + 23)
 
 
 def stub_bindings(url: str) -> dict:
@@ -4469,10 +4566,10 @@ def stub_bindings(url: str) -> dict:
             "sha256": hashlib.sha256(json.dumps(pairs).encode()).hexdigest()}
 
 
-def kube_scheduler_cli(url: str, device: str) -> dict:
+def kube_scheduler_cli(url: str, device: str, extra=()) -> dict:
     """crane-scheduler ``--master`` in this process: its result line (no
-    ``wall_seconds`` and ``master``), its wall seconds and the stub's
-    bindings after it."""
+    ``wall_seconds``, ``master`` or reconcile time), its wall seconds and
+    the stub's bindings after it."""
     import contextlib
     import io
 
@@ -4481,21 +4578,24 @@ def kube_scheduler_cli(url: str, device: str) -> dict:
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         rc = scheduler_main.main(["--master", url, "--batch-size", str(KUBE_CLI_BATCH),
-                                  "--device", device])
+                                  "--device", device, *extra])
     if rc != 0:
         raise AssertionError(f"crane-scheduler --master exited {rc}")
     line = json.loads(buf.getvalue().strip().splitlines()[-1])
     wall = line.pop("wall_seconds")
     line.pop("master")
+    if "recovery" in line:
+        line["recovery"].pop("elapsed_s")
     return {"line": line, "wall_seconds": wall, "bindings": stub_bindings(url)}
 
 
-def kube_scheduler_twin_child(stamp_epoch: float) -> int:
+def kube_scheduler_twin_child(stamp_epoch: float, extra) -> int:
     """The child mode ``KUBE_TWIN_ARG``: crane-scheduler ``--master --device
-    cpu`` on its own identically seeded stub, as one JSON line."""
+    cpu`` and the flags ``extra`` on its own identically seeded stub, as
+    one JSON line."""
     server = kube_cli_stub(load_kube_stub(), stamp_epoch)
     try:
-        out = kube_scheduler_cli(server.url, "cpu")
+        out = kube_scheduler_cli(server.url, "cpu", extra)
     finally:
         server.stop()
     print(json.dumps(out), flush=True)
@@ -4647,6 +4747,1320 @@ def phase_kube(dev) -> tuple:
 
 
 
+# -- control: the control plane on the kube mirror -------------------------------------
+
+CONTROL_NODES = N_NODES  # the serve, SIGTERM and standby legs' stub
+CONTROL_PODS = 4_096  # pods per serve leg (config 15's storm)
+CONTROL_WINDOW = 32  # crane-scheduler --serve --window
+CONTROL_SIGTERM_AT = 1_024  # binds before the SIGTERM leg's signal
+CONTROL_KILL_BATCH = 8  # pods per mid-pipeline-fill life (config 16)
+CONTROL_KILLS = 8  # config 16's seeded kill_process events
+CONTROL_KILL_SEED = 16
+CONTROL_FAILOVER_GATE_S = 5.0  # config 16's failover gate (report only)
+CONTROL_DESCHED_SECONDS = 6.0
+CONTROL_CHAOS_STEPS, CONTROL_CHAOS_OUTAGE, CONTROL_CHAOS_HEAL = 24, 4, 16  # config 12
+CONTROL_CHAOS_NODES = 6  # config 12's own nodes: 1 hot, 5 cool
+CONTROL_CHAOS_SEED = 12
+SERVE_TWIN_ARG = "--serve-twin"  # the child mode of the serve leg's CPU twin
+CLI_CHILD_ARG = "--cli-child"  # a port CLI's main() in a child process of this script
+CONTROL_ORPHAN = ("default/fd-00000", "node-00001")  # the one-shot leg's orphan intent
+
+
+def fresh_stub(kube_stub, n: int, stamp_epoch: float, pods=(), seed: int = SEED + 29):
+    """A stub in its own process: ``n`` seeded nodes with config 15's
+    allocatable, annotations from ``seed`` stamped at ``stamp_epoch``
+    (fresh for a CLI on the wall clock), and ``pods`` created pending."""
+    from crane_scheduler_tpu_torch.cluster.kube import KubeClusterClient
+
+    metrics = [sp.name for sp in DEFAULT_POLICY.spec.sync_period]
+    server = kube_stub.KubeStubSubprocess()
+    try:
+        server.seed(n, "node-", allocatable=DRIP_ALLOCATABLE)
+        writer = KubeClusterClient(server.url)  # writes only: never started
+        values = np.random.default_rng(seed).uniform(0.0, 1.0, (n, len(metrics)))
+        stamp = format_local_time(stamp_epoch)
+        patched = writer.patch_node_annotations_bulk({
+            f"node-{i:05d}": {m: f"{values[i, k]:.5f},{stamp}" for k, m in enumerate(metrics)}
+            for i in range(n)})
+        pods = list(pods)
+        writer.add_pods(pods)
+        writer.stop()
+        if patched != n or server.stats()["requests"].get("POST", 0) < len(pods):
+            raise AssertionError(f"stub: {patched} of {n} nodes annotated")
+        return server
+    except BaseException:
+        server.stop()
+        raise
+
+
+def journal_lines(jdir: str) -> list:
+    from crane_scheduler_tpu_torch.resilience.recovery import IntentJournal
+
+    return list(IntentJournal.read(jdir))
+
+
+def check_journal_closed(jdir: str, what: str) -> dict:
+    """Every intent in ``jdir`` acked, tombstoned or resolved."""
+    recs = journal_lines(jdir)
+    intents = {r["id"] for r in recs if r["t"] == "intent"}
+    closed = {r["id"] for r in recs if r["t"] in ("ack", "tombstone", "resolved")}
+    if not intents or intents - closed:
+        raise AssertionError(f"{what}: intents {len(intents)}, open {sorted(intents - closed)[:5]}")
+    kinds = {}
+    for r in recs:
+        kinds[r["t"]] = kinds.get(r["t"], 0) + 1
+    return kinds
+
+
+def cli_child(module: str, argv) -> int:
+    """The child mode ``CLI_CHILD_ARG``: ``module``'s ``main(argv)`` in this
+    process, a process of its own, so the CLI's signal handlers and Lease
+    elector stay in it. At exit one more line, ``{"child": ...}``: the
+    kernels' launches over the call and the drip windows that the
+    schedulers it built dispatched, by device (``build_scheduler_from_config``
+    is wrapped for the call to keep them)."""
+    import importlib
+
+    from crane_scheduler_tpu_torch import config as config_module
+
+    built, base = [], config_module.build_scheduler_from_config
+
+    def recorded(*args, **kwargs):
+        sched = base(*args, **kwargs)
+        built.append(sched)
+        return sched
+
+    config_module.build_scheduler_from_config = recorded
+    reset_launches()
+    rc = importlib.import_module(module).main(argv)
+    windows = {}
+    for sched in built:
+        dev = torch.device(sched.device).type
+        windows[dev] = windows.get(dev, 0) + sched.drip_stats()["batch"]["dispatches"]
+    print(json.dumps({"child": {"rc": rc, "drip_windows": windows, "launches": {
+        name: kernel.launches for name, kernel in KERNELS.items()}}}), flush=True)
+    return rc
+
+
+def child_output(stdout: str, what: str) -> tuple:
+    """A ``CLI_CHILD_ARG`` process's stdout: (the CLI's last JSON line, the
+    child's own line)."""
+    lines = [json.loads(ln) for ln in stdout.splitlines() if ln.startswith("{")]
+    if len(lines) < 2 or "child" not in lines[-1]:
+        raise AssertionError(f"{what}: no exit line from the child: {stdout[-400:]!r}")
+    return lines[-2], lines[-1]["child"]
+
+
+def finish_child(started, timeout: float, what: str) -> tuple:
+    """Wait for a ``CLI_CHILD_ARG`` process started by ``start_cli``: (the
+    CLI's line, the child's line, s)."""
+    proc, t0 = started
+    try:
+        stdout, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        stdout, err = proc.communicate()
+    if proc.returncode != 0:
+        raise AssertionError(f"{what} exited {proc.returncode}: {err[-600:]!r}")
+    return (*child_output(stdout, what), time.perf_counter() - t0)
+
+
+def card_windows(child: dict, dev, what: str) -> int:
+    """The drip windows a child dispatched, all of them on ``dev``."""
+    windows = child["drip_windows"]
+    if set(windows) != {dev.type} or windows[dev.type] < 1:
+        raise AssertionError(f"{what}: drip windows {windows}, want them on {dev.type}")
+    return windows[dev.type]
+
+
+def add_launches(*children) -> dict:
+    return {name: sum(c["launches"][name] for c in children) for name in KERNELS}
+
+
+def serve_cli(url: str, jdir: str, device: str, extra=(), log_path: str | None = None):
+    """crane-scheduler ``--master --serve`` as a subprocess, in this
+    script's ``CLI_CHILD_ARG`` mode; with ``log_path`` its stdout goes to
+    that file."""
+    root, env = cli_env()
+    args = [sys.executable, __file__, CLI_CHILD_ARG, "crane_scheduler_tpu_torch.cli.scheduler_main",
+            "--master", url, "--serve", "--window", str(CONTROL_WINDOW), "--journal-dir", jdir,
+            "--device", device, *extra]
+    out = open(log_path, "w") if log_path else subprocess.PIPE
+    proc = subprocess.Popen(args, cwd=root, env=env, stdout=out, stderr=subprocess.PIPE,
+                            text=True)
+    if log_path:
+        out.close()
+    return proc
+
+
+def serve_line(proc, log_path: str | None = None, sig=None, timeout: float = 180.0) -> tuple:
+    """Signal a serve process (SIGTERM by default), wait: (its result line,
+    its child line)."""
+    import signal
+
+    proc.send_signal(sig or signal.SIGTERM)
+    try:
+        stdout, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        stdout, err = proc.communicate()
+    if proc.returncode != 0:
+        raise AssertionError(f"serve exited {proc.returncode}: {err[-800:]!r}")
+    if log_path:
+        with open(log_path) as f:
+            stdout = f.read()
+    return child_output(stdout, "serve")
+
+
+def wait_binds(server, target: int, procs, what: str, timeout: float = 300.0) -> tuple:
+    """Poll the stub until ``target`` binding POSTs: (seconds to the first
+    bind above the starting count, seconds to the target)."""
+    t0 = time.perf_counter()
+    base = server.stats()["bind_posts"]
+    first = None
+    while True:
+        posts = server.stats()["bind_posts"]
+        now = time.perf_counter() - t0
+        if first is None and posts > base:
+            first = now
+        if posts >= target:
+            return first if first is not None else now, now
+        for proc in procs:
+            if proc.poll() is not None:
+                raise AssertionError(f"{what}: a scheduler exited {proc.returncode} at "
+                                     f"{posts} binds: {proc.communicate()[1][-800:]!r}")
+        if now > timeout:
+            raise AssertionError(f"{what}: {posts} of {target} binds after {timeout} s")
+        time.sleep(0.01)
+
+
+def orphan_intent(jdir: str, pod: str, node: str) -> None:
+    """The journal a crashed scheduler leaves: one bind intent, no outcome."""
+    import os
+
+    os.makedirs(jdir, exist_ok=True)
+    with open(os.path.join(jdir, "intent-000001.jsonl"), "w") as f:
+        f.write(json.dumps({"v": 1, "t": "intent", "id": 1, "op": "bind", "pod": pod,
+                            "node": node, "window": 0, "trace": None, "ts": 1.0},
+                           separators=(",", ":")) + "\n")
+
+
+def scratch_dir_path(name: str) -> str:
+    import os
+
+    root, _ = cli_env()
+    return os.path.join(root, BUILD_DIR, "control", name)
+
+
+def scratch_dir(name: str) -> str:
+    """An empty scratch directory under ``_build/control`` (gitignored)."""
+    import os
+    import shutil
+
+    path = scratch_dir_path(name)
+    shutil.rmtree(path, ignore_errors=True)
+    os.makedirs(path)
+    return path
+
+
+def serve_twin_run(server, device: str, jdir: str) -> dict:
+    """The serve leg: 4,096 pods seeded before the process starts, bound by
+    ``--serve``, then SIGTERM. Result line, child line, bindings and
+    timings."""
+    proc = serve_cli(server.url, jdir, device)
+    t0 = time.perf_counter()
+    try:
+        first, done = wait_binds(server, CONTROL_PODS, [proc], f"serve ({device})")
+    except BaseException:
+        proc.kill()
+        proc.communicate()
+        raise
+    line, child = serve_line(proc)
+    wall = line.pop("wall_seconds")
+    line.pop("master")
+    line["recovery"].pop("elapsed_s")
+    stats = server.stats()
+    return {"line": line, "child": child, "wall_seconds": wall, "start_to_first_bind_s": first,
+            "first_to_last_bind_s": done - first, "process_seconds": time.perf_counter() - t0,
+            "bindings": stub_bindings(server.url), "bind_posts": stats["bind_posts"],
+            "duplicate_binds": stats["duplicate_binds"]}
+
+
+def serve_twin_child(stamp_epoch: float) -> int:
+    """The child mode ``SERVE_TWIN_ARG``: the serve leg with ``--device
+    cpu`` on its own identically seeded stub, one JSON line."""
+    server = fresh_stub(load_kube_stub(), CONTROL_NODES, stamp_epoch,
+                        kube_drip_pods("sv", CONTROL_PODS))
+    try:
+        out = serve_twin_run(server, "cpu", scratch_dir("twin-serve"))
+    finally:
+        server.stop()
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def control_oneshot_leg(kube_stub, dev) -> tuple:
+    """One-shot ``--master --journal-dir --batch-size 256`` on PR 11's
+    ``kube.cli`` stub (5,000 nodes, 1,024 pending pods) after an orphan
+    bind intent: the reconciler finds the pod unbound, every pod binds
+    once, K2 once per batch, equal to the CPU twin (``KUBE_TWIN_ARG``
+    with the same flags and its own orphan)."""
+    stamp_epoch = time.time()
+    twin_dir = scratch_dir("twin-oneshot")
+    orphan_intent(twin_dir, *CONTROL_ORPHAN)
+    twin_run = start_cli([KUBE_TWIN_ARG, repr(stamp_epoch), "--journal-dir", twin_dir],
+                         script=True)
+    try:
+        server = kube_cli_stub(kube_stub, stamp_epoch)
+        try:
+            jdir = scratch_dir("oneshot")
+            orphan_intent(jdir, *CONTROL_ORPHAN)
+            reset_launches()
+            card = kube_scheduler_cli(server.url, dev.type, ("--journal-dir", jdir))
+            launched = read_launches("control one-shot", need=("gang",))
+            stats = server.stats()
+        finally:
+            server.stop()
+        twin, twin_s = finish_cli(twin_run, timeout=600)
+        twin_run = None
+    finally:
+        if twin_run is not None and twin_run[0].poll() is None:
+            twin_run[0].kill()
+            twin_run[0].communicate()
+    batches = -(-KUBE_CLI_PODS // KUBE_CLI_BATCH)
+    if launched != {"score": 0, "gang": batches}:
+        raise AssertionError(f"control one-shot: launches {launched}, want K1 0, K2 {batches}")
+    rec = card["line"]["recovery"]
+    if rec["outcomes"] != {"unbound_reschedulable": 1} or \
+            card["line"]["scheduled"] != KUBE_CLI_PODS or \
+            card["bindings"]["bound"] != KUBE_CLI_PODS or stats["duplicate_binds"] != 0 or \
+            stats["bind_posts"] != KUBE_CLI_PODS:
+        raise AssertionError(f"control one-shot: {card['line']} {card['bindings']} {stats}")
+    if card["line"] != twin["line"] or card["bindings"] != twin["bindings"]:
+        raise AssertionError(f"control one-shot: card {card['line']} {card['bindings']} != "
+                             f"cpu {twin['line']} {twin['bindings']}")
+    return {"nodes": KUBE_CLI_NODES, "pods": KUBE_CLI_PODS, **card, "launches": launched,
+            "cpu_wall_seconds": twin["wall_seconds"], "cpu_process_seconds": twin_s,
+            "equal_to_cpu": True}, launched
+
+
+def control_serve_legs(kube_stub, dev, stamp_epoch: float, twin_run) -> tuple:
+    """serve, sigterm and standby on one 50,000-node stub (annotations
+    stamped ``stamp_epoch``; each leg adds its own 4,096 pods): the serve
+    leg equals its CPU twin's bindings (``twin_run``, started with the
+    phase); SIGTERM mid-storm drains, the restart reconciles; the standby
+    takes over a SIGKILLed leader. Each process's launches and drip
+    windows come from its exit line. Returns the lines, the paths' launch
+    counts and the stub (kept for the shard phase's wire leg)."""
+    import os
+    import signal
+    import threading
+
+    from crane_scheduler_tpu_torch.cluster.kube import KubeClusterClient
+
+    server = None
+    live = []  # serve processes, killed if a leg fails
+    by_path = {}
+    try:
+        t0 = time.perf_counter()
+        server = fresh_stub(kube_stub, CONTROL_NODES, stamp_epoch,
+                            kube_drip_pods("sv", CONTROL_PODS))
+        seed_s = time.perf_counter() - t0
+        jdir = scratch_dir("serve")
+        serve = serve_twin_run(server, dev.type, jdir)
+        child = serve.pop("child")
+        serve["drip_windows"] = card_windows(child, dev, "control serve")
+        by_path["control_serve"] = child["launches"]
+        serve["journal"] = check_journal_closed(jdir, "control serve")
+        serve["ms_per_pod"] = serve["first_to_last_bind_s"] * 1e3 / CONTROL_PODS
+        serve["pods_per_s"] = CONTROL_PODS / serve["first_to_last_bind_s"]
+        serve["stub_seed_s"] = seed_s
+        if serve["line"]["scheduled"] != CONTROL_PODS or serve["duplicate_binds"] or \
+                serve["bind_posts"] != CONTROL_PODS or serve["bindings"]["bound"] != CONTROL_PODS:
+            raise AssertionError(f"control serve: {serve}")
+        # the CPU twin ran on its own stub meanwhile; joined before the next
+        # legs, whose processes would slow it down
+        twin, twin_s = finish_cli(twin_run, timeout=900)
+        card_windows(twin.pop("child"), torch.device("cpu"), "control serve twin")
+        if serve["line"] != twin["line"] or serve["bindings"] != twin["bindings"]:
+            raise AssertionError(f"control serve: card {serve['line']} {serve['bindings']} != "
+                                 f"cpu {twin['line']} {twin['bindings']}")
+        serve.update(cpu_ms_per_pod=twin["first_to_last_bind_s"] * 1e3 / CONTROL_PODS,
+                     cpu_process_seconds=twin_s, equal_to_cpu=True)
+
+        def feed(prefix, start, count):
+            """Create pending pods ``start .. start + count`` from a thread
+            (sequential POSTs)."""
+            writer = KubeClusterClient(server.url)
+            pods = kube_drip_pods(prefix, CONTROL_PODS)[start:start + count]
+            thread = threading.Thread(target=lambda: (writer.add_pods(pods), writer.stop()),
+                                      daemon=True)
+            thread.start()
+            return thread
+
+        # -- sigterm: the signal lands mid-storm; the restart binds the rest
+        # (at least the second part, created after the first life exited,
+        # so it is up, handlers installed, before its own signal). The
+        # first part is no multiple of the window, so a window can be
+        # open when the first life reads the signal.
+        base = server.stats()["bind_posts"]
+        jdir = scratch_dir("sigterm")
+        half = CONTROL_PODS // 2 + CONTROL_WINDOW // 2 + 1
+        proc = serve_cli(server.url, jdir, dev.type)
+        live.append(proc)
+        feeder = feed("st", 0, half)
+        wait_binds(server, base + CONTROL_SIGTERM_AT, [proc], "control sigterm")
+        first, first_child = serve_line(proc)
+        feeder.join()
+        mid = server.stats()["bind_posts"] - base
+        proc = serve_cli(server.url, jdir, dev.type)
+        live.append(proc)
+        feed("st", half, CONTROL_PODS - half).join()
+        wait_binds(server, base + CONTROL_PODS, [proc], "control sigterm restart")
+        second, second_child = serve_line(proc)
+        stats = server.stats()
+        if "drained_at_exit" not in first or "recovery" not in second or \
+                stats["duplicate_binds"] or stats["bind_posts"] != base + CONTROL_PODS or \
+                first["scheduled"] + second["scheduled"] != CONTROL_PODS:
+            raise AssertionError(f"control sigterm: {first} {second} {stats}")
+        by_path["control_sigterm"] = add_launches(first_child, second_child)
+        sigterm = {"binds_at_signal": mid, "drained_at_exit": first["drained_at_exit"],
+                   "first_life_scheduled": first["scheduled"],
+                   "restart_scheduled": second["scheduled"], "restart_recovery": second["recovery"],
+                   "duplicate_binds": 0, "lost_binds": 0,
+                   "drip_windows": [card_windows(c, dev, "control sigterm")
+                                    for c in (first_child, second_child)],
+                   "launches": by_path["control_sigterm"]}
+
+        # -- standby: two processes on one lock; the leader dies mid-storm
+        base = server.stats()["bind_posts"]
+        jdir = scratch_dir("standby")
+        lock = os.path.join(jdir, "leader.lock")
+        procs = [serve_cli(server.url, jdir, dev.type, ("--lock-file", lock)) for _ in range(2)]
+        live.extend(procs)
+        t_lock = time.perf_counter()
+        while True:
+            try:
+                with open(lock) as f:
+                    holder = json.load(f)["holderIdentity"]
+                break
+            except (OSError, ValueError, KeyError):
+                if time.perf_counter() - t_lock > 120:
+                    raise AssertionError("control standby: no leader") from None
+                time.sleep(0.05)
+        leader = next(p for p in procs if holder == f"scheduler-{p.pid}")
+        standby = next(p for p in procs if p is not leader)
+        # the two started together: the standby's bootstrap ends about when
+        # the leader's does; give it two more seconds to wait on the lock
+        time.sleep(2.0)
+        feeder = feed("sb", 0, CONTROL_PODS)
+        wait_binds(server, base + CONTROL_PODS // 2, procs, "control standby leader")
+        t_kill = time.perf_counter()
+        leader.send_signal(signal.SIGKILL)
+        leader.communicate()
+        at_kill = server.stats()["bind_posts"] - base
+        feeder.join()
+        wait_binds(server, base + CONTROL_PODS, [standby], "control standby")
+        line, child = serve_line(standby)
+        stats = server.stats()
+        if stats["duplicate_binds"] or stats["bind_posts"] != base + CONTROL_PODS or \
+                "failover_seconds" not in line:
+            raise AssertionError(f"control standby: {line} {stats}")
+        # the SIGKILLed leader prints no exit line: the path's counts are
+        # the standby's
+        by_path["control_standby"] = child["launches"]
+        standby_out = {"binds_at_kill": at_kill, "standby_scheduled": line["scheduled"],
+                       "failover_seconds": line["failover_seconds"],
+                       "failover_gate_s": CONTROL_FAILOVER_GATE_S,
+                       "kill_to_all_bound_s": time.perf_counter() - t_kill,
+                       "recovery": line["recovery"], "duplicate_binds": 0, "lost_binds": 0,
+                       "drip_windows": card_windows(child, dev, "control standby"),
+                       "launches": child["launches"]}
+        return serve, sigterm, standby_out, by_path, server
+    except BaseException:
+        if server is not None:
+            server.stop()
+        raise
+    finally:
+        for proc in live:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+
+
+def kill_soak(dev, seed: int, root: str, server, tag: str) -> list:
+    """Config 16's three kill sites against ``server``, an in-process stub
+    (namespaces prefixed with ``tag``): seeded mid-pipeline-fill kills
+    (``KillSwitch`` at a journal offset, ``SimulatedCrash``) with
+    reconcile-then-rebind lives, a half-filled drip window abandoned on the
+    card, and an eviction whose response is lost. Returns the timeline."""
+    import os
+
+    from crane_scheduler_tpu_torch.cluster.kube import KubeClusterClient
+    from crane_scheduler_tpu_torch.resilience import ChaosPlan
+    from crane_scheduler_tpu_torch.resilience.recovery import (
+        IntentJournal,
+        KillSwitch,
+        Reconciler,
+        SimulatedCrash,
+    )
+
+    def die():
+        raise SimulatedCrash("kill")
+
+    plan = ChaosPlan.generate(seed, steps=CONTROL_KILLS * 4, n_faults=CONTROL_KILLS,
+                              kinds=("kill_process",))
+    timeline = []
+    for li, ev in enumerate(e for e in plan.events if e.kind == "kill_process"):
+        ns = f"{tag}kill{li}"
+        jdir = os.path.join(root, ns)
+        for i in range(CONTROL_KILL_BATCH):
+            server.state.add_pod(ns, f"soak-{i:04d}")
+        pairs = [(f"{ns}/soak-{i:04d}", f"node-{i:05d}") for i in range(CONTROL_KILL_BATCH)]
+        off = 1 + ev.param("offset") % 1100
+        journal = IntentJournal(jdir)
+        journal.kill_switch = KillSwitch(off, action=die)
+        client = KubeClusterClient(server.url)
+        client.attach_intent_journal(journal)
+        crashed = False
+        try:
+            client.bind_pods(pairs)
+        except SimulatedCrash:
+            crashed = True
+        client.stop()
+        journal.close()
+        journal2 = IntentJournal(jdir)
+        client2 = KubeClusterClient(server.url)
+        client2.attach_intent_journal(journal2)
+        report = Reconciler(journal2, client2.get_pod_live).reconcile()
+        redo = {k: n for k, n, _t, _a in report.reschedule}
+        if redo:
+            client2.bind_pods(list(redo.items()))
+        pending = [(k, n) for k, n in pairs
+                   if k not in redo and not client2.get_pod_live(k).node_name]
+        if pending:
+            client2.bind_pods(pending)
+        client2.stop()
+        journal2.close()
+        for k, n in pairs:
+            if server.state.bind_posts.get(k, 0) != 1 or \
+                    server.state.pods[k]["spec"].get("nodeName") != n:
+                raise AssertionError(f"control kill: {k} after a kill at {off}: "
+                                     f"{server.state.bind_posts.get(k, 0)} POSTs")
+        timeline.append({"leg": "pipeline", "offset": off, "crashed": crashed,
+                         "outcomes": dict(sorted(report.outcomes.items())),
+                         "reposted": len(redo), "swept": len(pending)})
+
+    ns = f"{tag}window"
+    for i in range(5):
+        server.state.add_pod(ns, f"soak-{i:04d}",
+                             spec={"containers": [{"resources": {"requests": {
+                                 "cpu": "100m", "memory": "128Mi"}}}]})
+    client = KubeClusterClient(server.url, list_page_limit=KUBE_PAGE)
+    client.start()
+    queue = kube_drip_scheduler(client, dev).open_queue(window=64)
+    for p in client.list_pods():
+        if p.namespace == ns:
+            queue.offer(p)
+    held = len(queue)
+    if held != 5 or queue.results:
+        raise AssertionError("control kill: the window dispatched before the kill")
+    client.stop()  # the kill: the queue dies undrained, nothing reached the wire
+    client2 = KubeClusterClient(server.url, list_page_limit=KUBE_PAGE)
+    client2.start()
+    queue2 = kube_drip_scheduler(client2, dev).open_queue(window=64)
+    for p in client2.list_pods():
+        if p.namespace == ns and not p.node_name:
+            queue2.offer(p)
+    drained = queue2.drain()
+    bound = [r for r in queue2.take_results() if r.node]
+    client2.stop()
+    if not drained == held == len(bound) or any(
+            server.state.bind_posts.get(f"{ns}/soak-{i:04d}", 0) != 1 for i in range(5)):
+        raise AssertionError(f"control kill window: {held} held, {drained} drained")
+    timeline.append({"leg": "window", "held": held, "rebound": len(bound)})
+
+    ns = f"{tag}evict"
+    server.state.add_pod(ns, "victim", spec={"nodeName": "node-00000"})
+    server.state.inject_write_faults((0, {}))
+    jdir = os.path.join(root, "evict")
+    journal = IntentJournal(jdir)
+    client = KubeClusterClient(server.url)
+    client.attach_intent_journal(journal)
+    if client.evict_pod(f"{ns}/victim") is not False:
+        raise AssertionError("control kill: the lost eviction reported success")
+    client.stop()
+    journal.close()
+    journal2 = IntentJournal(jdir)
+    client2 = KubeClusterClient(server.url)
+    report = Reconciler(journal2, client2.get_pod_live).reconcile()
+    client2.stop()
+    journal2.close()
+    # the restarted descheduler re-arms the cooldown; its next sweep
+    # inside the cooldown must not POST
+    desched = LoadAwareDescheduler(ClusterState(), DEFAULT_POLICY, DeschedulerConfig(
+        watermarks=(WatermarkPolicy("cpu_usage_avg_5m", 0.5, 0.7),),
+        node_cooldown_seconds=300.0))
+    for node in report.rearm_cooldowns:
+        desched.rearm_cooldown(node, now=1000.0)
+    if report.rearm_cooldowns != ["node-00000"] or \
+            sum(server.state.evict_posts.values()) != 0 or \
+            desched._last_evict.get("node-00000") != 1000.0:
+        raise AssertionError(f"control kill eviction: {report.as_dict()}")
+    timeline.append({"leg": "eviction", "outcomes": dict(sorted(report.outcomes.items()))})
+    if server.state.duplicate_binds() or server.state.duplicate_evictions():
+        raise AssertionError("control kill: a duplicate POST")
+    return timeline
+
+
+def control_kill_leg(dev) -> tuple:
+    """Config 16's kill sites twice with one seed, on one in-process
+    50,000-node stub: the same timeline."""
+    metrics = [sp.name for sp in DEFAULT_POLICY.spec.sync_period]
+    server = load_kube_stub().KubeStubServer().start()
+    try:
+        anno = {m: f"0.30000,{KUBE_STAMP}" for m in metrics}
+        for i in range(CONTROL_NODES):
+            server.state.add_node(f"node-{i:05d}", f"10.{i >> 16}.{(i >> 8) & 255}.{i & 255}",
+                                  annotations=dict(anno), allocatable=DRIP_ALLOCATABLE)
+        reset_launches()
+        t0 = time.perf_counter()
+        first = kill_soak(dev, CONTROL_KILL_SEED, scratch_dir("kill-a"), server, "a-")
+        soak_s = time.perf_counter() - t0
+        second = kill_soak(dev, CONTROL_KILL_SEED, scratch_dir("kill-b"), server, "b-")
+        launched = read_launches("control kill", need=())
+    finally:
+        server.stop()
+    if first != second:
+        raise AssertionError("control kill: the same seed gave two timelines")
+    pipe = [t for t in first if t["leg"] == "pipeline"]
+    return {"nodes": CONTROL_NODES, "kills": len(pipe),
+            "landed_mid_stream": sum(t["crashed"] for t in pipe),
+            "reconciler_reposts": sum(t["reposted"] for t in pipe),
+            "sweep_binds": sum(t["swept"] for t in pipe), "duplicate_binds": 0,
+            "lost_binds": 0, "duplicate_evictions": 0, "deterministic": True,
+            "soak_seconds": soak_s, "timeline": first, "launches": launched}, launched
+
+
+def desched_stub(kube_stub, n: int, stamp_epoch: float):
+    """Config 11's world at ``n`` nodes on an in-process stub: hot nodes
+    with 12 one-CPU workers, a DaemonSet and a kube-system decoy each; one
+    one-CPU pod on every other node; every metric of the default policy
+    at the node's requested cpu share, stamped ``stamp_epoch``."""
+    server = kube_stub.KubeStubServer().start()
+    st = server.state
+    stamp = format_local_time(stamp_epoch)
+    metrics = [sp.name for sp in DEFAULT_POLICY.spec.sync_period]
+    spec = lambda node: {"nodeName": node,  # noqa: E731
+                         "containers": [{"resources": {"requests": {"cpu": "1"}}}]}
+    for i in range(n):
+        hot = i < DESCHED_HOT
+        name = f"hot-{i}" if hot else f"cool-{i - DESCHED_HOT}"
+        share = (DESCHED_HOT_WORKERS + 2) / 16 if hot else 1 / 16
+        st.add_node(name, f"10.{i >> 16}.{(i >> 8) & 255}.{i & 255}",
+                    annotations={m: f"{share:.5f},{stamp}" for m in metrics},
+                    allocatable=DESCHED_ALLOCATABLE)
+        if hot:
+            for j in range(DESCHED_HOT_WORKERS):
+                st.add_pod("default", f"{name}-w{j}", spec=spec(name))
+            st.add_pod("default", f"{name}-ds", spec=spec(name),
+                       owner_references=[{"kind": "DaemonSet", "name": "agent"}])
+            st.add_pod("kube-system", f"{name}-sys", spec=spec(name))
+        else:
+            st.add_pod("default", f"{name}-w0", spec=spec(name))
+    return server
+
+
+def desched_cli(url: str, jdir: str, extra=(), seconds: float = CONTROL_DESCHED_SECONDS):
+    """crane-descheduler ``--master`` as a subprocess, in this script's
+    ``CLI_CHILD_ARG`` mode."""
+    return start_cli([CLI_CHILD_ARG, "crane_scheduler_tpu_torch.cli.descheduler_main",
+                      "--master", url, "--journal-dir", jdir, "--health-port", "0",
+                      "--sync-period-seconds", "3", "--consecutive-syncs", "1",
+                      "--max-evictions-per-node", "2", "--max-evictions-per-cycle", "4",
+                      "--cpu-target", "0.32", "--cpu-threshold", "0.35",
+                      "--node-cooldown-seconds", "300", "--run-seconds", str(seconds), *extra],
+                     script=True)
+
+
+def desched_lives(kube_stub) -> dict:
+    """The two-life indeterminate eviction on the hot/cool pair of the
+    descheduler drive (one victim and a DaemonSet pod on the hot node): the
+    eviction's response is lost, the restart reconciles."""
+    server = kube_stub.KubeStubServer().start()
+    try:
+        st, stamp = server.state, format_local_time(time.time())
+        metrics = [sp.name for sp in DEFAULT_POLICY.spec.sync_period]
+        for i, (name, share) in enumerate((("hot-0", 0.92), ("cool-0", 0.15))):
+            st.add_node(name, f"10.0.0.{i + 1}", allocatable={"cpu": "8", "pods": "100"},
+                        annotations={m: f"{share:.5f},{stamp}" for m in metrics})
+        victim = {"nodeName": "hot-0", "containers": [{"resources": {"requests": {"cpu": "1"}}}]}
+        st.add_pod("default", "victim", spec=victim)
+        st.add_pod("default", "ds", spec=victim,
+                   owner_references=[{"kind": "DaemonSet", "name": "d"}])
+        st.inject_write_faults((0, {}))
+        jdir = scratch_dir("desched-lives")
+        lives = []
+        for _life in range(2):
+            line, _child, _s = finish_child(desched_cli(server.url, jdir, seconds=2.0), 120,
+                                            "control desched lives")
+            with st.lock:
+                lives.append((line, sum(st.evict_posts.values()),
+                              [r["t"] for r in journal_lines(jdir)]))
+        (l1, posts1, kinds1), (l2, posts2, _kinds2) = lives
+        if posts1 != 0 or "unresolved" not in kinds1 or posts2 != 0 or \
+                l2["recovery"]["outcomes"] != {"evict_unapplied": 1} or \
+                l2["recovery"]["rearm_cooldowns"] != ["hot-0"] or st.duplicate_evictions():
+            raise AssertionError(f"control desched lives: {lives}")
+        return {"life1_evict_posts": posts1, "life1_journal": kinds1,
+                "life2_recovery": l2["recovery"], "life2_evict_posts": posts2}
+    finally:
+        server.stop()
+
+
+def control_desched_leg(kube_stub) -> tuple:
+    """crane-descheduler ``--master --journal-dir --leader-elect`` on config
+    11's world at 50,000 nodes: 4 evictions, no DaemonSet or kube-system
+    victim, no duplicate, the Lease held, the journal closed (the
+    descheduler is host Python with no ``--device``: no twin; the CPU
+    tests hold it against the reference). The two-life indeterminate
+    eviction runs meanwhile. The launches come from the child's exit
+    line."""
+    server = desched_stub(kube_stub, CONTROL_NODES, time.time())
+    run = None
+    try:
+        jdir = scratch_dir("desched")
+        run = desched_cli(server.url, jdir, ("--leader-elect",))
+        lives = desched_lives(kube_stub)
+        line, child, seconds = finish_child(run, 300, "control desched")
+        with server.state.lock:
+            evicted = sorted(e["key"] for e in server.state.evictions)
+            lease = server.state.leases.get("crane-system/crane-scheduler-tpu-descheduler")
+            duplicates = server.state.duplicate_evictions()
+        if duplicates or lease is None or line["evictions"] != 4 or len(evicted) != 4 or \
+                any(k.endswith(("-ds", "-sys")) or k.startswith("kube-system/")
+                    for k in evicted):
+            raise AssertionError(f"control desched: {line} {evicted} lease {lease} "
+                                 f"duplicates {duplicates}")
+        kinds = check_journal_closed(jdir, "control desched")
+    finally:
+        if run is not None and run[0].poll() is None:
+            run[0].kill()
+            run[0].communicate()
+        server.stop()
+    line["recovery"].pop("elapsed_s")
+    return {"nodes": CONTROL_NODES, "evicted": evicted, "stats": line, "journal": kinds,
+            "process_seconds": seconds, "two_lives": lives}, child["launches"]
+
+
+class ChaosDriver:
+    """Config 12's loop on a virtual clock (one step a simulated minute)
+    through the port's pieces: a breaker-wrapped Prometheus sweep written
+    as annotations through the mirror, the degraded-mode controller, the
+    descheduler (suspended while degraded) and a drip scheduler on the
+    card, while a ``ChaosPlan`` injects faults into the stubs."""
+
+    METRIC = "cpu_usage_avg_5m"
+
+    def __init__(self, kube_stub, plan, dev, n_nodes: int):
+        from crane_scheduler_tpu_torch.cluster.kube import KubeClusterClient
+        from crane_scheduler_tpu_torch.metrics import PrometheusClient
+        from crane_scheduler_tpu_torch.metrics.source import MetricsTransportError
+        from crane_scheduler_tpu_torch.resilience import (
+            CircuitBreaker,
+            DegradedModeController,
+            HealthRegistry,
+            RetryPolicy,
+        )
+
+        m = self.METRIC
+        self.policy = DynamicSchedulerPolicy(spec=PolicySpec(
+            sync_period=(SyncPolicy(m, 180.0),), predicate=(PredicatePolicy(m, 0.65),),
+            priority=(PriorityPolicy(m, 1.0),)))
+        self.plan, self.now, self.step = plan, NOW, 0
+        self.server = kube_stub.KubeStubServer().start()
+        self.prom = kube_stub.ChaosPromServer().start()
+        self.names, self.ips = [], {}
+        spec = lambda node: {"nodeName": node,  # noqa: E731
+                             "containers": [{"resources": {"requests": {"cpu": "1"}}}]}
+        for i in range(n_nodes):
+            name = "hot-0" if i == 0 else f"cool-{i - 1}"
+            ip = f"10.0.0.{i + 1}"
+            self.server.state.add_node(name, ip, allocatable={"cpu": "16", "pods": "110"})
+            self.names.append(name)
+            self.ips[name] = ip
+            for j in range(12 if i == 0 else 1):
+                self.server.state.add_pod("default", f"{name}-w{j}", spec=spec(name))
+        self.prom.set_all([self.ips["hot-0"]], 0.90)
+        self.prom.set_all([self.ips[n] for n in self.names[1:]], 0.10)
+        self.client = KubeClusterClient(self.server.url)
+        self.client.start()
+        self.transport_error = MetricsTransportError
+        self.breaker = CircuitBreaker("prometheus", failure_threshold=3, window_s=600.0,
+                                      reset_timeout_s=90.0, clock=lambda: self.now)
+        self.health = HealthRegistry()
+        self.health.watch_breaker(self.breaker)
+        self.promc = PrometheusClient(self.prom.url, timeout=2.0, breaker=self.breaker,
+                                      retry_policy=RetryPolicy(
+                                          max_attempts=2, base_delay_s=0.0, max_delay_s=0.0,
+                                          deadline_s=30.0, retryable=(MetricsTransportError,),
+                                          seed=plan.seed, sleep=lambda s: None))
+        self.degraded = DegradedModeController(self.policy.spec, min_eval_interval_s=0.0)
+        self.desched = LoadAwareDescheduler(
+            self.client, self.policy,
+            DeschedulerConfig(watermarks=(WatermarkPolicy(m, target=0.32, threshold=0.35),),
+                              consecutive_syncs=2, max_evictions_per_node=2,
+                              max_evictions_per_cycle=4, node_cooldown_seconds=0.0),
+            clock=lambda: self.now, degraded=self.degraded)
+        self.sched = Scheduler(self.client, clock=lambda: self.now, device=dev)
+        self.sched.register(ResourceFitPlugin(FitTracker(self.client)), weight=1)
+        self.sched.register(DynamicPlugin(self.policy, clock=lambda: self.now,
+                                          degraded=self.degraded), weight=3)
+        self.stats = {"sweep_failures": 0, "failfast_sweeps": 0, "degraded_steps": [],
+                      "suspended": 0, "evicted": 0, "evicted_while_degraded": 0,
+                      "verdicts": 0, "placed": 0, "breaker_states": set()}
+        self._torn_until = None
+        deadline = time.time() + 30.0
+        while len(self.client.list_nodes()) < n_nodes or len(self.client.list_pods()) < 17:
+            if time.time() > deadline:
+                raise AssertionError("control chaos: the mirror never bootstrapped")
+            time.sleep(0.02)
+
+    def appliers(self) -> dict:
+        st, prom = self.server.state, self.prom
+
+        def kube_write_storm(e):
+            status = e.param("status", 503)
+            st.inject_write_faults(*[(status, {}, {"Retry-After": "0.01"} if status == 429
+                                      else {})] * e.param("count", 3))
+
+        def torn_watch(e):
+            st.torn_watch_writes = True
+            self._torn_until = self.step + e.param("count", 1)
+
+        def watch_410(e):
+            st.inject_watch_410_after("nodes", e.param("after", 1))
+            st.close_watches()
+
+        def skew(e):
+            stamp = format_local_time(self.now + e.param("offset_s", -3600.0))
+            with st.lock:
+                for node in st.nodes.values():
+                    anno = node["metadata"].setdefault("annotations", {})
+                    if self.METRIC in anno:
+                        anno[self.METRIC] = f"{anno[self.METRIC].split(',')[0]},{stamp}"
+                        st._stamp(node)
+                        st._notify("nodes", "MODIFIED", node)
+
+        def prom_storm(e):
+            status = e.param("status", 503)
+            prom.inject_faults(*[(status, 0.01) if status == 429 else status]
+                               * e.param("count", 3))
+
+        return {"prom_outage": lambda e: setattr(prom, "outage", True),
+                "prom_heal": lambda e: (setattr(prom, "outage", False),
+                                        setattr(prom, "delay_s", 0.0)),
+                "prom_storm": prom_storm,
+                "prom_slow": lambda e: setattr(prom, "delay_s", e.param("delay_s", 0.1)),
+                "kube_read_storm": lambda e: st.inject_read_faults(
+                    *[(e.param("status", 503), {})] * e.param("count", 3)),
+                "kube_write_storm": kube_write_storm, "torn_watch": torn_watch,
+                "close_watches": lambda e: st.close_watches(), "watch_410": watch_410,
+                "skew_annotations": skew, "skew_heal": lambda e: None}
+
+    def one_step(self, schedule: bool) -> None:
+        s = self.stats
+        hits = self.prom.hits
+        try:
+            by_inst = self.promc.query_all_by_metric(self.METRIC)
+            stamp = format_local_time(self.now)
+            self.client.patch_node_annotations_bulk({
+                n: {self.METRIC: f"{by_inst[self.ips[n]]},{stamp}"}
+                for n in self.names if self.ips[n] in by_inst})
+            deadline = time.time() + 2.0
+            while time.time() < deadline and not any(
+                    (n.annotations or {}).get(self.METRIC, "").endswith(f",{stamp}")
+                    for n in self.client.list_nodes()):
+                time.sleep(0.01)
+        except self.transport_error:
+            s["sweep_failures"] += 1
+            s["failfast_sweeps"] += self.prom.hits == hits
+        self.degraded.update((dict(n.annotations or {}) for n in self.client.list_nodes()),
+                             self.now)
+        s["breaker_states"].add(self.breaker.state)
+        if self.degraded.active:
+            s["degraded_steps"].append(self.step)
+        report = self.desched.sync_once(self.now)
+        s["suspended"] += bool(report.suspended)
+        s["evicted"] += len(report.evicted)
+        if self.degraded.active:
+            s["evicted_while_degraded"] += len(report.evicted)
+        if schedule:
+            pod = Pod(name=f"chaos-{self.step}", containers=ONE_CPU)
+            self.client.add_pod(pod)
+            result = self.sched.schedule_one(pod)
+            s["verdicts"] += result is not None
+            s["placed"] += result.node is not None
+
+    def run(self) -> dict:
+        appliers = self.appliers()
+        for step in range(self.plan.steps):
+            self.step, self.now = step, NOW + step * 60.0
+            if self._torn_until is not None and step >= self._torn_until:
+                self.server.state.torn_watch_writes = False
+                self._torn_until = None
+            self.plan.apply(step, appliers)
+            self.one_step(schedule=step % 2 == 0)
+        # heal everything and settle four steps
+        st = self.server.state
+        self.prom.outage, self.prom.delay_s = False, 0.0
+        with self.prom.lock:
+            self.prom.faults.clear()
+        st.torn_watch_writes, st.response_delay_s = False, 0.0
+        with st.lock:
+            st.read_faults.clear()
+            st.write_faults.clear()
+        for _ in range(4):
+            self.step += 1
+            self.now += 60.0
+            self.one_step(schedule=False)
+        deadline = time.time() + 10.0
+        while True:
+            with st.lock:
+                want = {n: dict(o["metadata"].get("annotations") or {})
+                        for n, o in st.nodes.items()}
+            if {n.name: dict(n.annotations or {}) for n in self.client.list_nodes()} == want:
+                break
+            if time.time() > deadline:
+                raise AssertionError("control chaos: the mirror never converged")
+            time.sleep(0.05)
+        s = dict(self.stats, breaker_states=sorted(self.stats["breaker_states"]))
+        s.update(duplicate_binds=st.duplicate_binds(), duplicate_evictions=st.duplicate_evictions(),
+                 healthy_after=self.health.overall() == "healthy"
+                 and self.breaker.state == "closed" and not self.degraded.active)
+        if s["duplicate_binds"] or s["duplicate_evictions"] or s["evicted_while_degraded"] or \
+                not s["healthy_after"] or s["verdicts"] != (self.plan.steps + 1) // 2:
+            raise AssertionError(f"control chaos: {self.plan.describe()} {s}")
+        return s
+
+    def close(self) -> None:
+        try:
+            self.client.stop()
+        finally:
+            self.server.stop()
+            self.prom.stop()
+
+
+def control_chaos_leg(kube_stub, dev) -> tuple:
+    """Config 12's scripted outage and one generated plan through the
+    port's pieces, the scheduler on the card."""
+    from crane_scheduler_tpu_torch.resilience import ChaosPlan
+
+    reset_launches()
+    out = {}
+    plans = {
+        "scripted": ChaosPlan(seed=1, steps=CONTROL_CHAOS_STEPS)
+        .add(CONTROL_CHAOS_OUTAGE, "prom_outage").add(CONTROL_CHAOS_HEAL, "prom_heal"),
+        "generated": ChaosPlan.generate(CONTROL_CHAOS_SEED, steps=CONTROL_CHAOS_STEPS,
+                                        n_faults=3, quiet_tail=8),
+    }
+    for name, plan in plans.items():
+        t0 = time.perf_counter()
+        driver = ChaosDriver(kube_stub, plan, dev, CONTROL_CHAOS_NODES)
+        try:
+            out[name] = driver.run()
+        finally:
+            driver.close()
+        out[name]["seconds"] = time.perf_counter() - t0
+        out[name]["plan"] = plan.describe().splitlines()
+    s = out["scripted"]
+    if not s["degraded_steps"] or "open" not in s["breaker_states"] or not s["failfast_sweeps"] \
+            or s["suspended"] < len(set(s["degraded_steps"])):
+        raise AssertionError(f"control chaos: the scripted outage {s}")
+    launched = read_launches("control chaos", need=())
+    return out, launched
+
+
+def phase_control(dev) -> tuple:
+    """The control plane on the kube mirror: the journaled one-shot, the
+    serve loop, SIGTERM, config 16's kill sites, the warm standby,
+    crane-descheduler ``--master`` and config 12's chaos. The serve leg's
+    CPU twin starts first and runs beside the one-shot leg."""
+    t_phase = time.perf_counter()
+    kube_stub = load_kube_stub()
+    by_path, out = {}, {}
+    serve_stamp = time.time()
+    twin_run = start_cli([SERVE_TWIN_ARG, repr(serve_stamp)], script=True)
+    wire = None
+    try:
+        t0 = time.perf_counter()
+        out["oneshot"], by_path["control_oneshot"] = control_oneshot_leg(kube_stub, dev)
+        out["oneshot"]["seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        serve, sigterm, standby, serve_paths, wire = control_serve_legs(
+            kube_stub, dev, serve_stamp, twin_run)
+        out.update(serve=serve, sigterm=sigterm, standby=standby)
+        by_path.update(serve_paths)
+        out["serve_legs_seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["kill"], by_path["control_kill"] = control_kill_leg(dev)
+        out["kill"]["seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["descheduler"], by_path["control_descheduler"] = control_desched_leg(kube_stub)
+        out["descheduler"]["seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["chaos"], by_path["control_chaos"] = control_chaos_leg(kube_stub, dev)
+        out["chaos_seconds"] = time.perf_counter() - t0
+    except BaseException:
+        if wire is not None:
+            wire.stop()
+        raise
+    finally:
+        if twin_run[0].poll() is None:
+            twin_run[0].kill()
+            twin_run[0].communicate()
+    out["seconds"] = time.perf_counter() - t_phase
+    log("control", **out)
+    return out, by_path, wire
+
+
+# -- shards: the shard plane --------------------------------------------------------
+
+SHARD_NODES = 250_000  # config 18's mirror (config 21's is 1,000,000: cut for wall time)
+SHARD_PODS = 512  # config 18's storm
+SHARD_STORMS = 3  # timed storms per scheduler count: pods/s is their median
+SHARD_WINDOW = 128
+SHARD_SCALING = (1, 2, 4)
+SHARD_GATES = {2: 1.8, 4: 3.0}  # config 18's scaling gates (report only here)
+SHARD_CONFLICT_NODES = 4_000
+SHARD_CONFLICT_PODS = 800
+SHARD_CONFLICT_OVERLAP = 0.25
+SHARD_CONFLICT_WINDOW = 16
+SHARD_CONFLICT_GATE = 0.05  # config 18's conflict-rate gate (report only here)
+SHARD_RING_VNODES = 64
+SHARD_WIRE_PODS = 4_096
+SHARD_WIRE_MOVE_AT = 1_024  # binds before the ring file moves a token
+SHARD_ALLOCATABLE = {"cpu": "64", "memory": "256Gi", "ephemeral-storage": "100Gi",
+                     "pods": "1100"}  # config 21's
+
+
+def shard_node_list(n: int) -> list:
+    """Config 21's mirror rows: eight shared annotation variants stamped
+    20 s before ``kube_now()``, config 21's allocatable."""
+    metrics = [sp.name for sp in DEFAULT_POLICY.spec.sync_period]
+    ts = format_local_time(kube_now() - 20.0)
+    variants = [{m: f"{0.20 + 0.01 * ((j + k) % 11):.5f},{ts}" for k, m in enumerate(metrics)}
+                for j in range(8)]
+    return [Node(name=f"node-{i:07d}", annotations=variants[i % 8], allocatable=SHARD_ALLOCATABLE)
+            for i in range(n)]
+
+
+def shard_cluster(nodes) -> ClusterState:
+    # a reshard journals every moved name: size the journal for the scale
+    cluster = ClusterState(dirty_journal_cap=65536)
+    cluster.replace_nodes(nodes)
+    return cluster
+
+
+def shard_factory(dev):
+    def build(view):
+        return kube_drip_scheduler(view, dev)
+    return build
+
+
+def shard_pods(cluster, tag: str, count: int, cpu: str = "100m") -> list:
+    pods = kube_drip_pods(f"sh-{tag}", count, cpu=cpu)
+    cluster.add_pods(pods)
+    return pods
+
+
+def shard_storm(nodes, k: int, dev, threaded: bool) -> tuple:
+    """``k`` schedulers over disjoint crc shards of a fresh cluster: one
+    warm window of infeasible pods each, then ``SHARD_STORMS`` storms of
+    ``SHARD_PODS`` pods split evenly. (placements per storm and shard,
+    seconds per storm, conflicts)."""
+    from crane_scheduler_tpu_torch.framework.shardplane import ShardedPlacementPlane
+
+    cluster = shard_cluster(nodes)
+    plane = ShardedPlacementPlane(cluster, k)
+    plane.add_scheduler(shard_factory(dev))
+    warm = [shard_pods(cluster, f"w{k}-{i}", SHARD_WINDOW, cpu="100000") for i in range(k)]
+    for res in plane.run_storm(warm, window=SHARD_WINDOW, threaded=threaded):
+        if any(r.node for r in res):
+            raise AssertionError("shards: a warm-up pod was placed")
+    observed = [{n.name for n in view.list_nodes()} for view in plane.views]
+    placed, seconds = [], []
+    for s in range(SHARD_STORMS):
+        queues = [shard_pods(cluster, f"s{k}-{s}-{i}", SHARD_PODS // k) for i in range(k)]
+        t0 = time.perf_counter()
+        results = plane.run_storm(queues, window=SHARD_WINDOW, threaded=threaded)
+        seconds.append(time.perf_counter() - t0)
+        for i, res in enumerate(results):
+            for r in res:
+                if r.node is None or r.node not in observed[i]:
+                    raise AssertionError(f"shards: shard {i} placed {r.pod_key} on {r.node}")
+        placed.append([placements(res) for res in results])
+    return placed, seconds, plane.conflict_stats()
+
+
+def shards_scaling_leg(nodes, dev) -> tuple:
+    """1, 2 and 4 schedulers, threaded on the card, each against the same
+    plane on CPU tensors with ``threaded=False``."""
+    reset_launches()
+    out = {}
+    for k in SHARD_SCALING:
+        card, seconds, conflicts = shard_storm(nodes, k, dev, threaded=True)
+        twin, twin_s, _ = shard_storm(nodes, k, torch.device("cpu"), threaded=False)
+        if card != twin or conflicts:
+            raise AssertionError(f"shards scaling: {k} schedulers: card != CPU twin "
+                                 f"(conflicts {conflicts})")
+        out[k] = {"pods_per_s": SHARD_PODS / statistics.median(seconds),
+                  "pods_per_s_each": [SHARD_PODS / t for t in seconds], "seconds": seconds,
+                  "cpu_twin_seconds": twin_s, "equal_to_cpu": True}
+    for k, gate in SHARD_GATES.items():
+        out[k]["speedup"] = out[k]["pods_per_s"] / out[1]["pods_per_s"]
+        out[k]["gate"] = gate
+    return out, read_launches("shards scaling", need=())
+
+
+def drip_columns_of(sched):
+    drip = sched._ensure_drip(sched._recognition())
+    drip.ensure(kube_now())
+    return drip
+
+
+def same_columns(a, b, what: str) -> None:
+    if a.names != b.names or any(not np.array_equal(getattr(a, c), getattr(b, c))
+                                 for c in ("schedulable", "fail_entry", "weighted")):
+        raise AssertionError(f"{what}: dirty-patched columns != a from-scratch build")
+
+
+def shards_columns_leg(nodes, dev) -> tuple:
+    """A 4-shard ring plane on the 250,000-node mirror: each shard's first
+    probe builds its columns; one named patch on a shard-0 node; the
+    re-probes: only shard 0 patches, one row; its columns equal a fresh
+    build. Then config 21's reshard: a one-token and an eight-token move,
+    ms per moved name, and every shard's patched columns equal a fresh
+    build."""
+    from crane_scheduler_tpu_torch.cluster.shards import HashRing
+    from crane_scheduler_tpu_torch.framework.shardplane import ShardedPlacementPlane
+
+    reset_launches()
+    cluster = shard_cluster(nodes)
+    ring = HashRing(4, vnodes=SHARD_RING_VNODES)
+    plane = ShardedPlacementPlane(cluster, 4, layout=ring)
+    scheds = plane.add_scheduler(shard_factory(dev))
+    probes = iter(shard_pods(cluster, "probe", 64, cpu="100000"))  # infeasible: no binds
+
+    def probe_all() -> list:
+        out = []
+        for sched in scheds:
+            t0 = time.perf_counter()
+            if sched.schedule_one(next(probes)).node is not None:
+                raise AssertionError("shards: an infeasible probe was placed")
+            out.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    build_ms = probe_all()
+    before = [s.drip_stats() for s in scheds]
+    victim = next(n.name for n in nodes if ring.owners(n.name) == (0,))
+    metric = DEFAULT_POLICY.spec.sync_period[0].name
+    cluster.patch_node_annotation(victim, metric, f"0.90000,{format_local_time(kube_now())}")
+    reprobe_ms = probe_all()
+    after = [s.drip_stats() for s in scheds]
+    delta = [{k: after[i][k] - before[i][k] for k in ("dirty_patches", "dirty_rows",
+                                                       "full_sweeps", "rebuilds")}
+             for i in range(4)]
+    if delta[0]["dirty_patches"] < 1 or delta[0]["dirty_rows"] != 1 or \
+            delta[0]["full_sweeps"] or any(any(d.values()) for d in delta[1:]):
+        raise AssertionError(f"shards columns: re-probe counters {delta}")
+    same_columns(drip_columns_of(scheds[0]), drip_columns_of(shard_factory(dev)(plane.views[0])),
+                 "shards columns")
+
+    # the reshard leg: warm the crc index (one token moved and back), then
+    # a one-token and an eight-token move, timed
+    _p, owners = ring.tokens()
+    w = next(i for i, s in enumerate(owners) if s == 1)
+    t0 = time.perf_counter()
+    plane.reshard(ring.with_moves([(w, 2)]))
+    plane.reshard(ring.with_moves([(w, 1)]))
+    index_ms = (time.perf_counter() - t0) * 1e3
+    moves = {}
+    for label, count in (("one_token", 1), ("eight_tokens", 8)):
+        _p, owners = ring.tokens()
+        idx = [i for i, s in enumerate(owners) if s == 0][:count]
+        target = ring.with_moves([(i, 1) for i in idx])
+        want = {n.name for n in nodes if ring.owners(n.name) != target.owners(n.name)}
+        t0 = time.perf_counter()
+        moved = plane.reshard(target)
+        ms = (time.perf_counter() - t0) * 1e3
+        if set(moved) != want or not moved:
+            raise AssertionError(f"shards reshard: {label} moved {len(moved)}, want {len(want)}")
+        t0 = time.perf_counter()
+        probe_all()
+        moves[label] = {"moved": len(moved), "ms": ms, "ms_per_moved_name": ms / len(moved),
+                        "refresh_ms": (time.perf_counter() - t0) * 1e3}
+    for i, sched in enumerate(scheds):
+        same_columns(drip_columns_of(sched), drip_columns_of(shard_factory(dev)(plane.views[i])),
+                     f"shards reshard shard {i}")
+        owned = {n.name for n in plane.views[i].list_nodes()}
+        if owned != {n.name for n in nodes if i in ring.owners(n.name)}:
+            raise AssertionError(f"shards reshard: shard {i}'s view != its ring ownership")
+    out = {"nodes": len(nodes), "shards": 4, "vnodes": SHARD_RING_VNODES,
+           "build_ms": build_ms, "reprobe_ms": reprobe_ms, "counters": delta,
+           "equal_to_rebuild": True, "index_warm_ms": index_ms, **moves,
+           "eight_vs_one_per_name": moves["eight_tokens"]["ms_per_moved_name"]
+           / moves["one_token"]["ms_per_moved_name"]}
+    return out, read_launches("shards columns", need=())
+
+
+def shards_conflict_leg(kube_stub, dev) -> tuple:
+    """Two schedulers with overlap 0.25 over a 4,000-node stub, 800 pods,
+    threaded: the conflict rate; no duplicate POST, one POST per pod."""
+    from crane_scheduler_tpu_torch.cluster.kube import KubeClusterClient
+    from crane_scheduler_tpu_torch.framework.shardplane import ShardedPlacementPlane
+
+    metrics = [sp.name for sp in DEFAULT_POLICY.spec.sync_period]
+    server = kube_stub.KubeStubSubprocess()
+    client = None
+    try:
+        server.seed(SHARD_CONFLICT_NODES, "node-", metrics=metrics, allocatable=DRIP_ALLOCATABLE)
+        client = KubeClusterClient(server.url, list_page_limit=KUBE_PAGE)
+        client.start()
+        plane = ShardedPlacementPlane(client, 2, overlap=SHARD_CONFLICT_OVERLAP)
+        plane.add_scheduler(shard_factory(dev))
+        queues = [kube_drip_pods(f"cf{i}", SHARD_CONFLICT_PODS // 2) for i in range(2)]
+        for pod in queues[0] + queues[1]:
+            client.add_pod(pod)
+        settle(client, server, {"pods": 0}, "shards conflict creations")
+        reset_launches()
+        t0 = time.perf_counter()
+        results = plane.run_storm(queues, window=SHARD_CONFLICT_WINDOW, threaded=True)
+        seconds = time.perf_counter() - t0
+        launched = read_launches("shards conflict", need=())
+        stats = server.stats()
+        placed = sum(r.node is not None for res in results for r in res)
+        conflicts = plane.conflict_stats()
+        if stats["duplicate_binds"] or stats["bind_posts"] != SHARD_CONFLICT_PODS or \
+                placed != SHARD_CONFLICT_PODS:
+            raise AssertionError(f"shards conflict: {placed} placed, {stats}")
+        return {"nodes": SHARD_CONFLICT_NODES, "pods": SHARD_CONFLICT_PODS,
+                "overlap": SHARD_CONFLICT_OVERLAP, "conflicts": conflicts,
+                "conflict_rate": sum(conflicts.values()) / SHARD_CONFLICT_PODS,
+                "gate": SHARD_CONFLICT_GATE, "pods_per_s": SHARD_CONFLICT_PODS / seconds,
+                "bind_posts": stats["bind_posts"], "duplicate_binds": 0}, launched
+    finally:
+        if client is not None:
+            client.stop()
+        server.stop()
+
+
+def shards_wire_leg(server, dev) -> tuple:
+    """Two ``--serve --shards 2 --shard-index {0,1} --shard-ring R``
+    processes over the control phase's 50,000-node stub and 4,096 new
+    pods; a ring move is written after 1,024 binds. Every pod binds once,
+    both processes adopt the move, each binds only its own pods. The
+    launches are the two processes' own, from their exit lines."""
+    import os
+    import threading
+
+    from crane_scheduler_tpu_torch.cluster.kube import KubeClusterClient
+    from crane_scheduler_tpu_torch.cluster.shards import HashRing
+
+    root = scratch_dir("wire")
+    ring_path = os.path.join(root, "ring.json")
+    ring = HashRing(2, vnodes=32)
+    with open(ring_path, "w") as f:
+        json.dump(ring.spec_dict(), f)
+    base = server.stats()["bind_posts"]
+    logs = [os.path.join(root, f"shard{i}.out") for i in range(2)]
+    jdirs = [os.path.join(root, f"j{i}") for i in range(2)]
+    procs = [serve_cli(server.url, jdirs[i], dev.type,
+                       ("--shards", "2", "--shard-index", str(i), "--shard-ring", ring_path),
+                       log_path=logs[i]) for i in range(2)]
+    try:
+        # a process opens its journal once its mirror is bootstrapped
+        t_up = time.perf_counter()
+        while not all(os.path.exists(os.path.join(j, "intent-000001.jsonl")) for j in jdirs):
+            for proc in procs:
+                if proc.poll() is not None:
+                    raise AssertionError(f"shards wire: a scheduler exited {proc.returncode}")
+            if time.perf_counter() - t_up > 120:
+                raise AssertionError("shards wire: the schedulers never came up")
+            time.sleep(0.05)
+        time.sleep(0.5)
+        writer = KubeClusterClient(server.url)
+        feeder = threading.Thread(target=lambda: (writer.add_pods(
+            kube_drip_pods("wire", SHARD_WIRE_PODS)), writer.stop()), daemon=True)
+        t0 = time.perf_counter()
+        feeder.start()
+        wait_binds(server, base + SHARD_WIRE_MOVE_AT, procs, "shards wire")
+        _p, owners = ring.tokens()
+        target = ring.with_moves([(next(i for i, s in enumerate(owners) if s == 0), 1)])
+        with open(ring_path + ".tmp", "w") as f:
+            json.dump(target.spec_dict(), f)
+        os.replace(ring_path + ".tmp", ring_path)
+        at_move = server.stats()["bind_posts"] - base
+        feeder.join()
+        wait_binds(server, base + SHARD_WIRE_PODS, procs, "shards wire")
+        seconds = time.perf_counter() - t0
+        deadline = time.perf_counter() + 60.0
+        while not all('"event": "reshard"' in open(p).read() for p in logs):
+            if time.perf_counter() > deadline:
+                raise AssertionError("shards wire: a process never adopted the ring move")
+            time.sleep(0.1)
+        ends = [serve_line(proc, log_path=logs[i]) for i, proc in enumerate(procs)]
+        lines = [line for line, _ in ends]
+        children = [child for _, child in ends]
+        events = [json.loads(next(ln for ln in open(p) if '"event": "reshard"' in ln))
+                  for p in logs]
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    stats = server.stats()
+    if stats["duplicate_binds"] or stats["bind_posts"] != base + SHARD_WIRE_PODS or \
+            sum(line["scheduled"] for line in lines) != SHARD_WIRE_PODS:
+        raise AssertionError(f"shards wire: {lines} {stats}")
+    return {"nodes": CONTROL_NODES, "pods": SHARD_WIRE_PODS, "binds_at_move": at_move,
+            "moved_nodes": [e["moved_nodes"] for e in events],
+            "scheduled": [line["scheduled"] for line in lines], "seconds": seconds,
+            "drip_windows": [card_windows(c, dev, "shards wire") for c in children],
+            "duplicate_binds": 0, "lost_binds": 0}, add_launches(*children)
+
+
+def phase_shards(dev, wire) -> tuple:
+    """The shard plane: config 18's columns, scaling and conflict legs and
+    config 21's reshard and wire legs. ``wire`` is the control phase's
+    50,000-node stub; it is stopped here."""
+    server = wire
+    t_phase = time.perf_counter()
+    by_path, out = {}, {}
+    try:
+        t0 = time.perf_counter()
+        nodes = shard_node_list(SHARD_NODES)
+        out["mirror_build_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["columns"], by_path["shards_columns"] = shards_columns_leg(nodes, dev)
+        out["columns"]["seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["scaling"], by_path["shards_scaling"] = shards_scaling_leg(nodes, dev)
+        out["scaling_seconds"] = time.perf_counter() - t0
+        del nodes
+        t0 = time.perf_counter()
+        out["conflict"], by_path["shards_conflict"] = shards_conflict_leg(load_kube_stub(), dev)
+        out["conflict"]["seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["wire"], by_path["shards_wire"] = shards_wire_leg(server, dev)
+        out["wire"]["leg_seconds"] = time.perf_counter() - t0
+    finally:
+        server.stop()
+    out["seconds"] = time.perf_counter() - t_phase
+    log("shards", **out)
+    return out, by_path
+
+
 # per kernel in the `kernels` line: `ms` is the kernel's own device time
 KERNEL_KEYS = ("ms", "plain_ms", "bound_ms", "bound_by", "device_us", "bound_us",
                "pct_of_bound", "host_launch_ms", "device_launches_seen")
@@ -4657,8 +6071,14 @@ def main() -> int:
         return profile_renders_child()
     if sys.argv[1:2] == [SCHEDULER_TWIN_ARG]:
         return scheduler_twin_child(sys.argv[2:])
+    if sys.argv[1:2] == [NUMA_TWIN_ARG]:
+        return numa_twin_child(sys.argv[2], sys.argv[3])
     if sys.argv[1:2] == [KUBE_TWIN_ARG]:
-        return kube_scheduler_twin_child(float(sys.argv[2]))
+        return kube_scheduler_twin_child(float(sys.argv[2]), sys.argv[3:])
+    if sys.argv[1:2] == [SERVE_TWIN_ARG]:
+        return serve_twin_child(float(sys.argv[2]))
+    if sys.argv[1:2] == [CLI_CHILD_ARG]:
+        return cli_child(sys.argv[2], sys.argv[3:])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
         return 2
@@ -4710,6 +6130,10 @@ def main() -> int:
     _, by_path["storm"] = phase_storm(dev)
     _, kube_paths = phase_kube(dev)
     by_path.update(kube_paths)
+    _, control_paths, wire = phase_control(dev)
+    by_path.update(control_paths)
+    _, shard_paths = phase_shards(dev, wire)
+    by_path.update(shard_paths)
 
     kernels = [
         {

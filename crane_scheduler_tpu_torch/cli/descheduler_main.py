@@ -4,23 +4,24 @@ Counterpart of ``crane_scheduler_tpu/cli/descheduler_main.py``. The
 correcting half of the placement loop (doc/descheduler.md): reads the
 same ``value,timestamp`` node annotations the Dynamic plugin schedules
 against, detects sustained hotspots, and evicts budgeted victims that
-provably fit elsewhere. Nodes come from ``--nodes-file`` or
-``--demo-nodes`` on the port's in-memory ``ClusterState``; leader
-election (``--leader-elect``) is the file lock, so only one replica
-evicts; a health + metrics port; ``--dry-run`` plans without evicting.
-The descheduler is host Python: it has no device work, so this entry
-point takes no ``--device``.
-
-The descheduler on the kube mirror (eviction POSTs, the apiserver lease
-and the intent journal) is not ported yet: ``--master`` and
-``--token-file`` exit with a usage error naming ``ROADMAP.md`` Queue 1
-item 8.2b.
-``--journal-dir`` acts only with ``--master`` in the reference, so here
-it parses and does nothing.
+provably fit elsewhere. ``--master`` (``--token-file``) runs it on the
+kube mirror (``cluster/kube.py``): evictions POST the eviction
+subresource, ``--leader-elect`` takes the apiserver Lease
+``crane-scheduler-tpu-descheduler``, and ``--journal-dir`` journals every
+eviction intent before its POST and reconciles the journal's unresolved
+evictions against the live apiserver before the sweep loop starts (pod
+gone: done; pod present: its node's cooldown is re-armed, never a second
+eviction POST). Without ``--master`` nodes come from ``--nodes-file`` or
+``--demo-nodes`` on the port's in-memory ``ClusterState``, leader
+election is the file lock, and ``--journal-dir`` parses and does
+nothing, as in the reference. A health + metrics port; ``--dry-run``
+plans without evicting. The descheduler is host Python: it has no device
+work, so this entry point takes no ``--device``.
 
 Usage:
   python -m crane_scheduler_tpu_torch.cli.descheduler_main \
-      --policy-config-path policy.yaml --demo-nodes 8 \
+      --policy-config-path policy.yaml \
+      [--master https://apiserver:6443 | --demo-nodes 8] \
       [--dry-run] [--leader-elect --lock-file /tmp/crane-desched.lock]
 """
 
@@ -32,17 +33,17 @@ import os
 import signal
 import threading
 
-# flag -> the ROADMAP.md Queue 1 item that brings its plane
-_UNPORTED = (
-    ("master", "--master", "the descheduler on the kube mirror", "item 8.2b"),
-    ("token_file", "--token-file", "the descheduler on the kube mirror", "item 8.2b"),
-)
-
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="crane-descheduler")
     parser.add_argument("--policy-config-path", default=None)
     parser.add_argument("--health-port", type=int, default=8091)
+    parser.add_argument("--master", default=None,
+                        help="kube-apiserver URL (the kube mirror; evictions "
+                             "POST the eviction subresource)")
+    parser.add_argument("--token-file", default=None,
+                        help="bearer token file for --master (defaults to "
+                             "the in-cluster service-account token if present)")
     parser.add_argument("--nodes-file", default=None)
     parser.add_argument("--demo-nodes", type=int, default=0)
     parser.add_argument("--sync-period-seconds", type=float, default=60.0)
@@ -76,22 +77,13 @@ def main(argv=None) -> int:
                         help="fsync every flight-recorder and intent-"
                              "journal line")
     parser.add_argument("--journal-dir", default=None,
-                        help="master mode only (the reference's crash-safe "
-                             "eviction-intent journal); without --master it "
-                             "is parsed and does nothing, as in the "
-                             "reference")
+                        help="master mode: crash-safe eviction-intent "
+                             "journal. Startup reconciles unresolved "
+                             "evictions against the live apiserver (pod "
+                             "gone: done; pod present: cooldown re-armed, "
+                             "never a second eviction POST)")
     parser.add_argument("-v", "--verbose", action="count", default=0)
-    # the kube mirror's flags: accepted by the parser only to refuse them
-    unported = parser.add_argument_group("not ported yet")
-    unported.add_argument("--master", default=None)
-    unported.add_argument("--token-file", default=None)
     args = parser.parse_args(argv)
-    for dest, flag, plane, item in _UNPORTED:
-        if getattr(args, dest) is not None:
-            parser.error(
-                f"{flag} needs {plane}, which the PyTorch port does not "
-                f"have yet (ROADMAP.md Queue 1 {item})"
-            )
 
     if args.flight_dir:
         os.environ["CRANE_FLIGHT_DIR"] = args.flight_dir
@@ -112,7 +104,7 @@ def main(argv=None) -> int:
         WatermarkPolicy,
     )
     from ..policy import DEFAULT_POLICY, load_policy_from_file
-    from ..resilience import DegradedModeController, HealthRegistry
+    from ..resilience import CircuitBreaker, DegradedModeController, HealthRegistry
     from ..service.http import HealthServer
     from ..service.leader import LeaderElector
 
@@ -127,23 +119,35 @@ def main(argv=None) -> int:
     register_build_info(telemetry.registry, "descheduler")
     health_reg = HealthRegistry(telemetry=telemetry)
 
-    cluster = ClusterState()
-    if args.nodes_file:
-        with open(args.nodes_file) as f:
-            for doc in json.load(f):
-                cluster.add_node(
-                    Node(
-                        name=doc["name"],
-                        addresses=(NodeAddress("InternalIP",
-                                               doc.get("ip", doc["name"])),),
+    if args.master:
+        from ..cluster.kube import KubeClusterClient
+
+        cluster = KubeClusterClient.from_flags(args.master, args.token_file)
+        cluster.read_breaker = CircuitBreaker("kube-read", telemetry=telemetry)
+        cluster.write_breaker = CircuitBreaker("kube-write", telemetry=telemetry)
+        health_reg.watch_breaker(cluster.read_breaker)
+        health_reg.watch_breaker(cluster.write_breaker)
+        cluster.start()
+        print(f"kube mirror: {len(cluster.list_nodes())} nodes from "
+              f"{args.master}", flush=True)
+    else:
+        cluster = ClusterState()
+        if args.nodes_file:
+            with open(args.nodes_file) as f:
+                for doc in json.load(f):
+                    cluster.add_node(
+                        Node(
+                            name=doc["name"],
+                            addresses=(NodeAddress("InternalIP",
+                                                   doc.get("ip", doc["name"])),),
+                        )
                     )
+        elif args.demo_nodes:
+            for i in range(args.demo_nodes):
+                cluster.add_node(
+                    Node(name=f"node-{i}",
+                         addresses=(NodeAddress("InternalIP", f"10.0.0.{i}"),))
                 )
-    elif args.demo_nodes:
-        for i in range(args.demo_nodes):
-            cluster.add_node(
-                Node(name=f"node-{i}",
-                     addresses=(NodeAddress("InternalIP", f"10.0.0.{i}"),))
-            )
 
     config = DeschedulerConfig(
         watermarks=(
@@ -174,6 +178,24 @@ def main(argv=None) -> int:
         cluster, policy, config, telemetry=telemetry, degraded=degraded
     )
 
+    journal = None
+    recovery = None
+    if args.journal_dir and args.master:
+        from ..resilience.recovery import IntentJournal, Reconciler
+
+        journal = IntentJournal(args.journal_dir, fsync=args.flight_fsync,
+                                telemetry=telemetry)
+        # reconcile crash-orphaned eviction intents before the sweep loop
+        # starts: a pod still present re-arms its node's cooldown (the one
+        # safe answer to "did my eviction land?")
+        recovery = Reconciler(journal, cluster.get_pod_live,
+                              lifecycle=telemetry.lifecycle,
+                              telemetry=telemetry).reconcile()
+        for node_name in recovery.rearm_cooldowns:
+            descheduler.rearm_cooldown(node_name)
+        cluster.attach_intent_journal(journal)
+        print(f"recovery: {json.dumps(recovery.as_dict())}", flush=True)
+
     health = HealthServer(port=args.health_port, telemetry=telemetry,
                           health=health_reg)
     health.start()
@@ -199,13 +221,29 @@ def main(argv=None) -> int:
         os._exit(1)
 
     if args.leader_elect:
-        elector = LeaderElector(
-            args.lock_file,
-            identity=f"crane-descheduler-{os.getpid()}",
-            on_started_leading=run_descheduler,
-            on_stopped_leading=lost_lease,
-        )
-        print(f"leader election on {args.lock_file}", flush=True)
+        if args.master:
+            import socket
+
+            from ..service.kube_leader import KubeLeaderElector
+
+            elector = KubeLeaderElector(
+                cluster,
+                lease_name="crane-scheduler-tpu-descheduler",
+                identity=(f"crane-descheduler-{socket.gethostname()}-"
+                          f"{os.getpid()}"),
+                on_started_leading=run_descheduler,
+                on_stopped_leading=lost_lease,
+            )
+            print("leader election on lease crane-scheduler-tpu-descheduler",
+                  flush=True)
+        else:
+            elector = LeaderElector(
+                args.lock_file,
+                identity=f"crane-descheduler-{os.getpid()}",
+                on_started_leading=run_descheduler,
+                on_stopped_leading=lost_lease,
+            )
+            print(f"leader election on {args.lock_file}", flush=True)
         thread = threading.Thread(target=elector.run, daemon=True)
         thread.start()
     else:
@@ -216,7 +254,14 @@ def main(argv=None) -> int:
     stop.wait(timeout=args.run_seconds or None)
     stop.set()
     health.stop()
-    print(json.dumps(descheduler.stats()), flush=True)
+    if args.master:
+        cluster.stop()
+    if journal is not None:
+        journal.close()
+    stats = descheduler.stats()
+    if recovery is not None:
+        stats["recovery"] = recovery.as_dict()
+    print(json.dumps(stats), flush=True)
     return 0
 
 

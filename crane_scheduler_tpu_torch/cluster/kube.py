@@ -27,13 +27,20 @@ architecture in stdlib Python:
   resourceVersion watermark plus a bounded content-key map, so replays
   never double-count hot values.
 
+Crash safety: with an ``IntentJournal`` attached
+(``attach_intent_journal``, ``resilience/recovery.py``) every bind and
+eviction POST journals its intent before the first byte reaches the
+wire and its outcome after (2xx ``ack``, a real status ``nack``, status
+0 ``unresolved``); watch confirmations tombstone open intents. The shard
+plane's calls (``configure_shards``, ``shard_versions``, ``reshard``,
+``dirty_nodes_since(version, shard)``) delegate to the mirror.
+
 Port differences. The native flush engine and the native LIST/watch
 decoders come with ``ROADMAP.md`` Queue 1 item 8.4 (the bulk paths here
 take the pipelined Python fan-out, the reference's branch when its
-library is absent; watch lines take the per-line JSON path); the intent
-journal hooks with item 8.2b (``attach_intent_journal`` raises); the
-shard delegations with item 8.3. The reference's before/after comparison
-switches are left out. ``node_annotation_columns`` stays valid across
+library is absent, so the journal covers every batch that route sends;
+watch lines take the per-line JSON path). The reference's before/after
+comparison switches are left out. ``node_annotation_columns`` stays valid across
 annotation-only writes: it patches the relist's columns from the
 mirror's dirty-name journal (``ClusterState.node_annotations_since``),
 so a refresh after a named patch takes the columnar branch narrowed to
@@ -312,6 +319,9 @@ class KubeClusterClient:
         # confirmed (lifecycle) but not re-applied.
         self._expected_binds: dict = {}
         self._expected_lock = threading.Lock()
+        # crash-safe placement-intent journal (resilience.recovery): when
+        # attached, every bind/eviction POST journals an intent first
+        self._intent_journal = None
         # write pool: --concurrent-syncs keep-alive workers, spawned on
         # first write (read-only clients never pay the threads)
         self._write_workers = max(1, int(concurrent_syncs))
@@ -1130,15 +1140,23 @@ class KubeClusterClient:
     def _confirm_placements(self, decoded: list) -> None:
         """Watch-confirmed hook: a non-DELETED pod event carrying a
         nodeName is the authoritative end of a placement (the lifecycle's
-        ``watch_confirm`` stage). Untracked keys cost one dict miss
-        inside one lock."""
+        ``watch_confirm`` stage and the intent journal's tombstone); a
+        DELETED event tombstones any open eviction intent. Untracked keys
+        cost one dict miss inside one lock."""
         lc = self._lifecycle
-        if lc is None:
+        journal = self._intent_journal
+        if lc is None and journal is None:
             return
         placed = [(pod.key(), pod.node_name) for t, pod in decoded
                   if t != "DELETED" and pod.node_name]
-        if placed:
+        if lc is not None and placed:
             lc.confirmed_batch(placed)
+        if journal is not None:
+            if placed:
+                journal.tombstone_batch(placed)
+            for t, pod in decoded:
+                if t == "DELETED":
+                    journal.tombstone_deleted(pod.key())
 
     def _drop_expected_echoes(self, decoded: list) -> list:
         """Filter watch pod changes that echo an in-flight ``bind_pods``
@@ -1265,8 +1283,23 @@ class KubeClusterClient:
     def pod_changes_since(self, version: int):
         return self._mirror.pod_changes_since(version)
 
-    def dirty_nodes_since(self, version: int):
-        return self._mirror.dirty_nodes_since(version)
+    def configure_shards(self, count: int, overlap: float = 0.0, layout=None) -> None:
+        self._mirror.configure_shards(count, overlap, layout=layout)
+
+    def shard_layout(self):
+        return self._mirror.shard_layout()
+
+    def shard_keyspace(self):
+        return self._mirror.shard_keyspace()
+
+    def reshard(self, target):
+        return self._mirror.reshard(target)
+
+    def shard_versions(self, index: int) -> tuple[int, int, int]:
+        return self._mirror.shard_versions(index)
+
+    def dirty_nodes_since(self, version: int, shard: int | None = None):
+        return self._mirror.dirty_nodes_since(version, shard)
 
     def dirty_journal_stats(self) -> dict:
         return self._mirror.dirty_journal_stats()
@@ -1309,11 +1342,10 @@ class KubeClusterClient:
         return pod_from_json(obj)
 
     def attach_intent_journal(self, journal) -> None:
-        """The crash-safety intent journal is not ported yet."""
-        raise NotImplementedError(
-            "the placement-intent journal needs resilience/recovery.py, which "
-            "the PyTorch port does not have yet (ROADMAP.md Queue 1 item 8.2b)"
-        )
+        """Install the crash-safety journal (``resilience.recovery.
+        IntentJournal``). From here on every bind/eviction POST is
+        journaled intent-before-wire; watch confirmations tombstone."""
+        self._intent_journal = journal
 
     def list_events(self):
         return self._mirror.list_events()
@@ -1446,9 +1478,15 @@ class KubeClusterClient:
             "kind": "Eviction",
             "metadata": {"name": name, "namespace": namespace},
         }
-        if not self._write(key, "POST",
-                           f"/api/v1/namespaces/{namespace}/pods/{name}/eviction",
-                           body, headers=self._trace_header(key)):
+        headers = self._trace_header(key)
+        pod = self._mirror.get_pod(key)
+        iid = self._journal_single(
+            "evict", key, pod.node_name if pod is not None else None, headers)
+        res = self._write(key, "POST",
+                          f"/api/v1/namespaces/{namespace}/pods/{name}/eviction",
+                          body, headers=headers)
+        self._journal_single_outcome(iid, res)
+        if not res:
             return False
         # optimistic mirror apply; the watch's DELETED event confirms
         self._mirror.delete_pod(key)
@@ -1522,6 +1560,67 @@ class KubeClusterClient:
             headers[dl[0]] = dl[1]
         return headers
 
+    @staticmethod
+    def _intent_op(path: str) -> str | None:
+        """Which journal op a POST path is; None for creations (a
+        duplicate create is a 409, not a double bind)."""
+        if path.endswith("/binding"):
+            return "bind"
+        if path.endswith("/eviction"):
+            return "evict"
+        return None
+
+    def _journal_intents(self, items, tp) -> list:
+        """One intent line per bind/eviction item, all under one fresh
+        window id, before any wire traffic. Returns per-item intent ids
+        (None for items that are not journaled)."""
+        journal = self._intent_journal
+        window = journal.begin_window()
+        ids: list = [None] * len(items)
+        for i, (key, path, body) in enumerate(items):
+            op = self._intent_op(path)
+            if op is None:
+                continue
+            if op == "bind":
+                # bodies arrive pre-rendered (the binding template)
+                doc = json.loads(body) if isinstance(body, (bytes, str)) else body
+                node = doc.get("target", {}).get("name")
+            else:
+                pod = self._mirror.get_pod(key)
+                node = pod.node_name if pod is not None else None
+            ids[i] = journal.intent(op, key, node, trace=tp.get(key), window=window)
+        return ids
+
+    def _journal_outcomes(self, intent_ids, ok, final_status) -> None:
+        """Resolve each journaled intent: 2xx -> ack (applied), a real
+        server status -> nack (answered, not applied: re-drivable), 0 ->
+        unresolved (transport loss or pipelined indeterminate; only
+        restart reconciliation may decide it)."""
+        journal = self._intent_journal
+        for iid, good, status in zip(intent_ids, ok, final_status):
+            if iid is None:
+                continue
+            if good:
+                journal.ack(iid)
+            elif status > 0:
+                journal.nack(iid, status)
+            else:
+                journal.unresolved(iid)
+
+    def _journal_single(self, op: str, key: str, node, headers):
+        """Intent line for a single-POST path (bind_pod / evict_pod)."""
+        journal = self._intent_journal
+        if journal is None:
+            return None
+        trace = headers.get("traceparent") if headers else None
+        return journal.intent(op, key, node, trace=trace)
+
+    def _journal_single_outcome(self, intent_id, result) -> None:
+        if intent_id is None:
+            return
+        self._journal_outcomes([intent_id], [bool(result)],
+                               [int(getattr(result, "status", 0) or 0)])
+
     def _post_batch_impl(self, items: list) -> list[bool]:
         n = len(items)
         ok = [False] * n
@@ -1539,10 +1638,18 @@ class KubeClusterClient:
                 headers[dl[0]] = dl[1]
             return headers
 
+        # crash safety: journal every bind/eviction intent before any
+        # byte is on the wire (a kill after this leaves a replayable
+        # record; a kill before it leaves nothing in flight); final_status
+        # resolves each intent after the batch
+        intent_ids = (self._journal_intents(items, tp)
+                      if self._intent_journal is not None else None)
+        final_status = [0] * n  # 0 = indeterminate unless a route reports
         if n >= _PIPELINE_FLUSH_MIN:
             reqs = [self._render_request("POST", path, body, extra_headers=_hdr(key))
                     for key, path, body in items]
             for i, status in enumerate(self._pipelined_flush(reqs, idempotent=False)):
+                final_status[i] = int(status)
                 if 200 <= status < 300:
                     ok[i] = True
                 else:
@@ -1559,7 +1666,11 @@ class KubeClusterClient:
                                            items[i][2], headers=_hdr(items[i][0])))
                     for i in retry]
             for i, fut in futs:
-                ok[i] = bool(fut.result())
+                res = fut.result()
+                ok[i] = bool(res)
+                final_status[i] = int(getattr(res, "status", 0) or 0)
+        if intent_ids is not None:
+            self._journal_outcomes(intent_ids, ok, final_status)
         if lc is not None and tp:
             posted = [(items[i][0], None) for i in range(n)
                       if ok[i] and items[i][0] in tp and items[i][1].endswith("/binding")]
@@ -1676,7 +1787,11 @@ class KubeClusterClient:
         The apiserver emits the Scheduled event; it reaches subscribers
         through the event watch."""
         path, body = self._binding_request(pod_key, node_name)
-        if not self._write(pod_key, "POST", path, body, headers=self._trace_header(pod_key)):
+        headers = self._trace_header(pod_key)
+        iid = self._journal_single("bind", pod_key, node_name, headers)
+        res = self._write(pod_key, "POST", path, body, headers=headers)
+        self._journal_single_outcome(iid, res)
+        if not res:
             return False
         if self._lifecycle is not None:
             self._lifecycle.posted(pod_key, node=node_name)

@@ -20,8 +20,13 @@ caches), the
 pod-change journal behind ``pod_changes_since``, and the global
 dirty-name journal behind ``dirty_nodes_since`` (every named node write
 journals its name; a name-less columnar sweep or relist resets the
-floor). The per-shard journals and fences, the crc index and the ring
-resharding belong to the shard plane (``ROADMAP.md`` Queue 1 item 8.3).
+floor), and the shard plane's pieces: per-shard (sched, pod, node)
+fences and dirty-name journals (``configure_shards``,
+``shard_versions``, ``dirty_nodes_since(version, shard)``), a sorted crc
+index over the node names, and ring resharding (``reshard``), which
+journals only the moved names. Every write moves the fences of the
+shards that observe its node, as the reference's does; a name-less
+write (relist, columnar sweep, burst bind) moves every shard's.
 ``node_annotations_since`` is the port's own: the kube mirror re-keys its
 relist columns through it (``cluster/kube.py``).
 
@@ -35,6 +40,7 @@ plugin reads nodes from its informer snapshot. Binds here emit the same
 
 from __future__ import annotations
 
+import bisect
 import threading
 import time
 from collections import deque
@@ -268,6 +274,23 @@ class ClusterState:
         # exactly one identity sweep.
         self._dirty_cap = int(dirty_journal_cap)
         self._dirty_global = _DirtyJournal(self._dirty_cap)
+        # per-shard watch fences (the sharded placement plane): with a
+        # layout configured, every write also bumps the fences of each
+        # shard that observes the touched node, and named node writes
+        # journal into those shards' dirty journals. Writes without a
+        # node name (relists, sweeps, burst binds) bump every shard.
+        self._shard_layout: tuple[int, float] | None = None  # (count, overlap)
+        self._shard_sched: list[int] = []
+        self._shard_pod: list[int] = []
+        self._shard_node: list[int] = []
+        self._shard_owner_cache: dict[str, tuple[int, ...]] = {}
+        self._shard_dirty: list[_DirtyJournal] = []
+        # pluggable keyspace (None = static crc32 modulo; a
+        # ``shards.HashRing`` makes ownership dynamic, see ``reshard``)
+        self._shard_keyspace = None
+        # sorted (crc32, name) index over the node table, built lazily for
+        # resharding: moved names are found by bisecting the moved arcs
+        self._crc_index: tuple[list[int], list[str]] | None = None
 
     @property
     def sched_version(self) -> int:
@@ -302,6 +325,85 @@ class ClusterState:
         if len(log) == log.maxlen:
             self._pod_log_floor = log[0][0]
         log.append((self._pod_version, node_name))
+        if self._shard_layout is not None:
+            self._bump_shards_locked(node_name, pod=True)
+
+    # -- per-shard watch fences (the sharded placement plane) --------------
+
+    def configure_shards(self, count: int, overlap: float = 0.0, layout=None) -> None:
+        """Enable per-shard version fences for a ``count``-way node
+        partition (``cluster.shards.shard_owners`` ownership, or a
+        ``layout`` such as ``shards.HashRing`` answering ``owners(name)``).
+        Each shard's (sched, pod, node) counters start at the global
+        values and from then on move only when a write touches a node
+        that shard observes. Reconfiguring resets the fences and the
+        per-shard dirty journals."""
+        if count < 1:
+            raise ValueError(f"shard count must be >= 1, got {count}")
+        if layout is not None and layout.count != count:
+            raise ValueError(f"layout has {layout.count} shards, expected {count}")
+        with self._lock:
+            self._shard_layout = (int(count), float(overlap))
+            self._shard_keyspace = layout
+            self._shard_sched = [self._sched_version] * count
+            self._shard_pod = [self._pod_version] * count
+            self._shard_node = [self._node_version] * count
+            self._shard_owner_cache = {}
+            # fresh journals: nothing before the current fence is covered
+            self._shard_dirty = [_DirtyJournal(self._dirty_cap, floor=self._node_version)
+                                 for _ in range(count)]
+
+    def shard_keyspace(self):
+        """The pluggable keyspace (``shards.HashRing``), or None when
+        ownership is the static crc32 modulo."""
+        with self._lock:
+            return self._shard_keyspace
+
+    def shard_layout(self) -> tuple[int, float] | None:
+        with self._lock:
+            return self._shard_layout
+
+    def shard_versions(self, index: int) -> tuple[int, int, int]:
+        """(sched, pod, node) fence of shard ``index``; the global
+        counters when no layout is configured (a view over an
+        unconfigured mirror degrades to global invalidation)."""
+        with self._lock:
+            if self._shard_layout is None:
+                return (self._sched_version, self._pod_version, self._node_version)
+            return (self._shard_sched[index], self._shard_pod[index],
+                    self._shard_node[index])
+
+    def _bump_shards_locked(self, name: str | None, pod: bool = False,
+                            node: bool = False, member: bool = False) -> None:
+        layout = self._shard_layout
+        if layout is None:
+            return
+        count, overlap = layout
+        if name is None:
+            owners = range(count)
+        else:
+            owners = self._shard_owner_cache.get(name)
+            if owners is None:
+                if self._shard_keyspace is not None:
+                    owners = self._shard_keyspace.owners(name)
+                else:
+                    from .shards import shard_owners
+
+                    owners = shard_owners(name, count, overlap)
+                cache = self._shard_owner_cache
+                if len(cache) > 2_000_000:  # churn backstop
+                    cache.clear()
+                cache[name] = owners
+        for i in owners:
+            self._shard_sched[i] += 1
+            if pod:
+                self._shard_pod[i] += 1
+            if node:
+                self._shard_node[i] += 1
+                if name is None:
+                    self._shard_dirty[i].mark_bulk(self._shard_node[i])
+                else:
+                    self._shard_dirty[i].note(self._shard_node[i], name, member)
 
     def pod_changes_since(self, version: int):
         """Node names with bound-pod changes after ``version``, or None
@@ -312,24 +414,28 @@ class ClusterState:
                 return None
             return {name for v, name in self._pod_change_log if v > version}
 
-    def dirty_nodes_since(self, version: int):
+    def dirty_nodes_since(self, version: int, shard: int | None = None):
         """Replay the dirty-name journal: ``(names, membership_changed)``
         for node writes after node-fence ``version``, or None when the
         interval is not covered (a columnar sweep, a journal overrun, or a
         pre-journal version) — the caller then does exactly one identity
-        sweep."""
+        sweep. ``shard`` selects that shard's journal (keyed on its node
+        fence) when a layout is configured."""
         with self._lock:
+            if shard is not None and self._shard_layout is not None:
+                return self._shard_dirty[shard].since(version)
             return self._dirty_global.since(version)
 
     def dirty_journal_stats(self) -> dict:
-        """Journal health for telemetry: cap overruns, name-less bulk
-        floor resets, and current depth."""
+        """Journal health for telemetry, over the global and per-shard
+        journals: cap overruns, name-less bulk floor resets, and the
+        deepest current depth."""
         with self._lock:
-            j = self._dirty_global
+            js = [self._dirty_global] + list(self._shard_dirty)
             return {
-                "overruns": j.overruns,
-                "bulk_marks": j.bulk_marks,
-                "depth": len(j.log),
+                "overruns": sum(j.overruns for j in js),
+                "bulk_marks": sum(j.bulk_marks for j in js),
+                "depth": max(len(j.log) for j in js),
                 "cap": self._dirty_cap,
             }
 
@@ -340,9 +446,112 @@ class ClusterState:
         that fallback against the O(dirty) path in one process."""
         with self._lock:
             self._dirty_global.mark_bulk(self._node_version)
+            for i, j in enumerate(self._shard_dirty):
+                j.mark_bulk(self._shard_node[i])
 
     def _note_dirty_locked(self, version: int, name: str, member: bool = False) -> None:
         self._dirty_global.note(version, name, member)
+
+    # -- dynamic resharding (consistent-hash ring keyspace) ----------------
+
+    def _ensure_crc_index_locked(self):
+        """Sorted (crc32, name) parallel lists over the node table, built
+        once and then kept up to date by node adds and deletes, so a
+        reshard finds the names inside the moved arcs by bisecting."""
+        idx = self._crc_index
+        if idx is None:
+            from .shards import name_point
+
+            pairs = sorted((name_point(name), name) for name in self._nodes)
+            idx = ([p for p, _ in pairs], [n for _, n in pairs])
+            self._crc_index = idx
+        return idx
+
+    def _crc_index_add_locked(self, name: str) -> None:
+        idx = self._crc_index
+        if idx is None:
+            return
+        from .shards import name_point
+
+        point = name_point(name)
+        crcs, names = idx
+        i = bisect.bisect_left(crcs, point)
+        # same-crc collisions: names stay sorted within the run
+        while i < len(crcs) and crcs[i] == point and names[i] < name:
+            i += 1
+        if i < len(crcs) and crcs[i] == point and names[i] == name:
+            return
+        crcs.insert(i, point)
+        names.insert(i, name)
+
+    def _crc_index_remove_locked(self, name: str) -> None:
+        idx = self._crc_index
+        if idx is None:
+            return
+        from .shards import name_point
+
+        point = name_point(name)
+        crcs, names = idx
+        i = bisect.bisect_left(crcs, point)
+        while i < len(crcs) and crcs[i] == point:
+            if names[i] == name:
+                del crcs[i]
+                del names[i]
+                return
+            i += 1
+
+    def _names_in_arcs_locked(self, arcs) -> list[str]:
+        """Names whose hash lies inside any ``(lo, hi]`` ring arc (lo > hi
+        wraps around zero)."""
+        crcs, names = self._ensure_crc_index_locked()
+        out: list[str] = []
+        for lo, hi in arcs:
+            if lo <= hi:
+                out.extend(names[bisect.bisect_right(crcs, lo):bisect.bisect_right(crcs, hi)])
+            else:  # wraparound arc
+                out.extend(names[bisect.bisect_right(crcs, lo):])
+                out.extend(names[:bisect.bisect_right(crcs, hi)])
+        return out
+
+    def reshard(self, target) -> list[str]:
+        """Swap the ring keyspace for ``target`` (a ``shards.HashRing``
+        with the same shard count), migrating only the moved names: each
+        name whose observation set changed gets a membership-dirty journal
+        entry (and fence bumps) on its old and new owners, so incremental
+        consumers add or drop exactly those rows. The live ring object is
+        updated in place, so every view holding it reads the new
+        ownership at once. Returns the moved names."""
+        with self._lock:
+            ring = self._shard_keyspace
+            if ring is None or self._shard_layout is None:
+                raise ValueError(
+                    "reshard requires a HashRing keyspace "
+                    "(configure_shards(..., layout=HashRing(...)))"
+                )
+            if target.count != ring.count:
+                raise ValueError(
+                    f"reshard cannot change the shard count in place "
+                    f"({ring.count} -> {target.count}); reconfigure the "
+                    f"plane instead"
+                )
+            cache = self._shard_owner_cache
+            moved: list[str] = []
+            for name in self._names_in_arcs_locked(ring.moved_arcs(target)):
+                old_owners = ring.owners(name)
+                new_owners = target.owners(name)
+                if old_owners == new_owners:
+                    continue
+                moved.append(name)
+                cache.pop(name, None)
+                self._sched_version += 1
+                self._node_version += 1
+                self._note_dirty_locked(self._node_version, name, True)
+                for i in set(old_owners) | set(new_owners):
+                    self._shard_sched[i] += 1
+                    self._shard_node[i] += 1
+                    self._shard_dirty[i].note(self._shard_node[i], name, True)
+            ring.adopt(target)
+            return moved
 
     @property
     def node_set_version(self) -> int:
@@ -421,7 +630,11 @@ class ClusterState:
             self._nodes[node.name] = node
             self._sched_version += 1
             self._node_version += 1
-            self._note_dirty_locked(self._node_version, node.name, prev is None)
+            member = prev is None
+            self._note_dirty_locked(self._node_version, node.name, member)
+            self._bump_shards_locked(node.name, node=True, member=member)
+            if member:
+                self._crc_index_add_locked(node.name)
             # annotation-only updates must not defeat (name, ip) pair
             # caches keyed on node_set_version
             if prev is None or prev.addresses != node.addresses:
@@ -440,6 +653,10 @@ class ClusterState:
             self._node_version += 1
             self._note_dirty_locked(self._node_version, name, existed)
             self._node_set_version += 1
+            self._bump_shards_locked(name, node=True, member=existed)
+            self._shard_owner_cache.pop(name, None)
+            if existed:
+                self._crc_index_remove_locked(name)
 
     def get_node(self, name: str) -> Node | None:
         with self._lock:
@@ -488,17 +705,21 @@ class ClusterState:
             existed = name in self._nodes
             if existed:
                 self._note_pod_change_locked(name)
+                self._crc_index_remove_locked(name)
             self._nodes.pop(name, None)
             self._drop_overlay_locked(name)
             self._sched_version += 1
+            self._bump_shards_locked(name, node=True, member=existed)
             return True, existed
         prev = self._nodes.get(name)
         self._drop_overlay_locked(name)
         self._nodes[name] = node
         self._sched_version += 1
         member = prev is None
+        self._bump_shards_locked(name, node=True, member=member)
         if member:
             self._note_pod_change_locked(name)
+            self._crc_index_add_locked(name)
         return member or prev.addresses != node.addresses, member
 
     def apply_node_changes(self, changes) -> None:
@@ -562,6 +783,9 @@ class ClusterState:
             self._sched_version += 1
             self._node_version += 1
             self._dirty_global.mark_bulk(self._node_version)
+            if set_changed:
+                self._crc_index = None  # rebuilt lazily at the next reshard
+            self._bump_shards_locked(None, node=True)  # relist: every fence
             if set_changed:
                 self._node_set_version += 1
 
@@ -632,6 +856,7 @@ class ClusterState:
             self._sched_version += 1
             self._node_version += 1
             self._note_dirty_locked(self._node_version, name)
+            self._bump_shards_locked(name, node=True)
             return True
 
     def patch_node_annotations_bulk(self, per_node: Mapping[str, Mapping[str, str]]) -> int:
@@ -655,6 +880,7 @@ class ClusterState:
                 anno.update(kv)
                 nodes[name] = replace(node, annotations=anno)
                 self._sched_version += 1
+                self._bump_shards_locked(name, node=True)
                 patched += 1
                 patched_names.append(name)
             if patched:
@@ -686,6 +912,7 @@ class ClusterState:
             # the sweep rewrites every listed row: journal coverage would be
             # the whole cluster, so reset the floor instead
             self._dirty_global.mark_bulk(self._node_version)
+            self._bump_shards_locked(None, node=True)  # sweep: every fence
         return len(names)
 
     def patch_node_annotation_groups(self, groups) -> int:
@@ -812,6 +1039,7 @@ class ClusterState:
                 if pod.node_name:
                     self._sched_version += 1
                     self._bound_version += 1
+                    self._bump_shards_locked(None, pod=True)
                 return
         if pod is not None:
             self._index_remove(pod)
@@ -1158,6 +1386,9 @@ class ClusterState:
             self._count_version += 1
             self._sched_version += n
             self._bound_version += 1
+            # burst binds skip the pod journal; the shard fences cannot
+            # attribute them, so every fence moves
+            self._bump_shards_locked(None, pod=True)
             rv_base = self._rv_next
             self._rv_next += n
             if notify:

@@ -17,8 +17,9 @@ never blindly re-drives a non-idempotent POST (the indeterminate-
 response discipline): a lost response surfaces as a failed eviction
 here rather than a duplicate one at the apiserver. The port has the
 in-memory mirror's ``ClusterState.evict_pod``, and the kube mirror's
-``KubeClusterClient.evict_pod`` with that POST discipline; the descheduler
-runs on the kube mirror with ``ROADMAP.md`` Queue 1 item 8.2b.
+``KubeClusterClient.evict_pod`` with that POST discipline, which
+crane-descheduler ``--master`` drives (and journals with
+``--journal-dir``).
 """
 
 from __future__ import annotations

@@ -24,13 +24,19 @@ pieces the scoring sidecar, the annotator and the descheduler use:
   the same schedule on real sockets, and ``SlowClientSwarm`` as the
   slowloris injector the front end's idle reaper must defeat.
 
-The reference's ``chaos`` and ``recovery`` modules (the fault injectors
-driven against the kube stub and the crash-safe intent journal) are the
-control plane on the kube mirror, not ported yet (``ROADMAP.md`` Queue 1
-item 8.2b).
+- ``chaos`` — the deterministic seeded ``ChaosPlan`` (pure data: the
+  appliers that drive the kube and Prometheus stubs live with the
+  drivers, ``tests/test_torch_chaos.py`` and ``chip_smoke.py``).
+
+- ``recovery`` — the process's own death: the crash-safe
+  placement-intent journal (``IntentJournal``), restart reconciliation
+  (``Reconciler``) and the warm-standby failover coordinator
+  (``WarmStandby``), with ``KillSwitch`` as the deterministic
+  SIGKILL-at-offset injector.
 """
 
 from .breaker import BreakerOpenError, BreakerState, CircuitBreaker
+from .chaos import ChaosEvent, ChaosPlan
 from .degraded import DegradedModeController
 from .health import HealthRegistry, HealthState
 from .loadgen import (
@@ -43,6 +49,16 @@ from .loadgen import (
     run_open_loop,
     timeline_counts,
 )
+from .recovery import (
+    IntentJournal,
+    JournalReplay,
+    KillSwitch,
+    ReconcileReport,
+    Reconciler,
+    SimulatedCrash,
+    WarmStandby,
+    replay_journal,
+)
 from .retry import RetryBudgetExceeded, RetryPolicy
 
 __all__ = [
@@ -50,16 +66,26 @@ __all__ = [
     "BreakerOpenError",
     "BreakerState",
     "CircuitBreaker",
+    "ChaosEvent",
+    "ChaosPlan",
     "DegradedModeController",
     "HealthRegistry",
     "HealthState",
+    "IntentJournal",
+    "JournalReplay",
+    "KillSwitch",
+    "ReconcileReport",
+    "Reconciler",
     "RetryBudgetExceeded",
     "RetryPolicy",
+    "SimulatedCrash",
     "SlowClientSwarm",
     "StormSchedule",
     "VirtualClock",
+    "WarmStandby",
     "WireResult",
     "replay_admission",
+    "replay_journal",
     "run_open_loop",
     "timeline_counts",
 ]

@@ -15,8 +15,16 @@ the descheduler's construction. The flags of the kube
 mirror run against the wire stub (``tests/kube_stub.py``): crane-scheduler
 ``--master`` in-process (result line and the stub's bindings),
 crane-annotator and crane-scorer as subprocesses (annotation strings,
-``/v1/score`` bytes); the master-mode planes not ported yet exit with a
-usage error naming their ``ROADMAP.md`` item. The config loaders give
+``/v1/score`` bytes); the control plane and the shard plane on the mirror
+as subprocesses of each package over identically seeded stubs
+(crane-scheduler one-shot ``--journal-dir`` with an orphan bind intent,
+``--serve``, ``--shards 2`` with and without ``--shard-ring``, and
+crane-descheduler ``--master`` with its two-life indeterminate eviction),
+result lines equal apart from ``wall_seconds`` and the stub's URL; the
+reference's drip window imports only with the ``enable_x64`` shim, which
+its subprocess sets in a ``-c`` wrapper. ``--placement-mesh`` under
+``--master`` still exits with a usage error naming its ``ROADMAP.md``
+item. The config loaders give
 the reference's configuration from every committed deploy document
 (PyYAML is on the card, so they read YAML there too).
 Equality throughout.
@@ -142,16 +150,19 @@ def test_crane_scheduler_master_only_flags_do_nothing_in_sim_mode(capsys):
     ["--concurrent-syncs", "4"],
 ])
 def test_crane_scheduler_refuses_kube_mirror_flags(flags, capsys):
-    """The kube mirror's flags are accepted (item 8.2a); with ``--master``
-    the serving plane that stands on it is still refused at parse time,
-    naming its item (8.2b). The apiserver is a local address with nothing
-    behind it: the refusal comes before any connection."""
+    """The kube mirror's flags and the serving, journal and shard planes on
+    it parse; with ``--master`` only ``--placement-mesh`` (multi-GPU) is
+    still refused at parse time, naming its item (7). The apiserver is a
+    local address with nothing behind it: the refusal comes before any
+    connection."""
     with pytest.raises(SystemExit) as exc:
         scheduler_main.main(["--device", "cpu", *flags, "--master", "http://127.0.0.1:1",
-                             "--serve"])
+                             "--serve", "--journal-dir", "/nonexistent", "--lock-file",
+                             "/nonexistent/l", "--shards", "2", "--placement-mesh", "2"])
     assert exc.value.code == 2
     err = capsys.readouterr().err
-    assert "ROADMAP.md Queue 1 item 8.2b" in err and flags[0] in err
+    assert "ROADMAP.md Queue 1 item 7" in err and "--placement-mesh" in err
+    assert "item 8" not in err
 
 
 def test_batch_mode_sweep_caches_follow_binds():
@@ -233,13 +244,14 @@ class _Built(Exception):
     """Raised by the capturing descheduler once ``main`` has built it."""
 
 
-def _descheduler_built(pkg, argv, monkeypatch) -> dict:
+def _descheduler_built(pkg, argv, monkeypatch, clusters=None) -> dict:
     """What ``pkg``'s crane-descheduler ``main`` hands its
     ``LoadAwareDescheduler`` for ``argv``: the config, the degraded
     interlock's fractions, the policy and the node names. The capture
     raises before the health server, the signal handlers and the loop
     start, so ``main`` runs in this thread; the process-global telemetry
-    it enables is restored afterwards."""
+    it enables is restored afterwards. With ``clusters``, the cluster is
+    appended to it (a kube mirror the caller must stop)."""
     import importlib
 
     desched = importlib.import_module(f"{pkg}.descheduler")
@@ -248,6 +260,8 @@ def _descheduler_built(pkg, argv, monkeypatch) -> dict:
     seen = {}
 
     def capture(cluster, policy, config, *, telemetry=None, degraded=None):
+        if clusters is not None:
+            clusters.append(cluster)
         seen.update(
             config=dataclasses.asdict(config), policy=dataclasses.asdict(policy),
             degraded=(degraded.enter_fraction, degraded.exit_fraction),
@@ -291,12 +305,32 @@ def test_crane_descheduler_flags_build_reference_config(case, monkeypatch):
     ["--master", "https://apiserver:6443"],
     ["--token-file", "/dev/null"],
 ])
-def test_crane_descheduler_refuses_kube_mirror_flags(flags, capsys):
-    with pytest.raises(SystemExit) as exc:
-        descheduler_main.main(flags)
-    assert exc.value.code == 2
-    err = capsys.readouterr().err
-    assert "ROADMAP.md Queue 1 item 8" in err and flags[0] in err
+def test_crane_descheduler_refuses_kube_mirror_flags(flags, monkeypatch, tmp_path):
+    """``--master`` (and ``--token-file``) now run the descheduler on the
+    kube mirror: over a stub apiserver they build the reference's
+    ``DeschedulerConfig`` and interlock, over the mirror's nodes, and the
+    token reaches every request."""
+    server = kube_stub.KubeStubServer().start()
+    for i in range(3):
+        server.state.add_node(f"node-{i}", f"10.9.0.{i}")
+    argv = ["--master", server.url, "--consecutive-syncs", "2"]
+    if flags[0] == "--token-file":
+        token = tmp_path / "token"
+        token.write_text("desched-token\n")
+        argv += ["--token-file", str(token)]
+    clusters = []
+    try:
+        ref = _descheduler_built("crane_scheduler_tpu", argv, monkeypatch, clusters)
+        port = _descheduler_built("crane_scheduler_tpu_torch", argv, monkeypatch, clusters)
+    finally:
+        for c in clusters:
+            c.stop()
+        server.stop()
+    assert port == ref
+    assert ref["nodes"] == ["node-0", "node-1", "node-2"]
+    assert ref["config"]["consecutive_syncs"] == 2
+    want = "desched-token" if flags[0] == "--token-file" else None
+    assert [c._token for c in clusters] == [want, want]
 
 
 # -- the config loaders on the committed deploy documents -----------------------
@@ -517,3 +551,318 @@ def test_crane_scorer_master_equals_reference():
     assert port == ref.replace(b'"backend": "tpu"', b'"backend": "cpu"')
     assert len(json.loads(port)["scores"]) == MASTER_NODES
     assert "kube mirror: 24 nodes" in outs[1][0]
+
+
+# -- the control plane and the shard plane on the mirror ----------------------------
+
+# the reference's drip window imports ``jax.experimental.enable_x64``; its
+# CLI runs under this shim, in its own process only
+_REF_SCHEDULER = (
+    "import jax, jax.experimental as e; e.enable_x64 = jax.enable_x64; "
+    "import runpy, sys; sys.argv[0] = 'crane-scheduler'; "
+    "runpy.run_module('crane_scheduler_tpu.cli.scheduler_main', run_name='__main__')"
+)
+
+
+def _scheduler_proc(pkg, argv):
+    if pkg == "ref":
+        cmd = [sys.executable, "-c", _REF_SCHEDULER, *argv]
+        env = dict(_cli_env(), JAX_ENABLE_X64="1")
+    else:
+        cmd = [sys.executable, "-m", "crane_scheduler_tpu_torch.cli.scheduler_main",
+               "--device", "cpu", *argv]
+        env = _cli_env()
+    return subprocess.Popen(cmd, cwd=REPO, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def _line(out: str) -> dict:
+    """A CLI's last JSON line, without the fields that differ between two
+    runs of one package (the wall clock, the stub's URL, the reconcile
+    time)."""
+    line = json.loads([ln for ln in out.splitlines() if ln.startswith("{")][-1])
+    assert line.pop("wall_seconds", 0) >= 0
+    line.pop("master", None)
+    if "recovery" in line:
+        assert line["recovery"].pop("elapsed_s") >= 0
+    return line
+
+
+def _journal(jdir) -> tuple[list, list]:
+    """(every record but the watch's tombstones, in order; the tombstoned
+    ids), ``ts`` taken out. Tombstones are appended by the watch thread,
+    so only their set is deterministic."""
+    from crane_scheduler_tpu_torch.resilience.recovery import IntentJournal
+
+    lines, tombs = [], []
+    for rec in IntentJournal.read(str(jdir)):
+        rec.pop("ts", None)
+        if rec["t"] == "tombstone":
+            tombs.append(rec["id"])
+        else:
+            lines.append(rec)
+    return lines, sorted(tombs)
+
+
+def _write_orphan(jdir, pod, node):
+    """The journal a crashed scheduler left: one bind intent, no outcome."""
+    os.makedirs(jdir, exist_ok=True)
+    with open(os.path.join(jdir, "intent-000001.jsonl"), "w") as f:
+        f.write(json.dumps({"v": 1, "t": "intent", "id": 1, "op": "bind", "pod": pod,
+                            "node": node, "window": 0, "trace": None, "ts": 1.0},
+                           separators=(",", ":")) + "\n")
+
+
+def _wait_bound(state, n, proc, timeout=90.0):
+    import time as _time
+
+    deadline = _time.monotonic() + timeout
+    while True:
+        with state.lock:
+            bound = sum(1 for p in state.pods.values() if (p.get("spec") or {}).get("nodeName"))
+        if bound >= n:
+            return
+        assert proc.poll() is None, proc.communicate()
+        assert _time.monotonic() < deadline, f"{bound} of {n} pods bound"
+        _time.sleep(0.05)
+
+
+def test_crane_scheduler_master_journal_equals_reference(tmp_path):
+    """One-shot ``--master --journal-dir --batch-size 16`` as a subprocess
+    of each package, each over its own identically seeded stub, with the
+    orphan bind intent a crashed scheduler left for ``pend-000``: the
+    reconciler finds it unbound before scheduling opens, every pending pod
+    is bound exactly once, and the result lines (with the recovery
+    report), the stubs' bindings and the journals equal the reference's."""
+    import time as _time
+
+    now = _time.time()
+    out = []
+    for pkg in ("ref", "port"):
+        server = _master_stub(now)
+        jdir = tmp_path / pkg
+        _write_orphan(jdir, "default/pend-000", "node-001")
+        try:
+            proc = _scheduler_proc(pkg, ["--master", server.url, "--journal-dir", str(jdir),
+                                         "--batch-size", "16"])
+            stdout, stderr = proc.communicate(timeout=120)
+            assert proc.returncode == 0, stderr[-2000:]
+            with server.state.lock:
+                posts = dict(server.state.bind_posts)
+            out.append((_line(stdout), _bindings(server.state), posts, _journal(jdir)[0]))
+        finally:
+            server.stop()
+    ref, port = out
+    assert port == ref
+    assert ref[0]["recovery"]["outcomes"] == {"unbound_reschedulable": 1}
+    assert ref[0]["scheduled"] == MASTER_PODS and set(ref[2].values()) == {1}
+    assert ref[3][-1]["t"] == "ack" and ref[3][1] == {"v": 1, "t": "resolved", "id": 1,
+                                                      "outcome": "unbound_reschedulable"}
+
+
+@pytest.mark.parametrize("case", ["serve", "serve_lock_file", "serve_watermark"])
+def test_crane_scheduler_serve_equals_reference(case, tmp_path):
+    """``--master --serve --window 8 --journal-dir`` (as a warm standby on
+    ``--lock-file``, which wins the free lease and reconciles the orphan
+    first; and with ``--bind-watermark-pods 2 --run-seconds 300``, which
+    pauses windows on the write plane's queue) as a subprocess of each
+    package: SIGTERM once every pod is bound; the result lines, bindings
+    and journals equal, every pod is bound once and every intent is
+    acked."""
+    import time as _time
+
+    now = _time.time()
+    out = []
+    for pkg in ("ref", "port"):
+        server = _master_stub(now)
+        jdir = tmp_path / pkg / "intents"
+        _write_orphan(jdir, "default/pend-003", "node-002")
+        argv = ["--master", server.url, "--serve", "--window", "8", "--journal-dir", str(jdir)]
+        if case == "serve_lock_file":
+            argv += ["--lock-file", str(tmp_path / pkg / "leader.lock")]
+        if case == "serve_watermark":
+            argv += ["--bind-watermark-pods", "2", "--run-seconds", "300"]
+        try:
+            proc = _scheduler_proc(pkg, argv)
+            try:
+                _wait_bound(server.state, MASTER_PODS, proc)
+            finally:
+                proc.send_signal(signal.SIGTERM)
+                stdout, stderr = proc.communicate(timeout=60)
+            assert proc.returncode == 0, stderr[-2000:]
+            line = _line(stdout)
+            if case == "serve_lock_file":
+                assert line.pop("failover_seconds") >= 0
+            with server.state.lock:
+                posts = dict(server.state.bind_posts)
+            out.append((line, _bindings(server.state), posts, _journal(jdir)))
+        finally:
+            server.stop()
+    ref, port = out
+    assert port[:3] == ref[:3] and port[3][0] == ref[3][0]
+    assert ref[0]["mode"] == "serve" and ref[0]["scheduled"] == MASTER_PODS
+    assert ref[0]["drained_at_exit"] == 0
+    assert ref[0]["recovery"]["outcomes"] == {"unbound_reschedulable": 1}
+    assert set(ref[2].values()) == {1} and len(ref[2]) == MASTER_PODS
+    intents = {r["id"] for r in port[3][0] if r["t"] == "intent"}
+    acked = {r["id"] for r in port[3][0] if r["t"] in ("ack", "resolved")}
+    assert intents <= acked | set(port[3][1])
+
+
+def _shard_check(bindings, shards):
+    from crane_scheduler_tpu_torch.cluster.shards import shard_of, shard_owners
+
+    for key, node in bindings:
+        assert node, key
+        assert shard_of(key, shards) in shard_owners(node, shards, 0.0), (key, node)
+
+
+@pytest.mark.parametrize("case", ["oneshot", "serve_ring"])
+def test_crane_scheduler_shards_equal_reference(case, tmp_path):
+    """``--shards 2 --shard-index {0,1}``: two cooperating processes per
+    package over one stub (one-shot in plugin mode, or ``--serve`` over a
+    ``--shard-ring`` file). Each binds only the pods whose key hashes to
+    its shard, onto its shard's nodes; every pod is bound once; the result
+    lines and the bindings equal the reference's."""
+    import time as _time
+
+    from crane_scheduler_tpu_torch.cluster.shards import HashRing
+
+    now = _time.time()
+    ring = tmp_path / "ring.json"
+    ring.write_text(json.dumps(HashRing(2, vnodes=16).spec_dict()))
+    out = []
+    for pkg in ("ref", "port"):
+        server = _master_stub(now)
+        try:
+            procs = []
+            for idx in range(2):
+                argv = ["--master", server.url, "--shards", "2", "--shard-index", str(idx)]
+                if case == "serve_ring":
+                    argv += ["--serve", "--window", "8", "--shard-ring", str(ring)]
+                procs.append(_scheduler_proc(pkg, argv))
+            try:
+                if case == "serve_ring":
+                    _wait_bound(server.state, MASTER_PODS, procs[0])
+            finally:
+                if case == "serve_ring":
+                    for proc in procs:
+                        proc.send_signal(signal.SIGTERM)
+                results = [proc.communicate(timeout=120) for proc in procs]
+            for proc, (_o, err) in zip(procs, results):
+                assert proc.returncode == 0, err[-2000:]
+            with server.state.lock:
+                dup = server.state.duplicate_binds()
+            out.append(([_line(o) for o, _e in results], _bindings(server.state), dup))
+        finally:
+            server.stop()
+    ref, port = out
+    assert port == ref
+    assert sum(line["scheduled"] for line in ref[0]) == MASTER_PODS and ref[2] == 0
+    assert all(line["scheduled"] > 0 for line in ref[0])
+    if case == "oneshot":
+        _shard_check(ref[1], 2)
+    else:
+        layout = HashRing.from_spec(json.loads(ring.read_text()))
+        from crane_scheduler_tpu_torch.cluster.shards import shard_of
+
+        for key, node in ref[1]:
+            assert shard_of(key, 2) in layout.owners(node), (key, node)
+
+
+def _desched_stub(faults=False):
+    """The hot/cool pair of the descheduler drive: one victim on the hot
+    node, a DaemonSet decoy beside it."""
+    import time as _time
+
+    from crane_scheduler_tpu_torch.utils import format_local_time
+
+    server = kube_stub.KubeStubServer().start()
+    now = _time.time()
+
+    def anno(v):
+        return {"cpu_usage_avg_5m": f"{v:.5f},{format_local_time(now)}"}
+
+    st = server.state
+    st.add_node("hot", "10.0.0.1", annotations=anno(0.92), allocatable={"cpu": "8", "pods": "100"})
+    st.add_node("cool", "10.0.0.2", annotations=anno(0.15), allocatable={"cpu": "8", "pods": "100"})
+    spec = {"nodeName": "hot", "containers": [{"resources": {"requests": {"cpu": "1"}}}]}
+    st.add_pod("default", "victim", spec=spec)
+    st.add_pod("default", "ds", spec=spec, owner_references=[{"kind": "DaemonSet", "name": "d"}])
+    if faults:
+        st.inject_write_faults((0, {}))  # the eviction's response is lost
+    return server
+
+
+DESCHED_MASTER = ["--health-port", "0", "--sync-period-seconds", "5", "--consecutive-syncs", "1",
+                  "--run-seconds", "2"]
+
+
+def test_crane_descheduler_master_equals_reference(tmp_path):
+    """crane-descheduler ``--master --journal-dir --leader-elect`` as a
+    subprocess of each package on its own stub: it takes the descheduler
+    Lease, evicts the victim (never the DaemonSet pod) once through the
+    eviction subresource, journals the intent and its ack, and prints the
+    reference's stats and recovery report."""
+    servers = [_desched_stub(), _desched_stub()]
+    procs = [_start(module, ["--master", server.url, "--journal-dir", str(tmp_path / pkg),
+                             "--leader-elect", *DESCHED_MASTER])
+             for server, (pkg, module) in zip(servers, (
+                 ("ref", "crane_scheduler_tpu.cli.descheduler_main"),
+                 ("port", "crane_scheduler_tpu_torch.cli.descheduler_main")))]
+    out = []
+    try:
+        for proc, server, pkg in zip(procs, servers, ("ref", "port")):
+            stats = _stats(proc)
+            stats.pop("cycles")
+            assert stats["recovery"].pop("elapsed_s") >= 0
+            with server.state.lock:
+                evicted = [e["key"] for e in server.state.evictions]
+                lease = server.state.leases["crane-system/crane-scheduler-tpu-descheduler"]
+                out.append((stats, evicted, server.state.duplicate_evictions(),
+                            lease["spec"]["holderIdentity"].startswith("crane-descheduler-"),
+                            [r["t"] for r in _journal(tmp_path / pkg)[0]]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+        for server in servers:
+            server.stop()
+    ref, port = out
+    assert port == ref
+    assert ref[1] == ["default/victim"] and ref[2] == 0 and ref[3]
+    assert ref[0]["evictions"] == 1 and ref[4] == ["intent", "ack"]
+
+
+def test_crane_descheduler_two_life_indeterminate_eviction(tmp_path):
+    """Life 1 loses the eviction's response (transport loss): no eviction
+    is counted, the pod lives, the journal ends ``unresolved``. Life 2
+    reconciles it to ``evict_unapplied``, re-arms the hot node's cooldown
+    and POSTs no second eviction. Both lives equal the reference's."""
+    out = []
+    for pkg, module in (("ref", "crane_scheduler_tpu.cli.descheduler_main"),
+                        ("port", "crane_scheduler_tpu_torch.cli.descheduler_main")):
+        server = _desched_stub(faults=True)
+        jdir = tmp_path / pkg
+        try:
+            lives = []
+            for _life in range(2):
+                stats = _stats(_start(module, ["--master", server.url, "--journal-dir", str(jdir),
+                                               *DESCHED_MASTER]))
+                stats.pop("cycles")
+                assert stats["recovery"].pop("elapsed_s") >= 0
+                with server.state.lock:
+                    lives.append((stats, sum(server.state.evict_posts.values()),
+                                  "default/victim" in server.state.pods,
+                                  [r["t"] for r in _journal(jdir)[0]]))
+            out.append((lives, server.state.duplicate_evictions()))
+        finally:
+            server.stop()
+    ref, port = out
+    assert port == ref
+    (life1, life2), dup = ref
+    assert life1[1] == 0 and life1[2] and life1[3] == ["intent", "unresolved"]
+    assert life2[0]["recovery"]["outcomes"] == {"evict_unapplied": 1}
+    assert life2[0]["recovery"]["rearm_cooldowns"] == ["hot"]
+    assert life2[1] == 0 and life2[2] and dup == 0

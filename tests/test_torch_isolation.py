@@ -249,3 +249,64 @@ def test_kube_mirror_modules_stand_alone():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "ok"
+
+
+_CONTROL_AND_SHARDS = """
+import sys, tempfile
+for name in ("jax", "crane_scheduler_tpu", "yaml"):
+    sys.modules[name] = None
+from crane_scheduler_tpu_torch.resilience import (
+    ChaosPlan, IntentJournal, Reconciler, WarmStandby, replay_journal)
+from crane_scheduler_tpu_torch.cluster import ClusterState, Node
+from crane_scheduler_tpu_torch.cluster.shards import HashRing, shard_of
+from crane_scheduler_tpu_torch.framework.shardplane import ShardedPlacementPlane
+from crane_scheduler_tpu_torch.cli import descheduler_main, scheduler_main
+with tempfile.TemporaryDirectory() as d:
+    j = IntentJournal(d)
+    j.intent("bind", "ns/p", "n0")
+    assert Reconciler(j, lambda key: None).reconcile().outcomes == {"pod_gone": 1}
+    assert replay_journal(d).unresolved() == []
+assert ChaosPlan.generate(5, steps=20).describe().startswith("ChaosPlan(seed=5")
+cs = ClusterState()
+for i in range(16):
+    cs.add_node(Node(name=f"n{i}"))
+ring = HashRing(2, vnodes=8)
+plane = ShardedPlacementPlane(cs, 2, layout=ring)
+_p, owners = ring.tokens()
+assert isinstance(plane.reshard(ring.with_moves([(0, 1 - owners[0])])), list)
+assert sum(len(v.list_nodes()) for v in plane.views) == 16 and shard_of("x", 2) in (0, 1)
+assert not any(k == "jax" or k.startswith(("jax.", "crane_scheduler_tpu."))
+               for k, v in sys.modules.items() if v is not None)
+print("ok")
+"""
+
+
+def test_control_and_shard_planes_stand_alone():
+    """The intent journal, reconciler, warm standby, chaos plans, the
+    shard keyspace and the shard plane import and run with JAX, the JAX
+    package and PyYAML blocked, and are the port's own files."""
+    for name in ("resilience/recovery.py", "resilience/chaos.py", "cluster/shards.py",
+                 "framework/shardplane.py"):
+        assert (PORT / name).exists()
+    path = os.pathsep.join(p for p in (str(REPO), os.environ.get("PYTHONPATH")) if p)
+    out = subprocess.run([sys.executable, "-c", _CONTROL_AND_SHARDS], cwd=REPO,
+                         env=dict(os.environ, PYTHONPATH=path, OMP_NUM_THREADS="1"),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "ok"
+
+
+@pytest.mark.parametrize("flags", [["--serve"], ["--journal-dir", "/nonexistent"],
+                                   ["--shards", "2", "--serve", "--lock-file", "/nonexistent/l"]],
+                         ids=["serve", "journal", "shards"])
+def test_master_planes_without_device_need_cuda(flags, monkeypatch, capsys):
+    """crane-scheduler ``--master`` with the serving, journal or shard
+    plane and no ``--device`` needs the card: it raises the no-CUDA error
+    before it contacts the apiserver (nothing listens at the address)."""
+    from crane_scheduler_tpu_torch.cli import scheduler_main
+
+    monkeypatch.chdir(REPO)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        scheduler_main.main(["--master", "http://127.0.0.1:1", *flags])
+    assert capsys.readouterr().out == ""

@@ -863,10 +863,56 @@ def test_evict_pod_equal_reference(target, started):
         assert ref["after"][1] is (True if started else False)
 
 
-def test_intent_journal_waits_for_its_item():
-    c = port_kube.KubeClusterClient("http://127.0.0.1:1")
-    with pytest.raises(NotImplementedError, match="item 8.2b"):
-        c.attach_intent_journal(object())
+def test_intent_journal_waits_for_its_item(tmp_path):
+    """An attached intent journal: each bind's intent line is on disk
+    before its POST reaches the stub (the stub's handler reads the
+    journal as the binding arrives), and the lines equal the reference
+    client's apart from ``ts``."""
+    import json
+
+    import crane_scheduler_tpu.resilience.recovery as ref_rec
+    import crane_scheduler_tpu_torch.resilience.recovery as port_rec
+
+    out = []
+    for name, kube, rec in (("ref", ref_kube, ref_rec), ("port", port_kube, port_rec)):
+        server = kube_stub.KubeStubServer().start()
+        jdir = tmp_path / name
+        try:
+            server.state.add_node("n0", "10.0.0.1")
+            for i in range(3):
+                server.state.add_pod("default", f"p{i}")
+            at_post = []
+            posts = server.state.bind_posts
+
+            class Spy(dict):
+                def __setitem__(self, key, value):
+                    at_post.append((key, [(r["t"], r.get("pod")) for r in rec.IntentJournal.read(
+                        str(jdir))]))
+                    super().__setitem__(key, value)
+
+            server.state.bind_posts = Spy(posts)
+            journal = rec.IntentJournal(str(jdir))
+            client = kube.KubeClusterClient(server.url)
+            client.attach_intent_journal(journal)
+            assert client.bind_pods([(f"default/p{i}", "n0") for i in range(2)]) == \
+                ["default/p0", "default/p1"]
+            assert client.bind_pod("default/p2", "n0")
+            client.stop()
+            journal.close()
+            lines = []
+            for seg in sorted(os.listdir(jdir)):
+                for raw in open(jdir / seg).read().splitlines():
+                    doc = json.loads(raw)
+                    doc.pop("ts", None)
+                    lines.append(doc)
+            out.append((sorted(at_post), lines))
+        finally:
+            server.stop()
+    ref, port = out
+    assert port == ref
+    for key, seen in port[0]:
+        assert ("intent", key) in seen  # the intent preceded its POST
+    assert [r["t"] for r in port[1]] == ["intent", "intent", "ack", "ack", "intent", "ack"]
 
 
 def test_from_flags_reads_the_token_file(tmp_path):
