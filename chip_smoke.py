@@ -8,7 +8,10 @@ non-zero without printing a result.
 
 1. environment: the card's name and power limit (``nvidia-smi``);
 2. build: both CUDA kernels from ``crane_scheduler_tpu_torch/csrc``, one
-   ``nvcc`` each, started together;
+   ``nvcc`` each, started together, and beside them the host library
+   (``native/lib.py``: ``crane_native.cpp`` and ``crane_pylist.cpp`` with the
+   host C++ compiler, one each); the line names the compiler and the
+   build seconds;
 3. K1 (fused filter+score) against its plain PyTorch version on the card,
    exact equality: 51,200 nodes with the default policy (fresh, stale,
    missing, negative and NaN entries) at `now` = 0 and 31 s, three
@@ -218,7 +221,12 @@ non-zero without printing a result.
    router from the card and exits 0 on SIGTERM (its own launch counts from
    its exit line), crane-annotator one pass over a 1,000-node JSON file
    with its score check on the card, crane-sim one 4,000-pod burst on
-   the card.
+   the card. native: the annotator's heap is the C++ ``NativeBindingRecords``
+   and the simulator serves three columns (hosts, strings, floats); a Python
+   ``BindingRecords`` fed the sim legs' binding stream beside it
+   (``HeapTee``) has equal sizes and per-node counts in every hot-value
+   window; one column's ``bulk_render_f5`` equals ``format_metric_value``
+   and its Go parse, with both timed.
 21. desched: bench config 11's closed loop widened to 50,000 nodes on the
    in-memory ``ClusterState`` (2 hot nodes with 12 one-CPU workers, a
    DaemonSet and a kube-system decoy each; 49,998 nodes with one one-CPU
@@ -278,12 +286,22 @@ non-zero without printing a result.
    (events/s, mirror transactions; the mirror equal to the stub after it);
    a relist; a 1% ``patch_node_annotations_bulk`` over the wire (500 nodes)
    and the refresh through ``dirty_ingest``, again equal to a sweep.
-   burst: on that stub, two float32 ``schedule_pod_burst`` of 10,000 pods
+   Its native step: every bootstrap page decoded by the host library's
+   object decoder (``pylist``); the node pages fetched again and decoded by
+   the object decoder, the columnar scanner and the Python twin, equal
+   model for model, each timed; resourceVersion reuse over those pages
+   without their allocatable maps (every row a marker, equal to a fresh
+   decode); every node batch of the watch storm decoded by
+   ``decode_watch_lines`` and equal to the per-line route; the codec over
+   the mirror's 600,000 metric strings equal to the numpy twin; every bulk
+   flush of 128 or more on the flush engine. burst: on that stub, two float32 ``schedule_pod_burst`` of 10,000 pods
    (creation POSTs, K1 and K2, binding POSTs) equal to a ``device="cpu"``
    ``BatchScheduler`` over an in-memory cluster with the mirror's nodes, the
    same `now` and pod names; ``bind_posts`` equal to the pods placed, no
    duplicate bind, every pod tracked to its lifecycle ``watch_confirm``, K1
-   and K2 once per burst. drip (config 15 over the wire): a fresh
+   and K2 once per burst; every creation and binding batch on the flush
+   engine, none of 128 or more on the Python pipeline, and the 20,000 pods'
+   LIST pages decoded three ways, equal. drip (config 15 over the wire): a fresh
    50,000-node stub, 4,096 pods created with ``add_pod``,
    ``schedule_queue(window=128)`` on ``Scheduler(client, columnar=True)``
    (ResourceFit x1, Dynamic x3) equal to the same queue on an in-memory
@@ -307,7 +325,7 @@ non-zero without printing a result.
    batch, result line and bindings digest equal to a ``--device cpu`` twin
    (this script's ``--kube-scheduler-twin`` child mode with the same flags
    and its own orphan). serve: a 50,000-node stub (config 15's
-   allocatable, fresh annotations) with 4,096 pending 100m pods seeded
+   allocatable, fresh annotations) with 2,048 pending 100m pods seeded
    before ``crane_scheduler_tpu_torch.cli.scheduler_main --master --serve
    --window 32 --journal-dir`` starts on the card as a subprocess (this
    script's ``--cli-child`` mode: the CLI's ``main`` in a process of its
@@ -316,8 +334,8 @@ non-zero without printing a result.
    or tombstoned, drip windows on the card only, result line and digest
    equal to a ``--device cpu`` twin on its own identically seeded stub
    (``--serve-twin``, started with the phase); pods/s and ms per pod from
-   the first to the last bind. sigterm: on that stub, 4,096 more pods created while the
-   serve runs, SIGTERM after 1,024 binds, a restart on the same journal:
+   the first to the last bind. sigterm: on that stub, 2,048 more pods created while the
+   serve runs, SIGTERM after 512 binds, a restart on the same journal:
    ``drained_at_exit`` and the restart's ``recovery`` reported, no
    duplicate or lost bind. kill: config 16's kill sites against an
    in-process 50,000-node stub (8 seeded mid-pipeline-fill kills with
@@ -325,7 +343,7 @@ non-zero without printing a result.
    abandoned on the card, an eviction whose response is lost; the re-armed
    cooldown), run twice with one seed: no duplicate or lost bind, no
    duplicate eviction, one timeline. standby: two ``--serve --lock-file``
-   processes over 4,096 more pods, the leader SIGKILLed after half bind,
+   processes over 2,048 more pods, the leader SIGKILLed after half bind,
    the standby reconciles and binds the rest: its ``failover_seconds``
    beside config 16's 5 s gate (report only), no duplicate or lost bind.
    descheduler: ``crane_scheduler_tpu_torch.cli.descheduler_main --master
@@ -3002,6 +3020,81 @@ def repl_annotator_leg(sim, n: int) -> dict:
             "direct_rows_equal": True}
 
 
+class HeapTee:
+    """The annotator's C++ binding heap with a Python heap fed the same
+    binding stream: reads come from the C++ heap, every write goes to
+    both."""
+
+    def __init__(self, native, twin):
+        self.native, self.twin = native, twin
+
+    def __len__(self) -> int:
+        return len(self.native)
+
+    def __getattr__(self, name):
+        return getattr(self.native, name)
+
+    def add_binding(self, binding) -> None:
+        self.native.add_binding(binding)
+        self.twin.add_binding(binding)
+
+    def add_binding_batch(self, bindings) -> None:
+        bindings = list(bindings)
+        self.native.add_binding_batch(bindings)
+        self.twin.add_binding_batch(bindings)
+
+    def add_bind_columns(self, node_table, node_idx, ts) -> None:
+        self.native.add_bind_columns(node_table, node_idx, ts)
+        self.twin.add_bind_columns(node_table, node_idx, ts)
+
+    def bindings_gc(self, now=None) -> None:
+        self.native.bindings_gc(now)
+        self.twin.bindings_gc(now)
+
+
+def heap_twin_check(tee, policy, now: float) -> dict:
+    """The C++ heap and its Python twin after the same binding stream: equal
+    sizes and equal per-node counts in every hot-value window."""
+    windows = [p.time_range_seconds for p in policy.spec.hot_value]
+    out = {"bindings": len(tee.native)}
+    counts = {}
+    for label, heap in (("native", tee.native), ("python", tee.twin)):
+        t0 = time.perf_counter()
+        names, c = heap.counts_batch(windows, now)
+        out[f"{label}_counts_batch_ms"] = (time.perf_counter() - t0) * 1e3
+        counts[label] = {n: c[:, i].tolist() for i, n in enumerate(names) if c[:, i].any()}
+    if len(tee.native) != len(tee.twin) or counts["native"] != counts["python"] \
+            or not counts["native"]:
+        raise AssertionError(f"native: the C++ heap != the Python heap ({len(tee.native)}, "
+                             f"{len(tee.twin)} bindings)")
+    out["nodes_with_bindings"] = len(counts["native"])
+    return out
+
+
+def render_twin_check(sim, metric: str) -> dict:
+    """One metric column of the simulator: the host library's render and
+    parse against ``format_metric_value`` and ``go_parse_float`` on the
+    same loads, and the column in its three-column form."""
+    from crane_scheduler_tpu_torch.loadstore.codec import format_metric_value, go_parse_float
+    from crane_scheduler_tpu_torch.native.codec import bulk_render_f5
+
+    hosts, strings, floats = sim.metrics._columns[metric]()
+    loads = np.asarray([sim._base[(name, metric)] for name, _ in sim._pairs])
+    loads = np.clip(loads + sim.config.per_pod_load * sim._counts_vector(), 0.0, 1.0)
+    t0 = time.perf_counter()
+    native, parsed, ok = bulk_render_f5(loads, with_parse=True)
+    native_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    twin = [format_metric_value(v) for v in loads.tolist()]
+    twin_parsed = [go_parse_float(v) for v in twin]
+    twin_ms = (time.perf_counter() - t0) * 1e3
+    if native != twin or strings != twin or not ok.all() or \
+            parsed.tolist() != twin_parsed or not np.array_equal(floats, parsed):
+        raise AssertionError(f"native: the {metric} column render != format_metric_value")
+    return {"values": len(loads), "native_ms": native_ms, "twin_ms": twin_ms,
+            "three_columns": len(hosts) == len(strings) == len(floats)}
+
+
 def repl_sim_leg(sim, twin, dev) -> tuple:
     """SIM_STEPS closed-loop steps on the card and on a CPU twin: a bulk
     annotator sweep, one SIM_BURST_PODS-pod float32 burst, its binds,
@@ -3472,9 +3565,17 @@ def phase_replicated(dev) -> tuple:
     t_phase = time.perf_counter()
     by_path = {}
     rng = np.random.default_rng(SEED + 19)
+    from crane_scheduler_tpu_torch.annotator import BindingRecords
+    from crane_scheduler_tpu_torch.annotator.bindings import max_hot_value_time_range
+
     t0 = time.perf_counter()
     sim = Simulator(SimConfig(n_nodes=N_NODES, seed=SEED))
     build_s = time.perf_counter() - t0
+    heap = sim.annotator.binding_records
+    column = sim.metrics._columns[DEFAULT_POLICY.spec.sync_period[0].name]()
+    if type(heap).__name__ != "NativeBindingRecords" or len(column) != 3:
+        raise AssertionError(f"replicated: annotator heap {type(heap).__name__}, "
+                             f"sim column of {len(column)}")
     annotator = repl_annotator_leg(sim, N_NODES)
     # the twin starts from the annotator leg's last sweep: every
     # annotation was rewritten at that `now` from an empty binding heap
@@ -3483,8 +3584,19 @@ def phase_replicated(dev) -> tuple:
     sim_twin.annotator.sync_all_once_bulk(sim_twin.clock.now())
     if node_annotations(sim_twin.cluster) != node_annotations(sim.cluster):
         raise AssertionError("replicated: CPU twin's first sweep != the primary's")
+    # the sim's binding stream feeds a Python heap beside the C++ one
+    tee = HeapTee(heap, BindingRecords(sim.annotator.config.binding_heap_size,
+                                       max_hot_value_time_range(DEFAULT_POLICY.spec.hot_value)))
+    sim.annotator.binding_records = sim.annotator.event_ingestor._records = tee
     sim_out, by_path["annotator_sim"] = repl_sim_leg(sim, sim_twin, dev)
+    sim.annotator.binding_records = sim.annotator.event_ingestor._records = heap
     del sim_twin
+    t0 = time.perf_counter()
+    native = {"heap_type": type(heap).__name__,
+              "heap": heap_twin_check(tee, DEFAULT_POLICY, sim.clock.now()),
+              "render": render_twin_check(sim, DEFAULT_POLICY.spec.sync_period[0].name)}
+    native["seconds"] = time.perf_counter() - t0
+    del tee
 
     # the replicated tier: the primary renders version-stamped bodies too,
     # so its bytes can be held against the replicas'
@@ -3556,7 +3668,7 @@ def phase_replicated(dev) -> tuple:
     by_path["cli_demo"] = scorer["kernel_launches"]
     out = {
         "nodes": N_NODES, "replicas": REPL_REPLICAS, "sim_build_s": build_s,
-        "annotator": annotator, "sim": sim_out,
+        "annotator": annotator, "sim": sim_out, "native": native,
         "genesis": {"publish_ms": genesis_publish_ms, "frame_bytes": genesis_bytes,
                     "catch_up_ms": genesis_catch_up_ms},
         "identity": identity, "identity_after_churn": identity_churn,
@@ -4175,6 +4287,12 @@ def kube_node_t(node) -> tuple:
             tuple((a.type, a.address) for a in node.addresses), dict(node.allocatable))
 
 
+def kube_pod_t(pod) -> tuple:
+    return (pod.name, pod.namespace, dict(pod.annotations),
+            tuple((r.kind, r.name) for r in pod.owner_references), pod.containers,
+            pod.node_name, pod.init_containers, dict(pod.overhead))
+
+
 def seeded_node_t(i: int, metrics, extra=None) -> tuple:
     """The stub's ``seed`` node ``i`` as ``kube_node_t`` sees it."""
     anno = {m: f"{(i % 97) / 97:.5f},{KUBE_STAMP}" for m in metrics}
@@ -4231,6 +4349,213 @@ def mirror_equals(client, want: list, what: str) -> None:
                              f"first difference {bad})")
 
 
+# -- the host library's routes against their twins (the `native` steps) ------------
+
+
+def host_library_line() -> dict:
+    """The host library's build: the compiler, this process's build seconds
+    per library (empty when the keyed libraries already existed) and the
+    loaded paths."""
+    from crane_scheduler_tpu_torch.native import lib
+
+    cxx = lib.compiler_command()
+    version = lib.compiler_version(tuple(cxx))
+    return {"compiler": " ".join(cxx), "compiler_version": version.splitlines()[0],
+            "python_include": lib.python_include(),
+            "python_headers": lib.python_headers_present(), "build_s": dict(lib.build_seconds),
+            "libraries": lib.library_paths()}
+
+
+def expected_list_backend() -> str:
+    """The LIST decoder the client takes on this host: the object decoder
+    where ``Python.h`` exists, else the columnar scanner."""
+    from crane_scheduler_tpu_torch.native.lib import python_headers_present
+
+    return "pylist" if python_headers_present() else "native"
+
+
+def spy_list_backends() -> tuple[list, object]:
+    """Record the decoder of every LIST page the client decodes (it imports
+    ``decode_list_page`` from its module at each call). Returns the record
+    and the function that stops it."""
+    from crane_scheduler_tpu_torch.native import listdecode
+
+    decode, seen = listdecode.decode_list_page, []
+
+    def spy(*args, **kwargs):
+        page = decode(*args, **kwargs)
+        seen.append(page.backend)
+        return page
+
+    listdecode.decode_list_page = spy
+    return seen, lambda: setattr(listdecode, "decode_list_page", decode)
+
+
+def list_bodies(client, path: str, kind: int) -> list:
+    """Every page body of a paginated LIST (``KUBE_PAGE`` items a page)."""
+    from crane_scheduler_tpu_torch.native.listdecode import decode_list_page
+
+    bodies, token = [], None
+    while True:
+        url = f"{path}?limit={KUBE_PAGE}" + (f"&continue={token}" if token else "")
+        bodies.append(client._get_bytes(url))
+        token = decode_list_page(bodies[-1], kind, native="pylist").cont
+        if not token:
+            return bodies
+
+
+DECODE_ROUTES = {"pylist": "pylist", "native": True, "python": False}
+
+
+def decode_three_ways(bodies, kind: int, to_t) -> dict:
+    """Decode (and materialize) every page on each route; the models must
+    be equal. Returns ms per route and the item count."""
+    from crane_scheduler_tpu_torch.native.listdecode import decode_list_page
+
+    ms, models = {}, {}
+    for route, native in DECODE_ROUTES.items():
+        t0 = time.perf_counter()
+        pages = [decode_list_page(b, kind, native=native) for b in bodies]
+        objs = [o for page in pages for o in page.materialize()]
+        ms[route] = (time.perf_counter() - t0) * 1e3
+        if {page.backend for page in pages} != {route}:
+            raise AssertionError(f"native: {route} pages came back {[p.backend for p in pages]}")
+        models[route] = [to_t(o) for o in objs]
+    if not models["pylist"] == models["native"] == models["python"]:
+        raise AssertionError(f"native: kind {kind} pages decode differently by route")
+    return {"ms_by_backend": ms, "items": len(models["python"]), "pages": len(bodies)}
+
+
+def reuse_check(bodies) -> dict:
+    """The object decoder's resourceVersion reuse at full width: the node
+    pages without their allocatable maps (an allocatable node is a
+    per-object row, never a reuse marker), decoded once fresh and once with
+    every row's rv known. Every row must come back a marker, and the fresh
+    instances put in their place must equal a fresh decode. Without
+    allocatable every node is built by the object decoder in C, so the
+    fresh decode is also held against the scanner's and the twin's."""
+    from crane_scheduler_tpu_torch.native.listdecode import decode_list_page
+
+    # the stub renders each node's status as {"addresses": [...],
+    # "allocatable": {...}}: cut the allocatable member out of the bytes
+    member = (", " + json.dumps({"allocatable": DRIP_ALLOCATABLE})[1:-1]).encode()
+    stripped = [body.replace(member, b"") for body in bodies]
+    if sum(body.count(member) for body in bodies) != N_NODES:
+        raise AssertionError("native: the node pages' allocatable members are not the stub's")
+    t0 = time.perf_counter()
+    fresh = [decode_list_page(b, 0, native="pylist") for b in stripped]
+    fresh_objs = [o for page in fresh for o in page.materialize()]
+    fresh_ms = (time.perf_counter() - t0) * 1e3
+    if any(page.fallback_rows for page in fresh):
+        raise AssertionError("native: a node without allocatable took the per-object path")
+    fresh_t = list(map(kube_node_t, fresh_objs))
+    for route in (True, False):
+        objs = [o for b in stripped for o in decode_list_page(b, 0, native=route).materialize()]
+        if list(map(kube_node_t, objs)) != fresh_t:
+            raise AssertionError(f"native: the object decoder's nodes != native={route}'s")
+    known = {n.name: rv for page in fresh for n, rv in zip(page.materialize(), page.rvs)}
+    by_name = {n.name: n for n in fresh_objs}
+    t0 = time.perf_counter()
+    again = [decode_list_page(b, 0, known_rvs=known) for b in stripped]
+    objs = [o for page in again for o in page.materialize()]
+    reuse_ms = (time.perf_counter() - t0) * 1e3
+    markers = sum(isinstance(o, str) for o in objs)
+    reused = [by_name[o] if isinstance(o, str) else o for o in objs]
+    if markers != len(fresh_objs) or None in known.values() or \
+            list(map(kube_node_t, reused)) != fresh_t:
+        raise AssertionError(f"native: reuse gave {markers} markers of {len(fresh_objs)} rows")
+    return {"rows": len(objs), "markers": markers, "fresh_decode_ms": fresh_ms,
+            "reuse_decode_ms": reuse_ms}
+
+
+def per_line_watch(lines) -> tuple:
+    """The per-line route of a drained node batch: ``json.loads`` per line."""
+    from crane_scheduler_tpu_torch.cluster.kube_wire import node_from_json
+
+    batch, last_rv, error_obj, n_seen = [], None, None, 0
+    for line in lines:
+        line = line.strip()
+        if not line:
+            continue
+        n_seen += 1
+        change = json.loads(line)
+        change_type, obj = change.get("type", ""), change.get("object", {})
+        if change_type == "ERROR":
+            error_obj = obj
+            break
+        if change_type != "BOOKMARK":
+            batch.append((change_type, node_from_json(obj)))
+        obj_rv = obj.get("metadata", {}).get("resourceVersion")
+        if obj_rv is not None:
+            last_rv = obj_rv
+    return batch, last_rv, error_obj, n_seen
+
+
+def capture_node_watch(client) -> list:
+    """Record every drained node batch the client parses, with its result
+    (an instance attribute shadows the method; delete it to stop)."""
+    captured = []
+    parse = client._parse_watch_lines
+
+    def capture(lines, rv_key):
+        out = parse(lines, rv_key)
+        if rv_key == "nodes":
+            captured.append((list(lines), out))
+        return out
+
+    client._parse_watch_lines = capture
+    return captured
+
+
+def watch_twin_check(captured) -> dict:
+    """Every captured batch took ``decode_watch_lines`` and equals the
+    per-line route on the same lines."""
+    from crane_scheduler_tpu_torch.native.listdecode import decode_watch_lines
+
+    lines = model_s = per_line_s = 0
+    for batch_lines, (batch, last_rv, error_obj, n_seen, model) in captured:
+        t0 = time.perf_counter()
+        want = per_line_watch(batch_lines)
+        per_line_s += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        decode_watch_lines(b"\n".join(batch_lines), 0)
+        model_s += time.perf_counter() - t0
+        got = ([(t, kube_node_t(n)) for t, n in batch], last_rv, error_obj, n_seen)
+        if not model or got != ([(t, kube_node_t(n)) for t, n in want[0]],) + want[1:]:
+            raise AssertionError("native: a watch batch differs from the per-line route")
+        lines += n_seen
+    return {"batches": len(captured), "lines": lines, "decode_watch_lines_ms": model_s * 1e3,
+            "per_line_ms": per_line_s * 1e3}
+
+
+def codec_twin_check(raws) -> dict:
+    """``bulk_parse_annotations`` against the numpy twin over one sweep's
+    strings: equal values and timestamps (NaN where the twin has NaN)."""
+    from crane_scheduler_tpu_torch.loadstore.codec import bulk_decode_annotations
+    from crane_scheduler_tpu_torch.native.codec import bulk_parse_annotations
+
+    t0 = time.perf_counter()
+    got = bulk_parse_annotations(raws)
+    native_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    want = bulk_decode_annotations(raws)
+    twin_ms = (time.perf_counter() - t0) * 1e3
+    for a, b in zip(got, want):
+        if not np.array_equal(a, b, equal_nan=True):
+            raise AssertionError("native: bulk_parse_annotations != bulk_decode_annotations")
+    return {"strings": len(raws), "native_ms": native_ms, "twin_ms": twin_ms,
+            "finite_ts": int(np.isfinite(got[1]).sum())}
+
+
+def check_bulk_routes(client, what: str) -> dict:
+    """Every bulk flush of 128 or more rode the host library's engine."""
+    native, pipelined = client.bulk_flushes["native"], client.bulk_flushes["pipelined"]
+    if native[0] < 1 or pipelined[2] >= 128:
+        raise AssertionError(f"native: {what}: bulk flushes {client.bulk_flushes}")
+    return {k: dict(zip(("batches", "requests", "largest"), v))
+            for k, v in client.bulk_flushes.items()}
+
+
 def kube_read_leg(kube_stub, dev, tel) -> tuple:
     """Config 9's read path at 50,000 nodes: bootstrap, the columnar refresh
     against a sweep, a forced relist, a 20,000-event watch storm, a relist,
@@ -4249,12 +4574,20 @@ def kube_read_leg(kube_stub, dev, tel) -> tuple:
         server.seed(N_NODES, "node-", metrics=metrics, allocatable=DRIP_ALLOCATABLE)
         seed_s = time.perf_counter() - t0
         client = KubeClusterClient(server.url, list_page_limit=KUBE_PAGE, telemetry=tel)
+        seen, stop_spy = spy_list_backends()
         t0 = time.perf_counter()
-        client.start()
+        try:
+            client.start()
+        finally:
+            stop_spy()
         bootstrap_ms = (time.perf_counter() - t0) * 1e3
         pages, decode_s = hist_count_sum(tel, "crane_kube_list_decode_seconds", kind="nodes")
         want = [seeded_node_t(i, metrics) for i in range(N_NODES)]
         mirror_equals(client, want, "bootstrap")
+        boot_backends = {b: seen.count(b) for b in set(seen)}
+        # the node pages and one pod page
+        if boot_backends != {expected_list_backend(): int(pages) + 1}:
+            raise AssertionError(f"kube: bootstrap pages by backend {boot_backends}")
 
         batch = BatchScheduler(client, policy, dtype=torch.float32, clock=lambda: now,
                                device=dev, telemetry=tel)
@@ -4282,11 +4615,13 @@ def kube_read_leg(kube_stub, dev, tel) -> tuple:
         applied0, batches0 = client.watch_applied, client.watch_batches
         coalesced0 = client.watch_coalesced
         rv0 = int(server.stats()["rv"])
+        captured = capture_node_watch(client)
         t0 = time.perf_counter()
         server.storm("nodes", KUBE_STORM)  # the stub generates it on a thread
         storm_wait_s = settle(client, server, {"nodes": 0}, "storm", timeout=300.0,
                               rv=rv0 + KUBE_STORM)
         storm_s = time.perf_counter() - t0
+        del client._parse_watch_lines
         applied = client.watch_applied - applied0
         want = [seeded_node_t(i, metrics, {"crane.io/storm": str(i)} if i < KUBE_STORM else None)
                 for i in range(N_NODES)]
@@ -4320,6 +4655,21 @@ def kube_read_leg(kube_stub, dev, tel) -> tuple:
         mirror_equals(client, want, "1% patch")
         if stats["columnar_ingest"] < 1 or stats["dirty_ingest"] < 1:
             raise AssertionError(f"kube: refresh counters {stats}")
+        t0 = time.perf_counter()
+        _, names, keys, values, _ = client.node_annotation_columns()
+        metric_set = set(metrics)
+        bodies = list_bodies(client, "/api/v1/nodes", 0)
+        native = {
+            "host_library": host_library_line(), "bootstrap_pages_by_backend": boot_backends,
+            "node_pages": decode_three_ways(bodies, 0, kube_node_t),
+            "reuse": reuse_check(bodies), "rv_reuse_size": client.rv_reuse_size(),
+            "watch": watch_twin_check(captured),
+            "codec": codec_twin_check([v for k, v in zip(keys, values) if k in metric_set]),
+            "bulk_flushes": check_bulk_routes(client, "1% patch"),
+        }
+        if native["codec"]["strings"] != N_NODES * len(metrics):
+            raise AssertionError(f"native: codec over {native['codec']['strings']} strings")
+        native["seconds"] = time.perf_counter() - t0
         line = {
             "nodes": N_NODES, "metrics": len(metrics), "page_limit": KUBE_PAGE,
             "stub_seed_s": seed_s, "bootstrap_ms": bootstrap_ms, "node_pages": pages,
@@ -4334,7 +4684,7 @@ def kube_read_leg(kube_stub, dev, tel) -> tuple:
             "relist_after_storm_ms": storm_relist_ms, "patch_nodes": n_patched,
             "patch_ms": patch_ms, "patch_echo_s": echo_s, "dirty_refresh_ms": dirty_ms,
             "columnar_ingest": stats["columnar_ingest"], "dirty_ingest": stats["dirty_ingest"],
-            "relists": client.relists, "watch_errors": client.watch_errors,
+            "relists": client.relists, "watch_errors": client.watch_errors, "native": native,
         }
         return line, server, client, batch, policy
     except BaseException:
@@ -4392,6 +4742,13 @@ def kube_burst_leg(server, client, batch, policy, tel) -> tuple:
     if sum(client.count_pods_all().values()) != placed:
         raise AssertionError("kube burst: the mirror's bound counts != the pods placed")
     posts = stats["requests"].get("POST", 0) - posts0
+    t0 = time.perf_counter()
+    native = {"bulk_flushes": check_bulk_routes(client, "burst"),
+              "pod_pages": decode_three_ways(list_bodies(client, "/api/v1/pods", 1), 1,
+                                             kube_pod_t)}
+    if native["pod_pages"]["items"] != KUBE_BURSTS * KUBE_BURST_PODS:
+        raise AssertionError(f"native: {native['pod_pages']['items']} pods listed")
+    native["seconds"] = time.perf_counter() - t0
     line = {
         "bursts": KUBE_BURSTS, "pods_per_burst": KUBE_BURST_PODS, "placed": placed,
         "equal_to_cpu_twin": True, "ms_per_burst": burst_ms, "stage_ms_per_burst": stage_ms,
@@ -4401,7 +4758,7 @@ def kube_burst_leg(server, client, batch, policy, tel) -> tuple:
         "placement_e2e_observations": e2e,
         "placement_e2e_mean_ms": 1e3 * (lambda c, s: s / c if c else 0.0)(
             *hist_count_sum(tel, "crane_placement_e2e_seconds")),
-        "refresh_stats": dict(batch.refresh_stats), "launches": launched,
+        "refresh_stats": dict(batch.refresh_stats), "launches": launched, "native": native,
     }
     return line, launched
 
@@ -4750,9 +5107,9 @@ def phase_kube(dev) -> tuple:
 # -- control: the control plane on the kube mirror -------------------------------------
 
 CONTROL_NODES = N_NODES  # the serve, SIGTERM and standby legs' stub
-CONTROL_PODS = 4_096  # pods per serve leg (config 15's storm)
+CONTROL_PODS = 2_048  # pods per serve leg (config 15's storm, 4,096, cut for wall time)
 CONTROL_WINDOW = 32  # crane-scheduler --serve --window
-CONTROL_SIGTERM_AT = 1_024  # binds before the SIGTERM leg's signal
+CONTROL_SIGTERM_AT = 512  # binds before the SIGTERM leg's signal
 CONTROL_KILL_BATCH = 8  # pods per mid-pipeline-fill life (config 16)
 CONTROL_KILLS = 8  # config 16's seeded kill_process events
 CONTROL_KILL_SEED = 16
@@ -4964,7 +5321,7 @@ def scratch_dir(name: str) -> str:
 
 
 def serve_twin_run(server, device: str, jdir: str) -> dict:
-    """The serve leg: 4,096 pods seeded before the process starts, bound by
+    """The serve leg: 2,048 pods seeded before the process starts, bound by
     ``--serve``, then SIGTERM. Result line, child line, bindings and
     timings."""
     proc = serve_cli(server.url, jdir, device)
@@ -5046,7 +5403,7 @@ def control_oneshot_leg(kube_stub, dev) -> tuple:
 
 def control_serve_legs(kube_stub, dev, stamp_epoch: float, twin_run) -> tuple:
     """serve, sigterm and standby on one 50,000-node stub (annotations
-    stamped ``stamp_epoch``; each leg adds its own 4,096 pods): the serve
+    stamped ``stamp_epoch``; each leg adds its own 2,048 pods): the serve
     leg equals its CPU twin's bindings (``twin_run``, started with the
     phase); SIGTERM mid-storm drains, the restart reconciles; the standby
     takes over a SIGKILLed leader. Each process's launches and drip
@@ -6061,6 +6418,47 @@ def phase_shards(dev, wire) -> tuple:
     return out, by_path
 
 
+def build_host_library():
+    """Start building the host library (``native/lib.py``: both libraries,
+    one compiler each) on a thread; the returned call waits for it, raises
+    what the build raised, and returns ``host_library_line()`` with the
+    wall seconds."""
+    import threading
+
+    from crane_scheduler_tpu_torch.native import lib
+
+    done = {}
+
+    def build():
+        t0 = time.perf_counter()
+        try:
+            pylist = threading.Thread(target=lambda: done.update(pylist=_try(lib.load_pylist)))
+            pylist.start()
+            done["native"] = _try(lib.load_native)
+            pylist.join()
+        finally:
+            done["wall_s"] = time.perf_counter() - t0
+
+    thread = threading.Thread(target=build)
+    thread.start()
+
+    def wait() -> dict:
+        thread.join()
+        for key in ("native", "pylist"):
+            if isinstance(done.get(key), BaseException):
+                raise done[key]
+        return {**host_library_line(), "wall_s": done["wall_s"]}
+
+    return wait
+
+
+def _try(fn):
+    try:
+        return fn()
+    except BaseException as e:  # re-raised by the waiter
+        return e
+
+
 # per kernel in the `kernels` line: `ms` is the kernel's own device time
 KERNEL_KEYS = ("ms", "plain_ms", "bound_ms", "bound_by", "device_us", "bound_us",
                "pct_of_bound", "host_launch_ms", "device_launches_seen")
@@ -6088,10 +6486,12 @@ def main() -> int:
         device_count=torch.cuda.device_count())
 
     t0 = time.perf_counter()
+    host = build_host_library()  # the host C++ library, beside the nvcc builds
     build_all([score_kernel.KERNEL, gang_kernel.KERNEL])
+    host_line = host()
     ptxas = {k.source.name: [ln for ln in k.build_log.splitlines() if "registers" in ln]
              for k in (score_kernel.KERNEL, gang_kernel.KERNEL)}
-    log("build", seconds=time.perf_counter() - t0, ptxas=ptxas)
+    log("build", seconds=time.perf_counter() - t0, ptxas=ptxas, host_library=host_line)
 
     rng = np.random.default_rng(SEED)
     k1 = phase_k1(dev, rng)

@@ -6,11 +6,10 @@ evicts the oldest record; ``get_last_node_binding_count`` is a linear scan
 counting bindings on a node strictly newer than ``now - time_range``; GC
 pops expired records (older than the max hot-value window).
 
-Copy of ``crane_scheduler_tpu/annotator/bindings.py``. The reference's
-annotator prefers its C++ heap (``native/bindings.py``) when the host
-library loads; the port has no binding of that library yet (``ROADMAP.md``
-Queue 1 item 8.4), so this pure-Python heap is the port's only backend. Both
-give the same counts.
+Copy of ``crane_scheduler_tpu/annotator/bindings.py``. The annotator takes
+the C++ heap (``native/bindings.py``) by default, as the reference does;
+this pure-Python heap is its twin (``AnnotatorConfig(use_native_bindings=
+False)``). Both give the same counts.
 """
 
 from __future__ import annotations

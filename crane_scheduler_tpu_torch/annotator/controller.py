@@ -1,12 +1,13 @@
 """Node annotator: the metric-sync engine.
 
-Copy of ``crane_scheduler_tpu/annotator/controller.py``. The reference
-reaches its host library (``native/``) on two paths when it loads: the C++
-binding heap, and ``bulk_parse_values`` for a direct-mode sweep's value
-column. The port has no binding of that library yet (``ROADMAP.md`` Queue 1
-item 8.4) and takes the reference's own fallbacks: the pure-Python
-``BindingRecords`` and the per-string Go ``ParseFloat``
-(``go_parse_float``). Both give the reference's results bit for bit.
+Copy of ``crane_scheduler_tpu/annotator/controller.py``. It reaches the
+port's host library (``native/``) on the reference's two paths: the C++
+binding heap (``NativeBindingRecords``, ``AnnotatorConfig.
+use_native_bindings``, on by default as in the reference) and
+``bulk_parse_values`` for a direct-mode sweep's value column.
+``use_native_bindings=False`` selects the pure-Python ``BindingRecords``.
+Both heaps give the same counts, and the native parse gives the per-string
+Go ``ParseFloat`` (``go_parse_float``) bit for bit.
 
 Reproduces the reference controller (ref: pkg/controller/annotator): per
 sync-policy tickers fan out ``node/metric`` work items; workers query the
@@ -44,8 +45,8 @@ from ..constants import (
 from ..loadstore.codec import (
     decode_annotation_or_missing,
     encode_annotation,
-    go_parse_float,
 )
+from ..native.codec import bulk_parse_values
 from ..utils.logging import vlog
 from ..utils.timeutil import format_local_time
 from ..loadstore.store import NodeLoadStore
@@ -68,6 +69,9 @@ class AnnotatorConfig:
 
     binding_heap_size: int = DEFAULT_BINDING_HEAP_SIZE
     concurrent_syncs: int = DEFAULT_CONCURRENT_SYNCS
+    # The C++ binding heap (one-pass batch counts); False selects the
+    # pure-Python heap. A library that fails to build raises.
+    use_native_bindings: bool = True
     # Tickers call sync_metric_bulk (one metrics query per metric per
     # tick) instead of fanning out per-node work items; nodes missing
     # from the bulk result still take the per-node queue path.
@@ -165,7 +169,10 @@ class NodeAnnotator:
                 "Annotation writes dropped because leadership was lost "
                 "between sweep and flush",
             )
-        self.binding_records = BindingRecords(
+        records = BindingRecords
+        if self.config.use_native_bindings:
+            from ..native.bindings import NativeBindingRecords as records
+        self.binding_records = records(
             self.config.binding_heap_size,
             max_hot_value_time_range(policy.spec.hot_value),
         )
@@ -662,11 +669,7 @@ class NodeAnnotator:
                 ok = ~np.isnan(metric_vals)
                 metric_ts = np.where(ok, shared_ts, neg_inf)
             else:
-                pv = [go_parse_float(v) for v in vals]
-                metric_vals = np.asarray(
-                    [nan if x is None else x for x in pv], dtype=np.float64
-                )
-                ok = np.asarray([x is not None for x in pv], dtype=bool)
+                metric_vals, ok = bulk_parse_values(vals)
                 metric_vals = np.where(ok, metric_vals, nan)
                 metric_ts = np.where(ok, shared_ts, neg_inf)
             hot_vals = hot_ts_arr = None

@@ -13,16 +13,22 @@ architecture in stdlib Python:
   pods, events and NodeResourceTopology CRs into an in-memory
   ``ClusterState``; every consumer (annotator, scheduler, store refresh)
   reads the mirror exactly as it reads the simulator's cluster. LIST pages
-  decode through ``native.listdecode`` (paginated, the next page
-  prefetched while one decodes); watch streams are drained per wakeup and
-  applied as one mirror transaction per drained batch.
+  decode through ``native.listdecode`` (the host library's object decoder,
+  paginated, the next page prefetched while one decodes; a node relist
+  reuses the mirror's instance of every node whose resourceVersion did not
+  move); node and pod watch streams are drained per wakeup, decoded in one
+  ``decode_watch_lines`` call and applied as one mirror transaction per
+  drained batch.
 - **Writes go through the API**: annotation merge-patches, the ``binding``
   and ``eviction`` subresources, pod creation. The mirror applies each
   accepted write optimistically (binds with ``notify=False``: the
   apiserver's Scheduled events arrive through the event watch). Writes
   ride a pool of ``concurrent_syncs`` keep-alive workers routed by object
-  key; batches of 64 or more ride the pipelined multi-connection flush
-  (``_pipelined_flush``) with the reference's POST-safety contract.
+  key. Over plain http, batches of 128 or more ride the host library's
+  GIL-free pipelined flush engine (``native.httpflush``); batches of 64 or
+  more that it does not take (https, or under 128) ride the Python
+  pipelined flush (``_pipelined_flush``). Both keep the reference's
+  POST-safety contract.
 - **Events**: deduplicated across reconnects and relists by a guarded
   resourceVersion watermark plus a bounded content-key map, so replays
   never double-count hot values.
@@ -35,12 +41,10 @@ wire and its outcome after (2xx ``ack``, a real status ``nack``, status
 plane's calls (``configure_shards``, ``shard_versions``, ``reshard``,
 ``dirty_nodes_since(version, shard)``) delegate to the mirror.
 
-Port differences. The native flush engine and the native LIST/watch
-decoders come with ``ROADMAP.md`` Queue 1 item 8.4 (the bulk paths here
-take the pipelined Python fan-out, the reference's branch when its
-library is absent, so the journal covers every batch that route sends;
-watch lines take the per-line JSON path). The reference's before/after
-comparison switches are left out. ``node_annotation_columns`` stays valid across
+Port differences. The host library is built at first use and a failed
+build raises: no route is taken because the library is missing. The
+reference's before/after comparison switches are left out.
+``node_annotation_columns`` stays valid across
 annotation-only writes: it patches the relist's columns from the
 mirror's dirty-name journal (``ClusterState.node_annotations_since``),
 so a refresh after a named patch takes the columnar branch narrowed to
@@ -97,8 +101,14 @@ __all__ = [
 ]
 
 
-# requests in flight per connection of the pipelined flush
+# requests in flight per connection of the pipelined flushes
 _PIPELINE_DEPTH = 16
+# batches at least this large ride the host library's flush engine over
+# plain http: below it, thread spawn and connect overhead beat the GIL
+# savings
+_NATIVE_FLUSH_MIN = 128
+# watch streams decoded by ``decode_watch_lines``: rv key -> decoder kind
+_WATCH_KINDS = {"nodes": 0, "pods": 1}
 # how long stop() waits for this client's threads, all together
 _STOP_JOIN_SECONDS = 10.0
 
@@ -264,6 +274,16 @@ class KubeClusterClient:
         # failed bulk-flush requests by status (0 = transport)
         self._batch_status_failures: dict[int, int] = {}
         self._batch_lock = threading.Lock()
+        # the host library's flush engine (plain http), made at first use
+        self._native_flusher = None
+        self._native_flush_disabled = False
+        self._native_lock = threading.Lock()
+        # bulk flushes by route ("native", "pipelined"): [batches,
+        # requests, largest batch]
+        self.bulk_flushes = {"native": [0, 0, 0], "pipelined": [0, 0, 0]}
+        # node name -> resourceVersion of the instance the mirror holds
+        # from the last relist (the object decoder's reuse map)
+        self._node_rvs: dict[str, str] = {}
         self._mirror = ClusterState()
         from ..topology.types import InMemoryNRTLister
 
@@ -467,11 +487,13 @@ class KubeClusterClient:
         m = re.search(rb'"continue"\s*:\s*"([^"\\]+)"', head)
         return m.group(1).decode("latin-1") if m else None
 
-    def _list_pages(self, path: str, kind: int):
-        """Paginated LIST decoded straight to columns (``decode_list_page``).
-        The NEXT page prefetches on a helper thread while the current one
-        decodes (its continue token rides the page head). Returns the
-        decoded pages plus the list's resourceVersion."""
+    def _list_pages(self, path: str, kind: int, known_rvs=None):
+        """Paginated LIST decoded page by page (``decode_list_page``: the
+        object decoder, or the columnar scanner where ``Python.h`` is
+        missing, with ``known_rvs`` for instance reuse). The NEXT page prefetches on a
+        helper thread while the current one decodes (its continue token
+        rides the page head). Returns the decoded pages plus the list's
+        resourceVersion."""
         from concurrent.futures import ThreadPoolExecutor
 
         from ..native.listdecode import decode_list_page
@@ -496,7 +518,7 @@ class KubeClusterClient:
                 peeked = self._peek_continue(body)
                 fut = pool.submit(self._get_bytes, page_url(peeked)) if peeked else None
                 t0 = time.perf_counter()
-                page = decode_list_page(body, kind)
+                page = decode_list_page(body, kind, known_rvs=known_rvs)
                 if m is not None:
                     m.labels(kind=kind_label).observe(time.perf_counter() - t0)
                 pages.append(page)
@@ -526,18 +548,79 @@ class KubeClusterClient:
         """Resync nodes into the mirror (informer relist): adds/updates
         everything listed and prunes what disappeared, as ONE mirror
         transaction (``replace_nodes``). Only the node watch thread calls
-        this while its stream is down (and ``start``). The decoded
+        this while its stream is down (and ``start``). A node whose
+        resourceVersion equals the one its mirror instance was decoded at
+        comes back from the object decoder as a reuse marker (its name),
+        and the mirror's instance stands in for it. The decoded
         annotation columns stay cached for the batch scheduler's
         columnar refresh (``node_annotation_columns``)."""
         self.relists += 1
-        pages, rv = self._list_pages("/api/v1/nodes", 0)
-        nodes = [n for page in pages for n in page.materialize()]
+        known = self._node_rvs
+        pages, rv = self._list_pages("/api/v1/nodes", 0, known_rvs=known or None)
+        new_rvs: dict[str, str] = {}
+        nodes = []
+        mirror_get = self._mirror.get_node
+        for page in pages:
+            objs = page.materialize()
+            page_rvs = getattr(page, "rvs", None)
+            for i, obj in enumerate(objs):
+                if isinstance(obj, str):
+                    # reuse marker: the page's instance is the mirror's own
+                    # (substituted in place, so the page's annotation
+                    # columns see it too)
+                    node = mirror_get(obj)
+                    if node is None:
+                        # the mirror lost it since the map was built (a
+                        # concurrent delete): rebuild it from its span
+                        node = node_from_json(json.loads(page.reused_span(i)))
+                    else:
+                        # a concurrent patch may have dropped the entry
+                        # since the decode: then the next relist rebuilds
+                        rv_known = known.get(obj)
+                        if rv_known is not None:
+                            new_rvs[obj] = rv_known
+                    objs[i] = obj = node
+                elif page_rvs is not None and page_rvs[i] is not None:
+                    new_rvs[obj.name] = page_rvs[i]
+                nodes.append(obj)
         with self._columns_lock:
             self._mirror.replace_nodes(nodes)
             # keyed on node_version (NOT sched_version): pod and event
             # churn must not invalidate node columns that didn't change
             self._node_columns_cache = (pages, self._mirror.node_version, None, None)
+        self._node_rvs = new_rvs
+        # a watch delete may land between the list and the replace: the
+        # map keeps live nodes only
+        self.prune_node_rvs()
         self._rvs["nodes"] = rv
+
+    def _invalidate_node_rvs(self, names) -> None:
+        """Drop reuse entries of nodes changed outside the relist (a watch
+        delivery or a patch): the next relist rebuilds them from the
+        wire."""
+        rvs = self._node_rvs
+        if rvs:
+            for name in names:
+                rvs.pop(name, None)
+
+    def rv_reuse_size(self) -> int:
+        """Size of the resourceVersion reuse map (it tracks the live node
+        count). Pods have no such map: the object decoder keys reuse by
+        bare name, which collides across pod namespaces."""
+        return len(self._node_rvs)
+
+    def prune_node_rvs(self) -> int:
+        """Evict reuse entries whose node left the mirror; returns the
+        evicted count."""
+        rvs = self._node_rvs
+        if not rvs:
+            return 0
+        get = self._mirror.get_node
+        # a one-call copy of the keys: writers pop entries concurrently
+        dead = [name for name in list(rvs) if get(name) is None]
+        for name in dead:
+            rvs.pop(name, None)
+        return len(dead)
 
     def node_annotation_columns(self):
         """The last relist's decoded annotation columns — ``(version,
@@ -710,6 +793,70 @@ class KubeClusterClient:
         for t in self._threads + pool:
             t.join(timeout=max(0.0, deadline - time.monotonic()))
         self._threads = [t for t in self._threads if t.is_alive()]
+
+    # -- bulk flush: the host library's engine or the Python pipeline ------
+
+    def _get_native_flusher(self):
+        """The host library's flush engine (``native.httpflush``), made at
+        first use; None over https or once name resolution failed (the
+        engine speaks IPv4 only: a host without an A record stays on the
+        Python routes). A library that fails to build raises."""
+        if self._native_flush_disabled or self._scheme != "http":
+            return None
+        with self._native_lock:
+            if self._native_flusher is None and not self._native_flush_disabled:
+                from ..native.httpflush import NativeHTTPFlusher
+
+                try:
+                    # connections honour --concurrent-syncs; the pipeline
+                    # depth keeps each one busy without adding
+                    # server-side concurrency
+                    self._native_flusher = NativeHTTPFlusher(
+                        self._host, self._port or 80, workers=self._write_workers,
+                        timeout=self._timeout, pipeline_depth=_PIPELINE_DEPTH,
+                    )
+                except OSError:
+                    self._native_flush_disabled = True
+            return self._native_flusher
+
+    def _note_pipeline_stats(self, flusher) -> None:
+        """Fold the engine's cumulative pipelined counters into the
+        telemetry registry (the delta since the last fold)."""
+        if self._m_pipeline_stalls is None:
+            return
+        stats = flusher.last_stats
+        last = getattr(flusher, "_telemetry_folded", None)
+        if last is None:
+            last = flusher._telemetry_folded = {"stalls": 0, "indeterminate": 0}
+        d = stats["stalls"] - last["stalls"]
+        if d > 0:
+            self._m_pipeline_stalls.inc(d)
+            last["stalls"] = stats["stalls"]
+        d = stats["indeterminate"] - last["indeterminate"]
+        if d > 0:
+            self._m_pipeline_indeterminate.inc(d)
+            last["indeterminate"] = stats["indeterminate"]
+
+    def _bulk_flush(self, rendered: list[bytes], idempotent: bool) -> list[int]:
+        """Per-request statuses of a batch of 64 or more: the host
+        library's pipelined engine for 128 or more over plain http, else
+        the Python pipelined flush. Both send every request at most once
+        unless ``idempotent`` (then a transport loss retries once)."""
+        n = len(rendered)
+        flusher = self._get_native_flusher() if n >= _NATIVE_FLUSH_MIN else None
+        if flusher is not None:
+            route = "native"
+            statuses = flusher.flush_pipelined(rendered, idempotent=idempotent).tolist()
+            self._note_pipeline_stats(flusher)
+        else:
+            route = "pipelined"
+            statuses = self._pipelined_flush(rendered, idempotent)
+        with self._batch_lock:
+            counts = self.bulk_flushes[route]
+            counts[0] += 1
+            counts[1] += n
+            counts[2] = max(counts[2], n)
+        return statuses
 
     # -- Python pipelined multi-connection flush ---------------------------
 
@@ -1019,11 +1166,15 @@ class KubeClusterClient:
                         # per-line reader hits on a torn final line
                         json.loads(tail)
                     return delivered, failed, False
-                batch, last_rv, error_obj, n_seen = self._parse_watch_lines(lines)
+                batch, last_rv, error_obj, n_seen, model = self._parse_watch_lines(
+                    lines, rv_key)
                 if n_seen:
                     delivered = True
                 if batch:
-                    apply_batch(batch)
+                    if model:
+                        self._apply_model_batch(rv_key, batch)
+                    else:
+                        apply_batch(batch)
                     self.watch_batches += 1
                     self.watch_applied += len(batch)
                     if len(batch) > 1:
@@ -1105,11 +1256,52 @@ class KubeClusterClient:
             if self._stop.wait(timeout=min(30.0, 1.0 * (2 ** min(failures, 5)))):
                 return
 
-    @staticmethod
-    def _parse_watch_lines(lines: list):
-        """Parse one drained batch of watch lines, one ``json.loads`` per
-        line. Returns ``(batch, last_rv, error_obj, n_seen)`` with raw
-        ``(change_type, object)`` dicts for the kind's batch applier."""
+    def _parse_watch_lines(self, lines: list, rv_key: str):
+        """Parse one drained batch of watch lines. Node and pod streams
+        parse in one ``decode_watch_lines`` call (final model objects)
+        where the object decoder is built (``Python.h`` exists); its
+        fallback lines (ERROR included) and every other stream take
+        ``json.loads`` per line, with the same semantics. Returns
+        ``(batch, last_rv, error_obj, n_seen, model)``: ``model`` True
+        means the batch carries built ``Node``/``Pod`` objects (applied by
+        ``_apply_model_batch``), False raw dicts for the kind's batch
+        applier. A malformed batch (the decoder returns None) takes the
+        per-line path, which raises the same error."""
+        from ..native.listdecode import decode_watch_lines, python_headers_present
+
+        kind = _WATCH_KINDS.get(rv_key)
+        if kind is not None and python_headers_present():
+            joined = b"\n".join(lines)
+            res = decode_watch_lines(joined, kind)
+            if res is not None:
+                from_json = node_from_json if kind == 0 else pod_from_json
+                types, objects, rvs, fallbacks = res
+                fb_spans = {row: (a, b) for row, a, b in fallbacks}
+                batch = []
+                last_rv = None
+                error_obj = None
+                n_seen = 0
+                for i, change_type in enumerate(types):
+                    n_seen += 1
+                    if i in fb_spans:
+                        a, b = fb_spans[i]
+                        change = json.loads(joined[a:b])
+                        change_type = change.get("type", "")
+                        obj = change.get("object", {})
+                        if change_type == "ERROR":
+                            error_obj = obj
+                            break
+                        if change_type != "BOOKMARK":
+                            batch.append((change_type, from_json(obj)))
+                        obj_rv = obj.get("metadata", {}).get("resourceVersion")
+                        if obj_rv is not None:
+                            last_rv = obj_rv
+                        continue
+                    if objects[i] is not None:
+                        batch.append((change_type, objects[i]))
+                    if rvs[i] is not None:
+                        last_rv = rvs[i]
+                return batch, last_rv, error_obj, n_seen, True
         batch = []
         last_rv = None
         error_obj = None
@@ -1130,12 +1322,23 @@ class KubeClusterClient:
             obj_rv = obj.get("metadata", {}).get("resourceVersion")
             if obj_rv is not None:
                 last_rv = obj_rv
-        return batch, last_rv, error_obj, n_seen
+        return batch, last_rv, error_obj, n_seen, False
+
+    def _apply_model_batch(self, rv_key: str, batch: list) -> None:
+        """Apply a batch of (change_type, Node/Pod) pairs whose models are
+        already built (``decode_watch_lines``) as one transaction."""
+        if rv_key == "nodes":
+            self._invalidate_node_rvs(n.name for _, n in batch)
+            self._mirror.apply_node_changes(batch)
+        else:
+            self._apply_pod_models(batch)
 
     def _apply_node_batch(self, changes: list) -> None:
         """Coalesced node watch apply: the whole drained batch decodes
         first, then lands as ONE mirror transaction."""
-        self._mirror.apply_node_changes([(t, node_from_json(o)) for t, o in changes])
+        decoded = [(t, node_from_json(o)) for t, o in changes]
+        self._invalidate_node_rvs(n.name for _, n in decoded)
+        self._mirror.apply_node_changes(decoded)
 
     def _confirm_placements(self, decoded: list) -> None:
         """Watch-confirmed hook: a non-DELETED pod event carrying a
@@ -1174,9 +1377,11 @@ class KubeClusterClient:
         ]
 
     def _apply_pod_batch(self, changes: list) -> None:
+        self._apply_pod_models([(t, pod_from_json(o)) for t, o in changes])
+
+    def _apply_pod_models(self, decoded: list) -> None:
         if self._m_watch_batch_pods is not None:
-            self._m_watch_batch_pods.observe(len(changes))
-        decoded = [(t, pod_from_json(o)) for t, o in changes]
+            self._m_watch_batch_pods.observe(len(decoded))
         self._confirm_placements(decoded)
         decoded = self._drop_expected_echoes(decoded)
         if decoded:
@@ -1374,16 +1579,18 @@ class KubeClusterClient:
         # optimistic local apply: the writer's next read sees its write.
         # The API write succeeded, so report True even if the object has
         # not reached the mirror yet (watch lag)
+        self._invalidate_node_rvs((name,))
         self._mirror.patch_node_annotation(name, key, value)
         return True
 
     def patch_node_annotations_bulk(self, per_node) -> int:
         """Batch annotation patch: ONE merge-patch per node carrying the
-        whole sweep's keys. Batches of 64 or more ride the pipelined
-        multi-connection flush (transient failures re-driven through the
-        pool, which owns backoff and Retry-After); smaller ones are all
-        submitted to the pool up front and gathered after. Returns the
-        patched count."""
+        whole sweep's keys. Over plain http, batches of 128 or more ride
+        the host library's flush engine; batches of 64 or more that it does
+        not take ride the Python pipelined flush. Either way transient
+        failures are re-driven through the pool, which owns backoff and
+        Retry-After. Smaller batches are all submitted to the pool up
+        front and gathered after. Returns the patched count."""
         m = self._m_flush_seconds
         if m is None:
             return self._patch_node_annotations_bulk_impl(per_node)
@@ -1404,7 +1611,7 @@ class KubeClusterClient:
         patched = 0
         if len(items) >= _PIPELINE_FLUSH_MIN:
             reqs = [self._render_annotation_patch(n, kv) for n, kv in items]
-            statuses = self._pipelined_flush(reqs, idempotent=True)
+            statuses = self._bulk_flush(reqs, idempotent=True)
             retry_items = []
             ok_updates: dict[str, dict] = {}
             for (name, kv), status in zip(items, statuses):
@@ -1421,6 +1628,7 @@ class KubeClusterClient:
                     # durable failure (404/422/...): count once and drop
                     self._count_batch_failure(int(status))
             if ok_updates:
+                self._invalidate_node_rvs(ok_updates)
                 self._mirror.patch_node_annotations_bulk(ok_updates)
                 patched += len(ok_updates)
             items = retry_items
@@ -1432,6 +1640,7 @@ class KubeClusterClient:
                 "application/merge-patch+json")))
         for name, kv, fut in futs:
             if fut.result():
+                self._invalidate_node_rvs((name,))
                 self._mirror.patch_node_annotations_bulk({name: kv})
                 patched += 1
         return patched
@@ -1648,14 +1857,15 @@ class KubeClusterClient:
         if n >= _PIPELINE_FLUSH_MIN:
             reqs = [self._render_request("POST", path, body, extra_headers=_hdr(key))
                     for key, path, body in items]
-            for i, status in enumerate(self._pipelined_flush(reqs, idempotent=False)):
+            for i, status in enumerate(self._bulk_flush(reqs, idempotent=False)):
                 final_status[i] = int(status)
                 if 200 <= status < 300:
                     ok[i] = True
                 else:
                     # status 0 covers transport loss AND the pipelined
-                    # indeterminate set: never re-driven (the server may
-                    # have processed them; the watch delivers the outcome)
+                    # indeterminate set (either engine): never re-driven
+                    # (the server may have processed them; the watch
+                    # delivers the outcome)
                     self._count_batch_failure(int(status))
                     if status in _RETRYABLE_ANY:
                         retry.append(i)

@@ -1,7 +1,8 @@
 """Columnar node-load state: the HBM-resident node-by-metric tensor.
 
 Copy of ``crane_scheduler_tpu/loadstore/store.py``; annotation batches
-decode through ``codec.bulk_decode_annotations`` (the numpy codec). With
+decode through the host library's ``native.codec.bulk_parse_annotations``
+(the numpy ``codec.bulk_decode_annotations`` for a zone with DST). With
 the version and layout bookkeeping that lets a resident device snapshot
 follow the store by row deltas (``delta_since``) or by replaying
 whole-column writes (``column_delta_since``, fed by ``bulk_set_by_name``,
@@ -38,7 +39,7 @@ import numpy as np
 
 from ..constants import NODE_HOT_VALUE_KEY
 from ..policy.compile import PolicyTensors
-from .codec import bulk_decode_annotations, decode_annotation_or_missing
+from .codec import decode_annotation_or_missing
 
 _NEG_INF = float("-inf")
 
@@ -448,7 +449,9 @@ class NodeLoadStore:
         self._row_versions[t_idx] = self._version
         if not raws:
             return
-        values, ts = bulk_decode_annotations(raws)
+        from ..native.codec import bulk_parse_annotations
+
+        values, ts = bulk_parse_annotations(raws)
         rows_arr = np.asarray(rows, dtype=np.int64)
         cols_arr = np.asarray(cols, dtype=np.int64)
         metric = cols_arr >= 0

@@ -1,6 +1,20 @@
-"""Host-side decoders of the port (``listdecode``: the LIST page decoder).
+"""The port's binding of the host library (``csrc/crane_native.cpp``,
+``csrc/crane_pylist.cpp``).
 
-Counterpart of ``crane_scheduler_tpu/native/``. The port has only the
-pure-Python twins so far; the bindings of the committed C++ library come
-with ``ROADMAP.md`` Queue 1 item 8.4.
+Counterpart of ``crane_scheduler_tpu/native/``: ``lib`` (build at first use
+and load), ``codec`` (bulk annotation parse, value parse, 5-decimal
+render), ``bindings`` (the C++ binding heap), ``listdecode`` (the LIST and
+watch decoders, with the Python twin) and ``httpflush`` (the GIL-free HTTP
+flush engines).
 """
+
+from .bindings import NativeBindingRecords
+from .codec import bulk_parse_annotations
+from .lib import load_native, load_pylist
+
+__all__ = [
+    "load_native",
+    "load_pylist",
+    "NativeBindingRecords",
+    "bulk_parse_annotations",
+]

@@ -1,37 +1,52 @@
-"""Columnar LIST decode: the read-side page decoder of the kube mirror.
+"""Columnar LIST decode: the read-side page decoders of the kube mirror.
 
-Copy of the pure-Python twin in ``crane_scheduler_tpu/native/listdecode.py``
-(``DecodedPage``, ``_classify_node``, ``_classify_pod``, ``_decode_python``,
-``decode_list_page``). A kube LIST page carries thousands of node/pod JSON
-objects of which the client consumes a handful of string fields
-(``node_from_json`` / ``pod_from_json``). ``decode_list_page`` parses the
-page once and lays the plain-string shape out as columns: names,
-annotation/label key-value pairs, addresses/ownerReferences. Items outside
-that shape (non-string annotation values, lone surrogates, containers on a
-pod, allocatable on a node) are flagged and keep their parsed object, so the
-result is identical per entry to the per-object path on every input.
+Copy of ``crane_scheduler_tpu/native/listdecode.py``. A kube LIST page
+carries thousands of node/pod JSON objects of which the client consumes a
+handful of string fields (``node_from_json`` / ``pod_from_json``).
+``decode_list_page`` scans each page once, by one of three routes:
 
-This module has one route, the Python twin. ``ROADMAP.md`` Queue 1 item 8.4
-adds the native decoders of the committed C++ library here (the columnar
-scanner and the object builder with resourceVersion reuse) and the watch-line
-decoder beside them.
+- the CPython-API object decoder (``_decode_pylist``,
+  ``csrc/crane_pylist.cpp``), which builds the final ``Node``/``Pod``
+  instances in C and, given ``known_rvs``, returns a bare name (a reuse
+  marker) for a node whose resourceVersion the caller already holds;
+- the ctypes columnar scanner (``_decode_native``, ``crane_list_decode`` in
+  ``csrc/crane_native.cpp``);
+- the Python twin (``_decode_python``).
 
-String layout: entry 0 = list resourceVersion, entry 1 = the ``continue``
-token, then per fast-path item:
+The production route is the object decoder where this interpreter's
+``Python.h`` exists (``python_headers_present``), else the scanner; the
+twin takes only a page that decoder declines (returns None): a malformed
+page, or one over the scanner's capacity, where the twin's ``json.loads``
+raises the error the per-object path would raise. (The reference tries
+the scanner after the object decoder too; no page that the object
+decoder declines passes the scanner, which shares its parser.) Items
+outside the plain-string shape (non-string annotation values, lone
+surrogates, containers on a pod, allocatable on a node) are flagged and
+decode through the ordinary per-object path, so every route is identical
+per entry to ``node_from_json``/``pod_from_json`` over ``json.loads`` of
+the same page. ``decode_watch_lines`` decodes a drained batch of watch lines
+the same way.
+
+Columnar string layout: entry 0 = list resourceVersion, entry 1 = the
+``continue`` token, then per fast-path item:
 
 - nodes: name, anno k/v pairs, label k/v pairs, address type/address pairs
   (pair counts per item in ``counts[i] = (anno, label, addr)``);
 - pods: name, namespace, nodeName, anno k/v pairs, ownerReference kind/name
   pairs (``counts[i] = (anno, owner)``).
 
-Fallback items emit no strings and decode from their retained object.
+Fallback items emit no strings and decode from their recorded byte span
+(scanner) or retained parsed object (twin).
 """
 
 from __future__ import annotations
 
+import ctypes
 import json
 
 import numpy as np
+
+from .lib import load_native, load_pylist, python_headers_present
 
 NODE_KIND = 0
 POD_KIND = 1
@@ -50,10 +65,10 @@ class DecodedPage:
     """One decoded LIST page: columnar strings + per-item structure."""
 
     __slots__ = ("kind", "n", "strings", "flags", "counts", "rv", "cont",
-                 "backend", "_objs")
+                 "backend", "_body", "_spans", "_objs")
 
     def __init__(self, kind, n, strings, flags, counts, rv, cont, backend,
-                 objs=None):
+                 body=None, spans=None, objs=None):
         self.kind = kind
         self.n = n
         self.strings = strings
@@ -62,6 +77,8 @@ class DecodedPage:
         self.rv = rv
         self.cont = cont
         self.backend = backend
+        self._body = body
+        self._spans = spans
         self._objs = objs
 
     @property
@@ -80,6 +97,12 @@ class DecodedPage:
         bases[1:] += 2
         return bases
 
+    def _fallback_obj(self, row: int) -> dict:
+        if self._objs is not None:
+            return self._objs[row]
+        a, b = int(self._spans[row, 0]), int(self._spans[row, 1])
+        return json.loads(self._body[a:b])
+
     def materialize(self) -> list:
         """Real ``Node``/``Pod`` objects, identical per entry to
         ``node_from_json``/``pod_from_json`` over ``json.loads`` of the
@@ -95,7 +118,7 @@ class DecodedPage:
         if self.kind == NODE_KIND:
             for i in range(self.n):
                 if flags[i] & 1:
-                    out.append(node_from_json(self._objs[i]))
+                    out.append(node_from_json(self._fallback_obj(i)))
                     continue
                 base = bases[i]
                 an, ln, addr_n = counts[i]
@@ -118,7 +141,7 @@ class DecodedPage:
             return out
         for i in range(self.n):
             if flags[i] & 1:
-                out.append(pod_from_json(self._objs[i]))
+                out.append(pod_from_json(self._fallback_obj(i)))
                 continue
             base = bases[i]
             an, on = counts[i]
@@ -153,7 +176,7 @@ class DecodedPage:
         offsets = np.zeros(self.n + 1, dtype=np.int64)
         for i in range(self.n):
             if flags[i] & 1:
-                meta = self._objs[i].get("metadata", {})
+                meta = self._fallback_obj(i).get("metadata", {})
                 names.append(meta.get("name", ""))
                 for k, v in (meta.get("annotations") or {}).items():
                     keys.append(k)
@@ -297,10 +320,170 @@ def _decode_python(body, kind: int) -> DecodedPage:
     return DecodedPage(kind, n, strings, flags, counts, rv, cont, "python", objs=objs)
 
 
-def decode_list_page(body, kind: int) -> DecodedPage:
-    """Decode one LIST page's bytes (or str) through the Python twin. A
-    malformed body raises the ``json.loads`` error the object path
-    would raise."""
+def _decode_native(body: bytes, kind: int) -> DecodedPage | None:
+    """The ctypes columnar scanner; None for a malformed or over-capacity
+    page."""
+    lib = load_native()
+    n = len(body)
+    item_cap = body.count(b"{") + 1
+    # every fast-path string but the per-item defaults maps to a quoted
+    # input string; the +4/item covers name/namespace/nodeName/rv slots
+    # emitted for absent fields
+    str_cap = body.count(b'"') // 2 + 4 * item_cap + 4
+    sb_cap = n + 8 * item_cap + 1
+    str_buf = ctypes.create_string_buffer(sb_cap)
+    s_start = np.empty(str_cap, dtype=np.int64)
+    s_end = np.empty(str_cap, dtype=np.int64)
+    item_start = np.empty(item_cap, dtype=np.int64)
+    item_end = np.empty(item_cap, dtype=np.int64)
+    flags = np.empty(item_cap, dtype=np.uint8)
+    groups = 3 if kind == NODE_KIND else 2
+    counts = np.empty(item_cap * groups, dtype=np.int64)
+    n_str = np.zeros(1, dtype=np.int64)
+    p_i64 = ctypes.POINTER(ctypes.c_int64)
+    n_items = lib.crane_list_decode(
+        body, n, kind,
+        str_buf, sb_cap,
+        s_start.ctypes.data_as(p_i64), s_end.ctypes.data_as(p_i64), str_cap,
+        item_start.ctypes.data_as(p_i64), item_end.ctypes.data_as(p_i64),
+        flags.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+        counts.ctypes.data_as(p_i64), item_cap,
+        n_str.ctypes.data_as(p_i64),
+    )
+    if n_items < 0:
+        return None  # malformed / capacity: the twin's json.loads decides
+    ns = int(n_str[0])
+    ends = s_end[:ns]
+    used = int(ends.max()) if ns else 0
+    blob = str_buf.raw[:used]
+    sl, el = s_start[:ns].tolist(), ends.tolist()
+    text = blob.decode("utf-8")  # the scanner emits UTF-8
+    if len(text) == used:
+        # pure-ASCII buffer: byte offsets are char offsets, slice once
+        strings = [text[a:b] if a >= 0 else "default" for a, b in zip(sl, el)]
+    else:
+        strings = [blob[a:b].decode("utf-8") if a >= 0 else "default"
+                   for a, b in zip(sl, el)]
+    spans = np.stack([item_start[:n_items], item_end[:n_items]], axis=1)
+    return DecodedPage(
+        kind, int(n_items), strings, flags[:n_items],
+        counts[: n_items * groups].reshape(n_items, groups),
+        strings[0] or None, strings[1] or None, "native", body=body, spans=spans,
+    )
+
+
+class ObjectPage:
+    """One decoded LIST page as final objects: the CPython-API decoder
+    builds the ``Node``/``Pod`` instances in C, so ``materialize`` only
+    re-decodes the flagged fallback rows through the per-object path. Rows
+    whose resourceVersion matched the caller's ``known_rvs`` come back as
+    bare name strings (reuse markers): the caller substitutes its existing
+    instances (``KubeClusterClient._relist_nodes`` does). Its public
+    surface is ``DecodedPage``'s where consumers share code."""
+
+    __slots__ = ("kind", "n", "rv", "cont", "rvs", "backend", "_objects",
+                 "_fallbacks", "_reused", "_body", "_materialized")
+
+    def __init__(self, kind, body, rv, cont, objects, rvs, fallbacks, reused=()):
+        self.kind = kind
+        self.n = len(objects)
+        self.rv = rv
+        self.cont = cont
+        self.rvs = rvs  # per-row resourceVersion (None: absent or marker)
+        self.backend = "pylist"
+        self._objects = objects
+        self._fallbacks = fallbacks  # (row, start, end) byte spans
+        self._reused = reused  # (row, start, end) spans of marker rows
+        self._body = body
+        self._materialized = False
+
+    @property
+    def fallback_rows(self) -> list[int]:
+        return [row for row, _, _ in self._fallbacks]
+
+    def reused_span(self, row: int):
+        """The byte span of marker row ``row`` (to rebuild it when the
+        caller no longer holds the instance), or None."""
+        for r, a, b in self._reused:
+            if r == row:
+                return self._body[a:b]
+        return None
+
+    def materialize(self) -> list:
+        if not self._materialized:
+            from ..cluster.kube_wire import node_from_json, pod_from_json
+
+            loader = node_from_json if self.kind == NODE_KIND else pod_from_json
+            for row, a, b in self._fallbacks:
+                self._objects[row] = loader(json.loads(self._body[a:b]))
+            self._materialized = True
+        return self._objects
+
+    def node_annotation_columns(self):
+        if self.kind != NODE_KIND:
+            raise ValueError("annotation columns are a node-page view")
+        names: list[str] = []
+        keys: list[str] = []
+        values: list[str] = []
+        offsets = np.zeros(self.n + 1, dtype=np.int64)
+        for i, node in enumerate(self.materialize()):
+            names.append(node.name)
+            for k, v in node.annotations.items():
+                keys.append(k)
+                values.append(v)
+            offsets[i + 1] = len(keys)
+        return names, keys, values, offsets
+
+
+def _model_classes():
+    from ..cluster.state import Node, NodeAddress, OwnerReference, Pod
+
+    return Node, NodeAddress, Pod, OwnerReference
+
+
+def _decode_pylist(body: bytes, kind: int, known_rvs: dict | None = None) -> ObjectPage | None:
+    """The CPython-API object decoder; None for a malformed page."""
+    lib = load_pylist()
+    res = lib.crane_pylist_decode(body, len(body), kind, *_model_classes(), known_rvs)
+    if res is None:
+        return None  # malformed: the twin's json.loads raises properly
+    rv, cont, objects, rvs, fallbacks, reused = res
+    return ObjectPage(kind, body, rv, cont, objects, rvs, fallbacks, reused)
+
+
+def decode_watch_lines(buf: bytes, kind: int):
+    """Parse a drained batch of newline-delimited watch lines in one
+    CPython-API call: ``(types, objects, rvs, fallbacks)`` where
+    ``objects[i]`` is the final Node/Pod (None for BOOKMARK and fallback
+    lines), ``rvs[i]`` the line's resourceVersion string or None, and
+    ``fallbacks`` the ``(idx, start, end)`` byte spans the caller must
+    re-decode with ``json.loads`` (ERROR lines included: their Status
+    payload is read by the consumer). Returns None for a malformed batch;
+    the caller's per-line path then raises the identical error."""
+    lib = load_pylist()
+    return lib.crane_pylist_decode_watch(buf, len(buf), kind, *_model_classes())
+
+
+def decode_list_page(body, kind: int, native=None, known_rvs=None):
+    """Decode one LIST page's bytes (or str). ``native=None`` (the
+    production path) takes the object decoder where ``Python.h`` exists,
+    else the columnar scanner, and the Python twin for a page that decoder
+    declines: the twin's ``json.loads`` then raises the error the object
+    path would raise. ``native="pylist"`` forces the object decoder,
+    ``True`` the scanner, ``False`` the twin; the forced native forms
+    return None where that decoder declines the input. ``known_rvs``
+    (object decoder only) turns on resourceVersion instance reuse
+    (``ObjectPage``)."""
     if isinstance(body, str):
         body = body.encode("utf-8")
+    if native is None:
+        if python_headers_present():
+            page = _decode_pylist(body, kind, known_rvs)
+        else:
+            page = _decode_native(body, kind)
+        return page if page is not None else _decode_python(body, kind)
+    if native == "pylist":
+        return _decode_pylist(body, kind, known_rvs)
+    if native:
+        return _decode_native(body, kind)
     return _decode_python(body, kind)

@@ -3,11 +3,11 @@
 Copy of ``crane_scheduler_tpu/sim/simulator.py``. ``build_scheduler`` and
 ``build_batch_scheduler`` take ``device=`` (``None`` means the GPU and
 raises without one); ``mesh=`` raises until the multi-GPU slice
-(``ROADMAP.md`` Queue 1 item 7). A metric column renders each value with
-``format_metric_value``, the reference's own fallback when its host
-library (``native/``) does not load; the port has no binding of that
-library yet (item 8.4). The base loads come from ``random.Random(seed)`` in
-node order, exactly as in the reference.
+(``ROADMAP.md`` Queue 1 item 7). A metric column renders in one host-library
+call (``native.codec.bulk_render_f5``) and is served in the aligned
+three-column form ``(hosts, strings, floats)``, as in the reference. The
+base loads come from ``random.Random(seed)`` in node order, exactly as in
+the reference.
 
 SURVEY §4: the reference has no integration tests and no benchmarks — its
 only documented e2e check is manually scheduling a cpu-stress deployment.
@@ -173,14 +173,17 @@ class Simulator:
         return cache[1]
 
     def _column(self, metric: str):
-        """Whole-column load stream: numpy load model + one
-        ``format_metric_value`` per value (Prometheus contract — values
-        clamp to [0, 1] like ``_render``/``_stream``, 5-decimal fixed
-        rendering). Served in the aligned-columns form ``(hosts,
-        strings)``: no 50k-entry dict per metric."""
+        """Whole-column load stream: numpy load model + one host-library
+        render call (Prometheus contract: values clamp to [0, 1] like
+        ``_render``/``_stream``, 5-decimal fixed rendering identical to
+        ``format_metric_value``). Served in the aligned-columns form
+        ``(hosts, strings, floats)``: no 50k-entry dict per metric, and
+        ``floats`` is the Go parse of the rendered strings (NaN where
+        unparseable), so a direct-store consumer writes exactly what a
+        re-parse of the strings would give."""
         import numpy as np
 
-        from ..loadstore.codec import format_metric_value
+        from ..native.codec import bulk_render_f5
 
         base_vec = np.asarray(
             [self._base[(name, metric)] for name, _ in self._pairs]
@@ -189,8 +192,8 @@ class Simulator:
         def column():
             loads = base_vec + self.config.per_pod_load * self._counts_vector()
             np.clip(loads, 0.0, 1.0, out=loads)
-            rendered = [format_metric_value(v) for v in loads.tolist()]
-            return (self._ips, rendered)
+            rendered, parsed, ok = bulk_render_f5(loads, with_parse=True)
+            return (self._ips, rendered, np.where(ok, parsed, np.nan))
 
         return column
 

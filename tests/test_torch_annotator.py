@@ -7,10 +7,10 @@ values served by IP, by name only, or not at all), runs the same call
 sequence through ``crane_scheduler_tpu.annotator`` / ``sim`` and
 ``crane_scheduler_tpu_torch.annotator`` / ``sim`` (``device="cpu"``), and
 compares the node annotation strings, the binding-heap counts, the
-direct-mode store rows and the placements. The reference runs with its
-host library loaded where it loads (the C++ binding heap, the native
-value parse); the port takes the reference's pure-Python fallbacks.
-Tolerance: exact.
+direct-mode store rows and the placements. Both packages run with their
+host libraries (the C++ binding heap, the native value parse, the native
+column render); cases with a ``-python`` id run both annotators on the
+pure-Python heap (``use_native_bindings=False``). Tolerance: exact.
 """
 
 import signal
@@ -143,11 +143,23 @@ def seeded_bindings(seed, n=300):
     ]
 
 
-@pytest.mark.parametrize("seed,size", [(0, 64), (1, 1024)])
-def test_binding_records_counts_and_gc_equal_reference(seed, size):
+@pytest.mark.parametrize(
+    "seed,size,native",
+    [(0, 64, False), (1, 1024, False), (0, 64, True), (1, 1024, True)],
+    ids=["0-64", "1-1024", "0-64-native", "1-1024-native"],
+)
+def test_binding_records_counts_and_gc_equal_reference(seed, size, native):
+    """The port's Python heap against the reference's Python heap, and the
+    port's C++ heap against the reference's."""
     rng_range = ref_max_range(REF_POLICY.spec.hot_value)
     assert max_hot_value_time_range(DEFAULT_POLICY.spec.hot_value) == rng_range
-    ref, port = RefRecords(size, rng_range), BindingRecords(size, rng_range)
+    if native:
+        from crane_scheduler_tpu.native.bindings import NativeBindingRecords as RefNative
+        from crane_scheduler_tpu_torch.native.bindings import NativeBindingRecords
+
+        ref, port = RefNative(size, rng_range), NativeBindingRecords(size, rng_range)
+    else:
+        ref, port = RefRecords(size, rng_range), BindingRecords(size, rng_range)
     rows = seeded_bindings(seed)
     for i, row in enumerate(rows):
         if i % 3:
@@ -179,15 +191,21 @@ def test_binding_records_counts_and_gc_equal_reference(seed, size):
 
 
 def test_binding_records_reference_backend_is_native_where_it_loads():
-    # the port's heap is compared against whichever backend the reference
-    # picks: its C++ heap when the host library loads
+    # both packages default to their C++ heap; use_native_bindings=False
+    # selects the Python heap in both
     from crane_scheduler_tpu.native.codec import load_native
+    from crane_scheduler_tpu_torch.native.bindings import NativeBindingRecords
 
     ann = RefAnnotator(RefCluster(), RefFake(), REF_POLICY)
     want = "NativeBindingRecords" if load_native() is not None else "BindingRecords"
     assert type(ann.binding_records).__name__ == want
     port = NodeAnnotator(ClusterState(), FakeMetricsSource(), DEFAULT_POLICY)
-    assert type(port.binding_records) is BindingRecords
+    assert type(port.binding_records) is NativeBindingRecords
+    assert AnnotatorConfig().use_native_bindings is RefConfig().use_native_bindings is True
+    for pkg in (REF, PORT):
+        ann = pkg["Annotator"](pkg["Cluster"](), pkg["Fake"](), pkg["policy"],
+                               pkg["Config"](use_native_bindings=False))
+        assert type(ann.binding_records).__name__ == "BindingRecords"
 
 
 # -- events ----------------------------------------------------------------------
@@ -321,12 +339,17 @@ def seed_bindings(ann, seed, binding_cls):
         ann.binding_records.add_binding(binding_cls(node.replace("node-", "node-0"), ns, pod, ts))
 
 
-@pytest.mark.parametrize("mode", ["sync_node", "sync_all_once", "sync_metric_bulk",
-                                  "sync_all_once_bulk", "backfill_once"])
-def test_annotation_strings_equal_reference(mode):
+_MODES = ["sync_node", "sync_all_once", "sync_metric_bulk", "sync_all_once_bulk",
+          "backfill_once"]
+
+
+@pytest.mark.parametrize("mode,native", [(m, True) for m in _MODES] + [(m, False) for m in _MODES],
+                         ids=_MODES + [f"{m}-python" for m in _MODES])
+def test_annotation_strings_equal_reference(mode, native):
     out = {}
     for name, pkg, binding_cls in (("ref", REF, RefBinding), ("port", PORT, Binding)):
-        cluster, fake, ann = world(pkg, seed=2)
+        cluster, fake, ann = world(pkg, seed=2,
+                                   config=pkg["Config"](use_native_bindings=native))
         seed_bindings(ann, 2, binding_cls)
         steps = []
         for k, now in enumerate((NOW + 0.7, NOW + 61.2, NOW + 300.9)):
@@ -359,11 +382,15 @@ def test_annotation_strings_equal_reference(mode):
     assert any(v for v in out["port"][-1][1].values())
 
 
-@pytest.mark.parametrize("with_hot", [False, True])
-def test_direct_store_rows_equal_reference(with_hot):
+@pytest.mark.parametrize(
+    "with_hot,native", [(False, True), (True, True), (False, False), (True, False)],
+    ids=["False", "True", "False-python", "True-python"],
+)
+def test_direct_store_rows_equal_reference(with_hot, native):
     out = {}
     for name, pkg, binding_cls in (("ref", REF, RefBinding), ("port", PORT, Binding)):
-        cluster, fake, ann = world(pkg, seed=4, config=pkg["Config"](direct_store=True))
+        cluster, fake, ann = world(
+            pkg, seed=4, config=pkg["Config"](direct_store=True, use_native_bindings=native))
         if with_hot:
             seed_bindings(ann, 4, binding_cls)
         tensors = pkg["compile"](pkg["policy"])
@@ -496,8 +523,8 @@ def test_simulator_closed_loop_strings_and_placements_equal_reference():
 
 
 def test_simulator_direct_store_rows_equal_reference():
-    # the reference's column comes pre-parsed from its host library
-    # (strings + floats); the port's is rendered and parsed per value
+    # both packages' columns come rendered and pre-parsed from their host
+    # libraries (strings + floats)
     rows = {}
     for name, sim, pkg in (("ref", RefSimulator(RefSimConfig(n_nodes=64, seed=9)), REF),
                            ("port", Simulator(SimConfig(n_nodes=64, seed=9)), PORT)):

@@ -2,6 +2,7 @@
 package and without PyYAML, and its entry points never move to the CPU
 on their own."""
 
+import ast
 import os
 import re
 import subprocess
@@ -221,9 +222,12 @@ from crane_scheduler_tpu_torch.cluster import kube, kube_wire
 from crane_scheduler_tpu_torch.native import listdecode
 from crane_scheduler_tpu_torch.service import kube_leader
 from crane_scheduler_tpu_torch.cli import annotator_main, scheduler_main, service_main
-page = listdecode.decode_list_page(
-    b'{"metadata": {"resourceVersion": "3"}, "items": [{"metadata": {"name": "n"}}]}', 0)
-assert [n.name for n in page.materialize()] == ["n"] and page.backend == "python"
+body = b'{"metadata": {"resourceVersion": "3"}, "items": [{"metadata": {"name": "n"}}]}'
+page = listdecode.decode_list_page(body, 0)
+assert [n.name for n in page.materialize()] == ["n"] and page.backend == "pylist"
+for native, backend in ((True, "native"), (False, "python")):
+    page = listdecode.decode_list_page(body, 0, native=native)
+    assert [n.name for n in page.materialize()] == ["n"] and page.backend == backend
 client = kube.KubeClusterClient("http://127.0.0.1:1")
 assert client.node_annotation_columns() is None
 client.stop()
@@ -236,19 +240,56 @@ print("ok")
 def test_kube_mirror_modules_stand_alone():
     """The kube mirror's modules (the client, its wire layer, the LIST
     decoder, the apiserver Lease) and the three ``--master`` CLIs import
-    and run with JAX, the JAX package and PyYAML blocked; the decoder has
-    one route, the Python twin."""
+    and run with JAX, the JAX package and PyYAML blocked; the decoder's
+    default route is the port's own object decoder, and its columnar
+    scanner and Python twin answer when asked."""
     for name in ("cluster/kube.py", "cluster/kube_wire.py", "native/listdecode.py",
                  "service/kube_leader.py"):
         assert (PORT / name).exists()
     source = (PORT / "native/listdecode.py").read_text()
-    assert "load_native" not in source and "ctypes" not in source
+    assert "crane_scheduler_tpu." not in source
     path = os.pathsep.join(p for p in (str(REPO), os.environ.get("PYTHONPATH")) if p)
     out = subprocess.run([sys.executable, "-c", _KUBE_MIRROR], cwd=REPO,
                          env=dict(os.environ, PYTHONPATH=path, OMP_NUM_THREADS="1"),
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "ok"
+
+
+_HOST_LIBRARY = """
+import sys
+for name in ("jax", "crane_scheduler_tpu", "yaml"):
+    sys.modules[name] = None
+from crane_scheduler_tpu_torch.native import codec, lib, listdecode
+from crane_scheduler_tpu_torch.native.bindings import NativeBindingRecords
+assert len(NativeBindingRecords(8, 60)) == 0
+assert codec.bulk_render_f5([0.5]) == ["0.50000"]
+assert listdecode.decode_watch_lines(b"", 0) is not None
+with open("/proc/self/maps") as f:
+    maps = {line.split()[-1] for line in f if "libcrane_" in line}
+print(sorted(maps))
+print(sorted(lib.library_paths().values()))
+"""
+
+
+def test_host_library_loads_only_from_the_port_build_dir():
+    """The port builds its host library from its own ``csrc/`` into
+    ``crane_scheduler_tpu_torch/_build/`` and loads it from there: every
+    ``libcrane_*`` mapped into the process lies there, none under the
+    JAX package's ``native/``."""
+    for name in ("crane_native.cpp", "crane_pylist.cpp", "listscan.h"):
+        copy = (PORT / "csrc" / name).read_text()
+        assert (REPO / "native" / name).read_text() in copy
+    path = os.pathsep.join(p for p in (str(REPO), os.environ.get("PYTHONPATH")) if p)
+    out = subprocess.run([sys.executable, "-c", _HOST_LIBRARY], cwd=REPO,
+                         env=dict(os.environ, PYTHONPATH=path, OMP_NUM_THREADS="1"),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    mapped, loaded = (ast.literal_eval(line) for line in out.stdout.strip().splitlines()[-2:])
+    assert len(mapped) == 2 and mapped == loaded
+    for p in mapped:
+        assert Path(p).parent == PORT / "_build"
+        assert not Path(p).is_relative_to(REPO / "native")
 
 
 _CONTROL_AND_SHARDS = """

@@ -7,9 +7,11 @@ Each case runs one scenario per package (``crane_scheduler_tpu`` and
 ``crane_scheduler_tpu_torch`` with ``device="cpu"``), each on its own
 identically seeded ``KubeStubServer``, and compares what the scenario
 records: mirrors, placements, annotation strings, ``WriteResult`` fields,
-request counts and the stub's final state. Tolerance: exact. Mirrors the
-cases of ``tests/test_kube_client.py`` that need no native library. Every
-case runs under a 120 s limit.
+request counts and the stub's final state. Both clients run on their
+default routes (the host library's decoders and, for batches of 128 or
+more over plain http, its flush engine). Tolerance: exact. Mirrors the
+cases of ``tests/test_kube_client.py``. Every case runs under a 120 s
+limit.
 """
 
 import importlib.util
@@ -97,10 +99,6 @@ class World:
 
             kw["context"] = ssl.create_default_context(cafile=kube_stub.STUB_CERT_PATH)
         c = self.p.kube.KubeClusterClient(self.stub.url, **kw)
-        if self.p is REF:
-            # the reference's Python write route (its native flush engine
-            # off, as without its library): the port's only route
-            c._native_flush_disabled = True
         self.clients.append(c)
         return c
 

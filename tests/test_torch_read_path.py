@@ -5,10 +5,12 @@ refresh's columnar branch.
 
 Each case feeds the same bytes, objects or stub to ``crane_scheduler_tpu``
 and ``crane_scheduler_tpu_torch`` and compares models as field tuples,
-columns, store rows and counters exactly. The reference decodes through
-its default route and its Python twin (``native=False``); the port has the
-twin only. Mirrors cases of ``tests/test_read_path.py``. Every case that
-opens sockets or threads runs under a 120 s limit.
+columns, store rows and counters exactly. Each package decodes a page
+through its object decoder (``native="pylist"``), its columnar scanner
+(``native=True``) and its Python twin (``native=False``); the twin cases
+keep their original ids and the native routes add ``-pylist`` and
+``-native`` cases. Mirrors cases of ``tests/test_read_path.py``. Every
+case that opens sockets or threads runs under a 120 s limit.
 """
 
 import importlib.util
@@ -104,8 +106,6 @@ def clients(stub):
 
     def make(pkg, **kw):
         c = (port_kube if pkg == "port" else ref_kube).KubeClusterClient(stub.url, **kw)
-        if pkg == "ref":
-            c._native_flush_disabled = True  # the reference's Python write route
         made.append(c)
         return c
 
@@ -168,17 +168,40 @@ def _body(items, rv="17", cont=None):
                        "items": items}).encode()
 
 
-def _same_page(body, kind):
-    """The port's twin equals the reference's twin column for column, and
-    both routes of the reference model for model."""
-    port = port_ld.decode_list_page(body, kind)
+# route -> decode_list_page's ``native`` argument
+ROUTES = {"python": False, "pylist": "pylist", "native": True}
+
+
+def _route_cases(values, ids):
+    """``(value, route)`` cases: the twin keeps each original id, the two
+    native routes add ``<id>-pylist`` and ``<id>-native``."""
+    return pytest.mark.parametrize(
+        "case,route",
+        [(v, r) for r in ROUTES for v in values],
+        ids=[i if r == "python" else f"{i}-{r}" for r in ROUTES for i in ids],
+    )
+
+
+def _same_page(body, kind, route="python"):
+    """The port's page on ``route`` equals the reference's page on the
+    same route (columns, flags and counts for the columnar routes; row
+    resourceVersions for the object decoder), and model for model the
+    reference's twin and default route and the per-object path."""
+    native = ROUTES[route]
+    port = port_ld.decode_list_page(body, kind, native=native)
+    same = ref_ld.decode_list_page(body, kind, native=native)
     twin = ref_ld.decode_list_page(body, kind, native=False)
     default = ref_ld.decode_list_page(body, kind)
-    assert port.strings == twin.strings
-    np.testing.assert_array_equal(port.flags, twin.flags)
-    np.testing.assert_array_equal(port.counts, twin.counts)
+    assert port.backend == same.backend == {"python": "python", "pylist": "pylist",
+                                            "native": "native"}[route]
+    if route == "pylist":
+        assert port.rvs == same.rvs
+    else:
+        assert port.strings == same.strings
+        np.testing.assert_array_equal(port.flags, same.flags)
+        np.testing.assert_array_equal(port.counts, same.counts)
     assert (port.rv, port.cont, port.n) == (twin.rv, twin.cont, twin.n)
-    assert port.fallback_rows == twin.fallback_rows
+    assert port.fallback_rows == same.fallback_rows
     got = model_t(kind, port.materialize())
     assert got == model_t(kind, twin.materialize())
     assert got == model_t(kind, default.materialize())
@@ -186,16 +209,18 @@ def _same_page(body, kind):
     assert got == model_t(kind, [loader(o) for o in json.loads(body)["items"]])
     if kind == 0:
         cols = port.node_annotation_columns()
-        want = twin.node_annotation_columns()
+        want = same.node_annotation_columns()
+        assert want[:3] == twin.node_annotation_columns()[:3]
         assert cols[:3] == want[:3]
         np.testing.assert_array_equal(cols[3], want[3])
     return port
 
 
-@pytest.mark.parametrize("kind", [0, 1], ids=["nodes", "pods"])
-def test_decode_golden_equals_reference(kind):
+@_route_cases([0, 1], ["nodes", "pods"])
+def test_decode_golden_equals_reference(case, route):
+    kind = case
     items = GOLDEN_NODES if kind == 0 else GOLDEN_PODS
-    page = _same_page(_body(items, cont="tok-1"), kind)
+    page = _same_page(_body(items, cont="tok-1"), kind, route)
     assert page.cont == "tok-1" and page.rv == "17"
     # non-string annotation values, allocatable, containers and overhead
     # are the fallback rows
@@ -203,11 +228,14 @@ def test_decode_golden_equals_reference(kind):
 
 
 def test_decode_surrogates_and_duplicate_keys_equal_reference():
-    page = _same_page(SURROGATE_BODY, 0)
-    assert page.fallback_rows == [1, 2]
-    # duplicate keys: the last one wins, as in json.loads
-    assert page.materialize()[3].name == "dup2"
-    assert dict(page.materialize()[3].annotations) == {"k": "2"}
+    for route in ROUTES:
+        page = _same_page(SURROGATE_BODY, 0, route)
+        # the native scanners also send duplicate metadata keys to the
+        # per-object path
+        assert page.fallback_rows == ([1, 2] if route == "python" else [1, 2, 3])
+        # duplicate keys: the last one wins, as in json.loads
+        assert page.materialize()[3].name == "dup2"
+        assert dict(page.materialize()[3].annotations) == {"k": "2"}
 
 
 def _fuzz_string(rng):
@@ -267,20 +295,28 @@ def _fuzz_pod(rng):
     return {"metadata": meta, "spec": spec}
 
 
-@pytest.mark.parametrize("seed", [0, 1, 2, 3])
-def test_decode_fuzzed_equals_reference(seed):
-    rng = random.Random(seed)
+@_route_cases([0, 1, 2, 3], ["0", "1", "2", "3"])
+def test_decode_fuzzed_equals_reference(case, route):
+    rng = random.Random(case)
     for kind, gen in ((0, _fuzz_node), (1, _fuzz_pod)):
         # json.dumps escapes the lone surrogates the alphabet carries
-        _same_page(_body([gen(rng) for _ in range(150)]), kind)
+        _same_page(_body([gen(rng) for _ in range(150)]), kind, route)
 
 
 def test_malformed_body_raises_the_json_error():
+    """Both native decoders decline a malformed page (None, in both
+    packages); the default route then reaches the twin, whose json.loads
+    raises."""
     for body in (b'{"items": [{"metadata": }]}', b"not json"):
         with pytest.raises(json.JSONDecodeError):
             ref_ld.decode_list_page(body, 0, native=False)
         with pytest.raises(json.JSONDecodeError):
             port_ld.decode_list_page(body, 0)
+        with pytest.raises(json.JSONDecodeError):
+            port_ld.decode_list_page(body, 0, native=False)
+        for native in ("pylist", True):
+            assert port_ld.decode_list_page(body, 0, native=native) is None
+            assert ref_ld.decode_list_page(body, 0, native=native) is None
 
 
 # -- the store's columnar ingest ----------------------------------------------

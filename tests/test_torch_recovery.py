@@ -348,9 +348,10 @@ def _seed_nodes(stub, n=4):
         stub.state.add_node(f"node-{i}", f"10.0.0.{i}")
 
 
-@pytest.mark.parametrize("n_pods", [6, 80])
+@pytest.mark.parametrize("n_pods", [6, 80, 200])
 def test_mirror_journal_lines_equal_reference(n_pods, tmp_path):
-    """``bind_pods`` (pooled below 64 POSTs, pipelined from 64), then
+    """``bind_pods`` (pooled below 64 POSTs, the Python pipelined flush
+    from 64, the host library's flush engine from 128), then
     ``bind_pod`` and ``evict_pod``, against two identically seeded stubs,
     one client per package with a journal attached: the journal lines are
     equal apart from ``ts``, every intent of a batch precedes its outcomes,
@@ -366,7 +367,6 @@ def test_mirror_journal_lines_equal_reference(n_pods, tmp_path):
             jdir = tmp_path / name
             journal = rec.IntentJournal(str(jdir))
             client = kube.KubeClusterClient(server.url)
-            client._native_flush_disabled = True  # the port's one route
             client.attach_intent_journal(journal)
             pairs = [(f"t/p{i:03d}", f"node-{i % 4}") for i in range(n_pods)]
             pairs.append(("t/missing", "node-1"))  # the stub answers 404

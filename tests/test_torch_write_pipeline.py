@@ -1,6 +1,9 @@
-"""The port's pipelined kube write path against the JAX package's Python
-twin, through the wire stub's fault classes: a 409 bind conflict, a 429
-with Retry-After, a mid-pipeline connection reset and a wedged server.
+"""The port's pipelined kube write paths against the JAX package's,
+through the wire stub's fault classes: a 409 bind conflict, a 429 with
+Retry-After, a mid-pipeline connection reset and a wedged server. Cases
+run both packages on their Python pipelined route (the native flush
+engine disabled); cases with a ``-native`` id run both on the host
+library's flush engine.
 
 POST safety is the contract: a response-phase transport failure marks
 the awaited request and everything pipelined behind it on that connection
@@ -72,8 +75,15 @@ def _oracle(state):
 
 class _RefPythonClient(ref_kube.KubeClusterClient):
     """The reference client on its Python write route: the native flush
-    engine disabled, as when its library is absent (the port's only
-    route until item 8.4)."""
+    engine disabled, as when its library is absent."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self._native_flush_disabled = True
+
+
+class _PortPythonClient(port_kube.KubeClusterClient):
+    """The port client on its Python write route."""
 
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
@@ -81,18 +91,28 @@ class _RefPythonClient(ref_kube.KubeClusterClient):
 
 
 KUBES = {"ref": type("ref_kube", (), {"KubeClusterClient": _RefPythonClient}),
-         "port": port_kube}
+         "port": type("port_kube", (), {"KubeClusterClient": _PortPythonClient})}
+NATIVE_KUBES = {"ref": ref_kube, "port": port_kube}
 
 
-def both(scenario):
+def both(scenario, native=False):
     out = []
+    kubes = NATIVE_KUBES if native else KUBES
     for name in ("ref", "port"):
         stub = kube_stub.KubeStubServer().start()
         try:
-            out.append(scenario(KUBES[name], stub))
+            out.append(scenario(kubes[name], stub))
         finally:
             stub.stop()
     return out
+
+
+def _route_cases(names):
+    """``(case, native)`` cases: the Python route keeps each original id,
+    the flush engine adds ``<id>-native``."""
+    return pytest.mark.parametrize(
+        "case,native", [(c, False) for c in names] + [(c, True) for c in names],
+        ids=list(names) + [f"{c}-native" for c in names])
 
 
 FLUSH_CASES = {
@@ -109,8 +129,8 @@ FLUSH_CASES = {
 }
 
 
-@pytest.mark.parametrize("case", sorted(FLUSH_CASES))
-def test_pipelined_flush_equals_reference(case):
+@_route_cases(sorted(FLUSH_CASES))
+def test_pipelined_flush_equals_reference(case, native):
     faults, kind, idempotent, kw = FLUSH_CASES[case]
 
     def scenario(kube, stub):
@@ -123,12 +143,16 @@ def test_pipelined_flush_equals_reference(case):
         else:
             reqs = _bind_requests(client, n=4 if kind == "bind4" else 8)
         t0 = time.perf_counter()
-        statuses = client._pipelined_flush(reqs, idempotent=idempotent)
+        if native:
+            statuses = client._get_native_flusher().flush_pipelined(
+                reqs, idempotent=idempotent).tolist()
+        else:
+            statuses = client._pipelined_flush(reqs, idempotent=idempotent)
         elapsed = time.perf_counter() - t0
         client.stop()
         return list(statuses), _oracle(stub.state), elapsed < 10.0
 
-    ref, port = both(scenario)
+    ref, port = both(scenario, native)
     assert port == ref
     statuses, (posts, dups, _, _), fast = ref
     assert dups == 0 and fast
@@ -153,12 +177,13 @@ PUBLIC_CASES = {
 }
 
 
-@pytest.mark.parametrize("case", sorted(PUBLIC_CASES))
-def test_public_batch_writes_equal_reference(case):
+@_route_cases(sorted(PUBLIC_CASES))
+def test_public_batch_writes_equal_reference(case, native):
     """``bind_pods`` and ``patch_node_annotations_bulk`` over 130 objects
-    ride the pipelined flush; a 429 re-drives through the pool (bound
-    exactly once), a 409 is dropped, a reset leaves its POSTs
-    indeterminate, a 500 on a merge-patch re-drives."""
+    ride the pipelined flush (the engine in the ``-native`` cases); a 429
+    re-drives through the pool (bound exactly once), a 409 is dropped, a
+    reset leaves its POSTs indeterminate, a 500 on a merge-patch
+    re-drives."""
     fault = PUBLIC_CASES[case]
 
     def scenario(kube, stub):
@@ -177,7 +202,7 @@ def test_public_batch_writes_equal_reference(case):
         client.stop()
         return res, failures, _oracle(stub.state)
 
-    ref, port = both(scenario)
+    ref, port = both(scenario, native)
     assert port == ref
     res, failures, (posts, dups, _, _) = ref
     assert dups == 0
@@ -218,7 +243,7 @@ def test_overlap_bind_over_kube_boundary_equals_reference():
     every result's binds settle by generator exhaustion, placements and
     the stub's bindings equal the reference's, no duplicate bind."""
     def scenario(kube, stub):
-        if kube is not port_kube:
+        if kube is KUBES["ref"]:
             from crane_scheduler_tpu.annotator import AnnotatorConfig, NodeAnnotator
             from crane_scheduler_tpu.framework.scheduler import BatchScheduler
             from crane_scheduler_tpu.metrics import FakeMetricsSource
