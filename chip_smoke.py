@@ -197,7 +197,7 @@ non-zero without printing a result.
    per-node syncs) and ``sync_all_once_bulk`` ms per sweep, one column's
    render ms, and a direct-mode sweep whose store rows must equal a store
    refreshed from the annotations it emitted. sim: a CPU twin
-   (``device="cpu"``) from the same seed; 2 closed-loop steps of a bulk
+   (``device="cpu"``) from the same seed; 1 closed-loop step of a bulk
    sweep, one 10,000-pod ``build_batch_scheduler(dtype=torch.float32)``
    burst on the card, its binds, bind events and hot values: placements
    and every node's annotation strings equal the twin's, K1 and K2 once
@@ -205,7 +205,7 @@ non-zero without printing a result.
    ``build_scheduler()`` equal the twin's. replicas: the primary renders
    in replica mode over the published version; at a quiesced fence 5
    explicit `now`s give one byte string from the primary and each
-   replica, stamped with the version, equal to a CPU twin replica's; 16
+   replica, stamped with the version, equal to a CPU twin replica's; 8
    windows of a 1% named patch (500 nodes) and one of a full annotator
    sweep (publish ms, frame bytes, catch-up ms to every replica; every lag
    sample within 64 versions, no gap); one replica's feed stopped and
@@ -376,6 +376,32 @@ non-zero without printing a result.
    --shard-ring`` processes over the control phase's 50,000-node stub and
    4,096 new pods, a ring move written after 1,024 binds: both adopt it,
    every pod bound once, drip windows on the card only.
+27. mesh: the node mesh on one card (tiles repeat cuda:0, the counterpart
+   of XLA's virtual devices). step: ``ShardedScheduleStep`` on 4 tiles and
+   on a 1-tile mesh at 51,200 rows, 100,000 pods, f64 and f32 hybrid,
+   plain and combined (``tests/distributed_worker.py``'s capacities and
+   offsets): packed words equal ``ScheduleStep`` on the card and a 4-tile
+   CPU twin, K1 (f32) and K2 once per tile, CUDA-event ms per step tiled
+   against single. burst: ``BatchScheduler(mesh=4 tiles)``: a cold, 3 hit
+   and a delta burst (1% re-annotated), then a direct-mode column burst,
+   placements and ``refresh_stats`` equal a mesh-free twin's. drip:
+   ``DripBatchKernel(mesh=4 tiles)`` over 1,024 pods in windows of 128 at
+   50,000 nodes, with and without the tie count, the carry kept, the mesh
+   repartitioned 4 -> 2 -> 1 mid-stream: every window equal to the
+   single-device window and the host's scalar loop; then
+   ``Scheduler(mesh=).schedule_queue`` == a mesh-free ``Scheduler``.
+   config18: ``tests/test_sharded_drip.py``'s kernel fuzz and seeded tie
+   replay on an 8-tile mesh, and ``ShardedPlacementPlane(mesh=,
+   threaded=False)`` == the plane without. distributed: an NCCL world of
+   one (4 tiles, the combines as NCCL all-reduces) == the step; two
+   processes on cuda:0 over gloo (this script's ``--mesh-rank`` mode),
+   each owning half of 51,200 nodes: both ranks' packed words == the
+   single-process step's, f64 and f32 hybrid. cli: crane-sim ``--mode
+   sharded --devices 1`` == ``--device cpu``; crane-scheduler ``--master
+   --placement-mesh 1`` one shot over the 5,000-node stub == its
+   ``--device cpu`` twin, ``--placement-mesh 2`` fails with ``requested 2
+   devices, only 1 available``; crane-scorer with the three distributed
+   flags serves the plain run's ``/v1/score`` body. Paths ``mesh_*``.
 
 Before each path (main path, delta, column, overlap, hybrid scorer, the
 drip queue, serve, scalar and dirty phases, telemetry, the gang
@@ -6418,6 +6444,689 @@ def phase_shards(dev, wire) -> tuple:
     return out, by_path
 
 
+# -- slice 14: the node mesh ---------------------------------------------------------
+
+MESH_TILES = 4  # the mesh legs' tiles, all on cuda:0 (XLA's virtual devices' counterpart)
+MESH_CONFIG18_TILES = 8  # test_sharded_drip.py's forced 8-device mesh
+MESH_STEP_TIMED = 20  # step calls per CUDA-event timing
+MESH_STEP_MODES = (("plain", {}), ("combined", {"dynamic_weight": 3, "max_offset": 200}))
+MESH_HIT_BURSTS = 3
+MESH_DRIP_PODS = 1_024
+MESH_DRIP_REPARTITION = {3: 2, 6: 1}  # window -> tiles after it (4 -> 2 -> 1)
+MESH_PLANE_NODES = 4_000
+MESH_PLANE_PODS = 256
+MESH_RANK_ARG = "--mesh-rank"  # the child mode of the two-process leg
+
+
+def card_mesh(dev, tiles: int):
+    """``tiles`` tiles of the node axis, all on ``dev``."""
+    from crane_scheduler_tpu_torch.parallel import make_node_mesh
+
+    return make_node_mesh(tiles, [dev] * tiles)
+
+
+def launched(fn):
+    """``fn()`` and the kernels' launches during it."""
+    before = {name: kernel.launches for name, kernel in KERNELS.items()}
+    out = fn()
+    return out, {name: kernel.launches - before[name] for name, kernel in KERNELS.items()}
+
+
+def add_counts(total: dict, more: dict) -> dict:
+    return {name: total.get(name, 0) + more.get(name, 0) for name in KERNELS}
+
+
+def mesh_gang_vectors(n: int, first: int = 0) -> tuple:
+    """``tests/distributed_worker.py``'s capacities and offsets for the
+    global rows ``first`` .. ``first + n``."""
+    gidx = np.arange(first, first + n)
+    return 1 + (gidx % 5).astype(np.int64), ((gidx * 37) % 201).astype(np.int32)
+
+
+def mesh_step_leg(dev, snap) -> tuple:
+    """``ShardedScheduleStep`` on 4 tiles of the card and on a 1-tile mesh,
+    f64 and f32 hybrid, plain and combined, 100,000 pods: packed words equal
+    ``ScheduleStep`` on the card and a 4-tile CPU twin; K1 (f32) and K2 once
+    per tile; CUDA-event ms per step, tiled against single."""
+    from crane_scheduler_tpu_torch.parallel import (
+        ScheduleStep,
+        ShardedScheduleStep,
+        TiledSnapshot,
+        make_node_mesh,
+    )
+
+    tensors = compile_policy(DEFAULT_POLICY)
+    cpu = torch.device("cpu")
+    cap, off = mesh_gang_vectors(snap.values.shape[0])
+    out, total, wants = {}, {}, {}
+    for dname, dtype in (("f64", torch.float64), ("f32", torch.float32)):
+        for mode, kw in MESH_STEP_MODES:
+            vec = {} if mode == "plain" else {"capacity": cap, "offsets": off}
+            single = ScheduleStep(tensors, dtype=dtype, device=dev, **kw)
+            tiled = ShardedScheduleStep(tensors, card_mesh(dev, MESH_TILES), dtype=dtype, **kw)
+            one = ShardedScheduleStep(tensors, make_node_mesh(1), dtype=dtype, **kw)
+            twin = ShardedScheduleStep(tensors, make_node_mesh(MESH_TILES, [cpu] * MESH_TILES),
+                                       dtype=dtype, **kw)
+            sp, tp = single.prepare(snap, NOW, **vec), tiled.prepare(snap, NOW, **vec)
+            if not isinstance(tp, TiledSnapshot) or len(tp.values) != MESH_TILES:
+                raise AssertionError("mesh step: the snapshot is not tiled")
+            want = single.packed(sp, BURST_PODS).result()
+            got, per_step = launched(lambda: tiled.packed(tp, BURST_PODS).result())
+            expect = {"score": MESH_TILES if dtype == torch.float32 else 0, "gang": MESH_TILES}
+            if dev.type != "cuda":  # a CPU rehearsal: the plain versions launch nothing
+                expect = dict.fromkeys(expect, 0)
+            if per_step != expect:
+                raise AssertionError(f"mesh step {dname} {mode}: launches {per_step}, want {expect}")
+            t0 = time.perf_counter()
+            cpu_words = twin.packed(twin.prepare(snap, NOW, **vec), BURST_PODS).result()
+            twin_s = time.perf_counter() - t0
+            for label, words in (("4 tiles", got), ("1 tile", one.packed(
+                    one.prepare(snap, NOW, **vec), BURST_PODS).result()), ("CPU twin", cpu_words)):
+                if words.dtype != want.dtype or not np.array_equal(words, want):
+                    raise AssertionError(f"mesh step {dname} {mode}: {label} != ScheduleStep")
+            wants[(dname, mode)] = want
+            total = add_counts(total, per_step)
+            out[f"{dname}_{mode}"] = {
+                "tiled_ms": cuda_ms(lambda: tiled.packed(tp, BURST_PODS), MESH_STEP_TIMED),
+                "single_ms": cuda_ms(lambda: single.packed(sp, BURST_PODS), MESH_STEP_TIMED),
+                "launches_per_tiled_step": per_step, "cpu_twin_s": twin_s,
+                "waterline": int(want.view(np.int32)[-1]),
+            }
+    return out, total, wants
+
+
+def mesh_burst_leg(dev, annos) -> tuple:
+    """``BatchScheduler(mesh=4 tiles, f32)`` against a mesh-free twin on a
+    twin cluster: a cold burst, 3 hit bursts and a delta burst (1% of the
+    nodes re-annotated), then a direct-mode pair for one column burst.
+    Placements and ``refresh_stats`` paths equal; launches are the tiled
+    scheduler's."""
+    tensors = compile_policy(DEFAULT_POLICY)
+    names = [f"node-{i:05d}" for i in range(N_NODES)]
+    mesh = card_mesh(dev, MESH_TILES)
+    clock = Clock(NOW)
+    tiled = BatchScheduler(build_cluster(annos), DEFAULT_POLICY, dtype=torch.float32,
+                           clock=clock, mesh=mesh)
+    flat = BatchScheduler(build_cluster(annos), DEFAULT_POLICY, dtype=torch.float32,
+                          clock=clock, device=dev)
+    rngs = [np.random.default_rng(SEED + 41) for _ in range(2)]
+    total, ms = {}, {"tiled": [], "flat": []}
+
+    def burst(a, b, tag):
+        nonlocal total
+        pods = [f"{tag}-{i}" for i in range(BURST_PODS)]
+        t0 = time.perf_counter()
+        got, n = launched(lambda: a.schedule_pod_burst("mesh", pods))
+        ms["tiled"].append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        want = b.schedule_pod_burst("mesh", pods)
+        ms["flat"].append((time.perf_counter() - t0) * 1e3)
+        if got.node_table != want.node_table or not np.array_equal(got.node_idx, want.node_idx):
+            raise AssertionError(f"mesh burst {tag}: placements != the mesh-free twin's")
+        if n != dict.fromkeys(KERNELS, MESH_TILES if dev.type == "cuda" else 0):
+            raise AssertionError(f"mesh burst {tag}: launches {n}")
+        total = add_counts(total, n)
+        clock.t += 7.0
+
+    for k in range(1 + MESH_HIT_BURSTS):
+        burst(tiled, flat, f"mb{k}")
+    for sched, rng in zip((tiled, flat), rngs):
+        patch_nodes(sched.cluster, names, tensors.metric_names, rng, clock.t)
+    burst(tiled, flat, "mbd")
+    keys = ("hit", "columns", "delta", "full")
+    stats = [{k: s.refresh_stats[k] for k in keys} for s in (tiled, flat)]
+    if stats[0] != stats[1] or stats[0] != {"hit": MESH_HIT_BURSTS, "columns": 0, "delta": 1,
+                                             "full": 1}:
+        raise AssertionError(f"mesh burst: refresh_stats {stats}")
+    stores = [NodeLoadStore(tensors) for _ in range(2)]
+    rngs = [np.random.default_rng(SEED + 43) for _ in range(2)]
+    for store, rng in zip(stores, rngs):
+        annotator_sweep(store, names, tensors.metric_names, rng, NOW - 30.0)
+    clock.t = NOW
+    direct = [BatchScheduler(ClusterState(), DEFAULT_POLICY, dtype=torch.float32, clock=clock,
+                             store=store, refresh_from_cluster=False, **where)
+              for store, where in zip(stores, ({"mesh": mesh}, {"device": dev}))]
+    burst(*direct, "mbc0")
+    for store, rng in zip(stores, rngs):
+        annotator_sweep(store, names, tensors.metric_names, rng, clock.t)
+    burst(*direct, "mbc1")
+    col_stats = [{k: s.refresh_stats[k] for k in keys} for s in direct]
+    if col_stats[0] != col_stats[1] or col_stats[0]["columns"] != 1:
+        raise AssertionError(f"mesh burst: column refresh_stats {col_stats}")
+    return {"refresh_stats": stats[0], "column_refresh_stats": col_stats[0],
+            "tiled_burst_ms": ms["tiled"], "flat_burst_ms": ms["flat"]}, total
+
+
+def host_window(schedulable, weighted, bounded, free, vecs) -> tuple:
+    """The window as the host's scalar loop: per pod the fit mask, the
+    first maximum, the feasible and tie counts, and the fold."""
+    free = free.copy()
+    rows = []
+    for vec in vecs:
+        mask = schedulable & ~(bounded & ((vec > 0) & (free < vec)).any(axis=1))
+        feasible = int(mask.sum())
+        if feasible == 0:
+            rows.append((-1, 0, 0))
+            continue
+        w = np.where(mask, weighted, I64_MIN)
+        best = int(np.argmax(w))
+        rows.append((best, feasible, int((mask & (weighted == w[best])).sum())))
+        free[best] -= vec
+    out = np.asarray(rows, dtype=np.int64)
+    return out[:, 0], out[:, 1], out[:, 2]
+
+
+def fold_host(free, chosen, vecs):
+    free = free.copy()
+    for c, vec in zip(chosen, vecs):
+        if c >= 0:
+            free[int(c)] -= vec
+    return free
+
+
+def same_window(got, want, ties: bool) -> bool:
+    keep = 3 if ties else 2
+    return all(np.array_equal(np.asarray(g), np.asarray(w))
+               for g, w in list(zip(got, want))[:keep])
+
+
+def mesh_drip_leg(dev, annos) -> tuple:
+    """Config 15's 50,000 nodes: ``DripBatchKernel(mesh=4 tiles)`` over
+    1,024 pods in windows of 128, with and without the tie count, the carry
+    kept across windows and the mesh repartitioned 4 -> 2 -> 1 mid-stream,
+    each window equal to the single-device window and the host's scalar
+    loop; then ``Scheduler(mesh=4 tiles).schedule_queue`` == a mesh-free
+    ``Scheduler``'s."""
+    from crane_scheduler_tpu_torch.parallel import make_node_mesh
+
+    rng = np.random.default_rng(SEED + 47)
+    schedulable, weighted, bounded, free, vecs, _ = window_case(N_NODES, MESH_DRIP_PODS,
+                                                                "random", rng)
+    out, total = {}, {}
+    for ties in (True, False):
+        kern = drip_batch.DripBatchKernel(mesh=card_mesh(dev, MESH_TILES))
+        base = drip_batch.DripBatchKernel(device=dev)
+        host_free, window_ms = free.copy(), []
+        for w in range(MESH_DRIP_PODS // DRIP_WINDOW):
+            if w in MESH_DRIP_REPARTITION:
+                tiles = MESH_DRIP_REPARTITION[w]
+                if not kern.repartition(card_mesh(dev, tiles) if tiles > 1 else make_node_mesh(1)):
+                    raise AssertionError("mesh drip: the repartition changed nothing")
+            v = vecs[w * DRIP_WINDOW:(w + 1) * DRIP_WINDOW]
+            t0 = time.perf_counter()
+            got = kern.dispatch(schedulable, weighted, bounded, host_free, v, want_ties=ties)
+            window_ms.append((time.perf_counter() - t0) * 1e3)
+            want = base.dispatch(schedulable, weighted, bounded, host_free, v, want_ties=ties)
+            if not same_window(got, want, ties) or \
+                    not same_window(got, host_window(schedulable, weighted, bounded,
+                                                     host_free, v), ties):
+                raise AssertionError(f"mesh drip: window {w} (ties={ties}) diverged")
+            host_free = fold_host(host_free, got[0], v)
+            kern.mark_synced(host_free)
+            base.mark_synced(host_free)
+        if kern.repartitions != 2 or kern.free_uploads != 3:
+            raise AssertionError(f"mesh drip: {kern.repartitions} repartitions, "
+                                 f"{kern.free_uploads} carry uploads")
+        out["seeded" if ties else "unseeded"] = {"window_ms": window_ms,
+                                                 "free_uploads": kern.free_uploads}
+    mesh = card_mesh(dev, MESH_TILES)
+    runs = {}
+    for name, kw in (("tiled", {"mesh": mesh}), ("flat", {})):
+        cluster = drip_cluster(annos)
+        sched = drip_scheduler(cluster, dev, **kw)
+        pods = storm(cluster, "md", MESH_DRIP_PODS)
+        t0 = time.perf_counter()
+        results, n = launched(lambda: sched.schedule_queue(pods, window=DRIP_WINDOW))
+        runs[name] = (placements(results), time.perf_counter() - t0, sched)
+        if name == "tiled":
+            total = add_counts(total, n)
+    if runs["tiled"][0] != runs["flat"][0] or not all(p[0] for p in runs["tiled"][0]):
+        raise AssertionError("mesh drip: Scheduler(mesh=) placements != the mesh-free twin's")
+    if runs["tiled"][2]._batch_kernel.mesh is not mesh:
+        raise AssertionError("mesh drip: the scheduler's window is not on the mesh")
+    out["queue_s"] = {"tiled": runs["tiled"][1], "flat": runs["flat"][1]}
+    return out, total
+
+
+def fuzz_window(rng, n: int, k: int, span: int) -> tuple:
+    """``tests/test_sharded_drip.py``'s fuzz inputs."""
+    schedulable = rng.random(n) < 0.8
+    weighted = rng.integers(0, span, n).astype(np.int64)
+    bounded = rng.random(n) < 0.7
+    free = np.stack([rng.integers(0, 4000, n), rng.integers(0, 2 << 30, n),
+                     rng.integers(0, 1 << 20, n), rng.integers(0, 20, n)], axis=1)
+    vecs = np.stack([rng.integers(0, 3000, k), rng.integers(0, 1 << 30, k),
+                     np.zeros(k, np.int64), np.ones(k, np.int64)], axis=1)
+    return schedulable, weighted, bounded, free.astype(np.int64), vecs.astype(np.int64)
+
+
+def mesh_config18_leg(dev) -> tuple:
+    """Config 18's ``shard_map`` parity leg on an 8-tile mesh of the card:
+    the kernel fuzz (tie-heavy and wide spans) and a node count below the
+    tile count against the single-device window and its CPU version; the
+    seeded tie replay (10 identical nodes, 100 pods, window 16) against
+    the per-pod columnar and scalar paths with equal RNG streams; and
+    ``ShardedPlacementPlane(mesh=, threaded=False)`` == the plane without
+    a mesh."""
+    from crane_scheduler_tpu_torch.framework.shardplane import ShardedPlacementPlane
+
+    cpu = torch.device("cpu")
+    mesh8 = card_mesh(dev, MESH_CONFIG18_TILES)
+    for seed in range(6):
+        rng = np.random.default_rng(seed)
+        n, k = int(rng.integers(5, 700)), int(rng.integers(1, 40))
+        args = fuzz_window(rng, n, k, 5 if seed % 2 == 0 else 2**33)
+        got = drip_batch.DripBatchKernel(mesh=mesh8).dispatch(*args)
+        for want in (drip_batch.DripBatchKernel(device=dev).dispatch(*args),
+                     drip_batch.DripBatchKernel(device=cpu).dispatch(*args)):
+            if not same_window(got, want, True):
+                raise AssertionError(f"config 18: fuzz seed {seed} diverged")
+    tiny = fuzz_window(np.random.default_rng(5), 3, 4, 3)
+    if not same_window(drip_batch.DripBatchKernel(mesh=mesh8).dispatch(*tiny),
+                       drip_batch.DripBatchKernel(device=cpu).dispatch(*tiny), True):
+        raise AssertionError("config 18: fewer nodes than tiles diverged")
+    fresh = format_local_time(NOW - 30.0)
+    metrics = [sp.name for sp in DEFAULT_POLICY.spec.sync_period]
+    same = [(f"node-{i:02d}", {m: f"0.30000,{fresh}" for m in metrics}) for i in range(10)]
+    runs, total = {}, {}
+    for name, kw in (("mesh", {"mesh": mesh8}), ("perpod", {}), ("scalar", {"columnar": False})):
+        cluster = drip_cluster(same)
+        sched = drip_scheduler(cluster, dev, tie_break_seed=7, **kw)
+        pods = storm(cluster, "tie", 100)
+        if name == "mesh":
+            results, n = launched(lambda: sched.schedule_queue(pods, window=16))
+            total = add_counts(total, n)
+        else:
+            results = [sched.schedule_one(p) for p in pods]
+        runs[name] = (placements(results), sched._tie_rng.getstate(), sched)
+    if not runs["mesh"][0] == runs["perpod"][0] == runs["scalar"][0] or \
+            not runs["mesh"][1] == runs["perpod"][1] == runs["scalar"][1]:
+        raise AssertionError("config 18: the seeded tie replay diverged")
+    replays = runs["mesh"][2].drip_stats()["batch"]["replays"]
+    if replays < 1 or len({p[0] for p in runs["mesh"][0]}) < 2:
+        raise AssertionError(f"config 18: {replays} replays")
+    nodes = shard_node_list(MESH_PLANE_NODES)
+    planes = {}
+    for name, mesh in (("mesh", card_mesh(dev, MESH_TILES)), ("flat", None)):
+        cluster = shard_cluster(nodes)
+        plane = ShardedPlacementPlane(cluster, 2, mesh=mesh)
+        plane.add_scheduler(shard_factory(dev))
+        queues = [shard_pods(cluster, f"m18-{i}", MESH_PLANE_PODS // 2) for i in range(2)]
+        results, n = launched(lambda: plane.run_storm(queues, window=SHARD_WINDOW,
+                                                      threaded=False))
+        planes[name] = [placements(r) for r in results]
+        if mesh is not None:
+            total = add_counts(total, n)
+            if any(s._batch_kernel.mesh is not mesh for s in plane.schedulers):
+                raise AssertionError("config 18: a plane scheduler's window is off the mesh")
+    if planes["mesh"] != planes["flat"]:
+        raise AssertionError("config 18: the plane on the mesh != the plane without")
+    return {"fuzz_seeds": 6, "tie_replays": replays, "plane_pods": MESH_PLANE_PODS}, total
+
+
+def mesh_dist_store(names: list, tensors) -> NodeLoadStore:
+    """The two-process leg's store over ``names`` (``node-NNNNN``): usages
+    and stale rows from each node's global index, as
+    ``tests/distributed_worker.py`` builds them."""
+    gidx = np.array([int(n.split("-")[1]) for n in names])
+    store = NodeLoadStore(tensors)
+    stamps = {age: format_local_time(NOW - age) for age in (600.0, 30.0, 10.0)}
+    rows = []
+    for g, name in zip(gidx, names):
+        anno = {m: f"{((g * 7 + j * 13) % 97) / 100.0:.5f},"
+                   f"{stamps[600.0 if (g + j) % 11 == 0 else 30.0]}"
+                for j, m in enumerate(tensors.metric_names)}
+        if g % 3 == 0:
+            anno["node_hot_value"] = f"{g % 4},{stamps[10.0]}"
+        rows.append((name, anno))
+    store.bulk_ingest(rows)
+    return store
+
+
+def mesh_dist_words(step, snap, prepare, pods: int, first: int = 0) -> dict:
+    """Packed words of one step as a digest (sha256, length) and the
+    launches; ``snap``'s rows are the global rows from ``first`` on."""
+    import hashlib
+
+    cap, off = mesh_gang_vectors(snap.values.shape[0], first)
+    prepared = prepare(step, snap, NOW, capacity=cap, offsets=off)
+    words, n = launched(lambda: step.packed(prepared, pods).result())
+    return {"sha256": hashlib.sha256(words.tobytes()).hexdigest(), "words": int(words.size),
+            "launches": n}
+
+
+def mesh_rank_child(rank: int, port: int, device: str, nodes: int, pods: int) -> int:
+    """The child mode ``MESH_RANK_ARG``: rank ``rank`` of a two-process gloo
+    world on ``device`` (the card: cuda:0), half of ``nodes`` nodes on two
+    tiles; the f64 and f32 hybrid combined steps' packed digests for
+    ``pods`` pods as one JSON line."""
+    from crane_scheduler_tpu_torch.parallel import (
+        ShardedScheduleStep,
+        global_node_mesh,
+        initialize,
+        partition_nodes,
+        prepare_from_local_shard,
+    )
+    from crane_scheduler_tpu_torch.parallel.distributed import shutdown
+
+    dev = torch.device(device)
+    t0 = time.perf_counter()
+    initialize(f"127.0.0.1:{port}", 2, rank, device=dev, backend="gloo")
+    tensors = compile_policy(DEFAULT_POLICY)
+    names = partition_nodes([f"node-{i:05d}" for i in range(nodes)], 2, rank)
+    snap = mesh_dist_store(names, tensors).snapshot(bucket=len(names))
+    out = {"rank": rank}
+    for dname, dtype in (("f64", torch.float64), ("f32", torch.float32)):
+        step = ShardedScheduleStep(tensors, global_node_mesh([dev] * 2), dtype=dtype,
+                                   dynamic_weight=3, max_offset=200)
+        t1 = time.perf_counter()
+        out[dname] = mesh_dist_words(step, snap, prepare_from_local_shard, pods,
+                                     rank * len(names))
+        out[dname]["seconds"] = time.perf_counter() - t1
+    shutdown()
+    out["seconds"] = time.perf_counter() - t0
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def free_tcp_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def start_mesh_ranks(dev) -> list:
+    """The two-process leg's children (``MESH_RANK_ARG``), started early:
+    their imports, stores and CUDA contexts overlap the legs before."""
+    port = free_tcp_port()
+    return [start_cli([MESH_RANK_ARG, str(rank), str(port), str(dev), str(N_PADDED),
+                       str(BURST_PODS)], script=True) for rank in range(2)]
+
+
+def mesh_distributed_leg(dev, snap, wants, started) -> tuple:
+    """An NCCL world of one process (4 tiles of the card, the combines as
+    NCCL all-reduces): ``prepare_from_local_shard`` plus the step == the
+    single-process step. Then two processes on cuda:0 over gloo, each
+    owning half of 51,200 nodes: both ranks' packed words == the
+    single-process step's over the same nodes, f64 and f32 hybrid."""
+    from crane_scheduler_tpu_torch.parallel import (
+        ScheduleStep,
+        ShardedScheduleStep,
+        global_node_mesh,
+        initialize,
+        prepare_from_local_shard,
+    )
+    from crane_scheduler_tpu_torch.parallel.distributed import shutdown
+
+    tensors = compile_policy(DEFAULT_POLICY)
+    cap, off = mesh_gang_vectors(snap.values.shape[0])
+    out, total = {}, {}
+    t0 = time.perf_counter()
+    initialize(f"127.0.0.1:{free_tcp_port()}", 1, 0, device=dev)
+    try:
+        import torch.distributed as dist
+
+        if dist.get_backend() != ("nccl" if dev.type == "cuda" else "gloo"):
+            raise AssertionError(f"mesh distributed: backend {dist.get_backend()}")
+        for dname, dtype in (("f64", torch.float64), ("f32", torch.float32)):
+            step = ShardedScheduleStep(tensors, global_node_mesh([dev] * MESH_TILES),
+                                       dtype=dtype, dynamic_weight=3, max_offset=200)
+            prepared = prepare_from_local_shard(step, snap, NOW, capacity=cap, offsets=off)
+            words, n = launched(lambda: step.packed(prepared, BURST_PODS).result())
+            if not np.array_equal(words, wants[(dname, "combined")]):
+                raise AssertionError(f"mesh distributed: NCCL world of 1 ({dname}) != the step")
+            total = add_counts(total, n)
+    finally:
+        shutdown()
+    out["nccl_world1_s"] = time.perf_counter() - t0
+    full = mesh_dist_store([f"node-{i:05d}" for i in range(N_PADDED)], tensors)
+    whole = full.snapshot(bucket=N_PADDED)
+    want = {dname: mesh_dist_words(ScheduleStep(tensors, dtype=dtype, device=dev,
+                                                dynamic_weight=3, max_offset=200),
+                                   whole, lambda s, sn, now, **kw: s.prepare(sn, now, **kw),
+                                   BURST_PODS)
+            for dname, dtype in (("f64", torch.float64), ("f32", torch.float32))}
+    ranks = []
+    for proc in started:
+        line, seconds = finish_cli(proc, 300)
+        ranks.append(line)
+        out[f"rank{line['rank']}_s"] = seconds
+    for line in ranks:
+        for dname in ("f64", "f32"):
+            got = line[dname]
+            if (got["sha256"], got["words"]) != (want[dname]["sha256"], want[dname]["words"]):
+                raise AssertionError(f"mesh distributed: rank {line['rank']} {dname} != the "
+                                     "single-process step")
+            total = add_counts(total, got["launches"])
+        out[f"rank{line['rank']}_step_s"] = {d: line[d]["seconds"] for d in ("f64", "f32")}
+    out["gloo_words"] = want["f64"]["words"]
+    return out, total
+
+
+def mesh_cli_legs(dev) -> tuple:
+    """crane-sim ``--mode sharded --devices 1`` (card == ``--device cpu``);
+    crane-scheduler ``--master --placement-mesh 1`` one shot (plugin mode)
+    over the 5,000-node stub == its ``--device cpu`` twin on an
+    identically seeded stub; ``--placement-mesh 2`` on one card fails with
+    the reference's device-count error; crane-scorer with the three
+    distributed flags (an NCCL world of one) serves a ``/v1/score`` body
+    equal to the plain run's."""
+    import contextlib
+    import io
+
+    from crane_scheduler_tpu_torch.cli import sim_main
+
+    def sim_line(device):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = sim_main.main(["--nodes", str(CLI_DEMO_NODES), "--pods", str(CLI_SIM_PODS),
+                                "--f32", "--mode", "sharded", "--devices", "1",
+                                "--device", device])
+        line = json.loads(buf.getvalue().strip().splitlines()[-1])
+        if rc != 0:
+            raise AssertionError(f"crane-sim sharded ({device}) exited {rc}")
+        return line
+
+    by_path, out = {}, {}
+    scorers = start_mesh_scorers(dev)
+    try:
+        return mesh_cli_runs(dev, sim_line, scorers, by_path, out)
+    except BaseException:
+        for _port, (proc, _t0) in scorers.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        raise
+
+
+def mesh_cli_runs(dev, sim_line, scorers, by_path, out) -> tuple:
+    """``mesh_cli_legs`` once its scorers are starting."""
+    import contextlib
+    import io
+
+    from crane_scheduler_tpu_torch.cli import scheduler_main
+
+    reset_launches()
+    card = sim_line(dev.type)
+    by_path["mesh_cli_sim"] = read_launches("crane-sim --mode sharded")
+    cpu = sim_line("cpu")
+    for line in (card, cpu):
+        line.pop("latency_ms"), line.pop("kernel_launches")
+    if card.pop("device") != str(card_mesh(dev, 1).devices[0]) or cpu.pop("device") != "cpu" \
+            or card != cpu:
+        raise AssertionError(f"crane-sim sharded: card != CPU: {card} {cpu}")
+    out["sim"] = {"scheduled": card["scheduled"]}
+
+    kube_stub = load_kube_stub()
+    stamp = time.time()
+    lines = {}
+    for device in (dev.type, "cpu")[: 2 if dev.type == "cuda" else 1]:
+        server = kube_cli_stub(kube_stub, stamp)
+        try:
+            buf = io.StringIO()
+            if device == dev.type:  # fails at its mesh, once the mirror is up
+                over = start_cli(["crane_scheduler_tpu_torch.cli.scheduler_main", "--master",
+                                  server.url, "--placement-mesh", "2", "--device", device])[0]
+            reset_launches()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = scheduler_main.main(["--master", server.url, "--placement-mesh", "1",
+                                          "--device", device])
+            if rc != 0:
+                raise AssertionError(f"crane-scheduler --placement-mesh 1 ({device}) exited {rc}")
+            line = json.loads(buf.getvalue().strip().splitlines()[-1])
+            line.pop("wall_seconds"), line.pop("master")
+            lines[device] = (line, stub_bindings(server.url), time.perf_counter() - t0)
+            if device == dev.type:
+                by_path["mesh_cli_scheduler"] = {k: v.launches for k, v in KERNELS.items()}
+                _, err = over.communicate(timeout=300)
+                last = err.strip().splitlines()[-1] if err.strip() else ""
+                if over.returncode != 1 or \
+                        last != "ValueError: requested 2 devices, only 1 available":
+                    raise AssertionError(f"--placement-mesh 2: rc {over.returncode}, {last!r}")
+        finally:
+            server.stop()
+    card_run, cpu_run = lines[dev.type], lines["cpu"]
+    if card_run[:2] != cpu_run[:2] or card_run[0]["scheduled"] < 1:
+        raise AssertionError(f"crane-scheduler --placement-mesh 1: card != CPU twin: {lines}")
+    out["scheduler"] = {"line": card_run[0], "sha256": card_run[1]["sha256"],
+                        "card_s": card_run[2], "cpu_s": cpu_run[2],
+                        "placement_mesh_2": "ValueError: requested 2 devices, only 1 available"}
+    out["scorer"], by_path["mesh_cli_scorer"] = mesh_scorer_cli(dev, scorers)
+    return out, by_path
+
+
+def start_mesh_scorers(dev) -> dict:
+    """crane-scorer ``--demo-nodes 2000 --f32`` on the card as two
+    subprocesses, plain and with ``--coordinator-address`` /
+    ``--num-processes 1`` / ``--process-id 0`` (an NCCL world of one)."""
+    runs = {}
+    for name, extra in (("plain", []), ("distributed", [
+            "--coordinator-address", f"127.0.0.1:{free_tcp_port()}", "--num-processes", "1",
+            "--process-id", "0"])):
+        port = free_tcp_port()
+        runs[name] = (port, start_cli(
+            ["crane_scheduler_tpu_torch.cli.service_main", "--demo-nodes", str(CLI_DEMO_NODES),
+             "--f32", "--port", str(port), "--now-bucket", "0", "--run-seconds", "300",
+             "--device", dev.type, *extra]))
+    return runs
+
+
+def mesh_scorer_cli(dev, runs) -> tuple:
+    """The ``start_mesh_scorers`` processes: one ``POST /v1/score`` each at
+    one ``now``; the bodies equal apart from the staleness (each process's
+    own refresh time), the process line printed, equal launches."""
+    import re
+    import signal
+
+    bodies, exits = {}, {}
+    now = NOW + 5.0
+    try:
+        for name, (port, (proc, t0)) in runs.items():
+            while True:
+                try:
+                    status, _ = http_json(port, "GET", "/healthz", timeout=10)
+                    if status == 200:
+                        break
+                except OSError:
+                    pass
+                if proc.poll() is not None or time.perf_counter() - t0 > 180:
+                    raise AssertionError(f"mesh cli: crane-scorer ({name}) did not come up")
+                time.sleep(0.1)
+            status, body = http_json(port, "POST", "/v1/score", {"now": now})
+            if status != 200:
+                raise AssertionError(f"mesh cli: crane-scorer ({name}) answered {status}")
+            bodies[name] = body
+    finally:
+        for name, (port, (proc, t0)) in runs.items():
+            proc.send_signal(signal.SIGTERM)
+            try:
+                stdout, err = proc.communicate(timeout=60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                stdout, err = proc.communicate()
+            exits[name] = (proc.returncode, stdout, err)
+    for name, (rc, _stdout, err) in exits.items():
+        if rc != 0:
+            raise AssertionError(f"mesh cli: crane-scorer ({name}) exited {rc}: {err[-400:]!r}")
+    drop = lambda b: re.sub(rb'"stalenessSeconds": [0-9.e-]+, ', b"", b)  # noqa: E731
+    if not bodies["plain"].startswith(b'{"backend": "' + dev.type.encode() + b'"') or \
+            drop(bodies["plain"]) != drop(bodies["distributed"]):
+        raise AssertionError("mesh cli: crane-scorer distributed body != the plain run's")
+    process = [ln for ln in exits["distributed"][1].splitlines()
+               if ln.startswith("torch.distributed: ")]
+    if process != ["torch.distributed: process 0/1, 1 global devices"]:
+        raise AssertionError(f"mesh cli: crane-scorer process line {process}")
+    launches = {name: json.loads(stdout.strip().splitlines()[-1])["kernel_launches"]
+                for name, (_, stdout, _) in exits.items()}
+    if launches["plain"] != launches["distributed"] or \
+            launches["plain"]["score"] < (dev.type == "cuda"):
+        raise AssertionError(f"mesh cli: crane-scorer launches {launches}")
+    return {"bytes": len(bodies["plain"]), "equal": True, "process_line": process[0]}, \
+        launches["distributed"]
+
+
+def phase_mesh(dev) -> tuple:
+    """The node mesh on the card: the tiled step, the mesh burst, the
+    shard-parallel drip window, config 18's parity leg, the NCCL world of
+    one and the two-process gloo step, and the mesh flags of three CLIs."""
+    t_phase = time.perf_counter()
+    out, by_path = {}, {}
+    tensors = compile_policy(DEFAULT_POLICY)
+    annos = cluster_annotations(tensors, np.random.default_rng(SEED + 53))
+    store = NodeLoadStore(tensors)
+    store.bulk_ingest(annos)
+    snap = store.snapshot(bucket=2048)
+    if snap.values.shape[0] != N_PADDED:
+        raise AssertionError(f"mesh: {snap.values.shape[0]} rows, want {N_PADDED}")
+    legs = (
+        ("step", lambda: mesh_step_leg(dev, snap)),
+        ("burst", lambda: mesh_burst_leg(dev, annos)),
+        ("drip", lambda: mesh_drip_leg(dev, annos)),
+        ("config18", lambda: mesh_config18_leg(dev)),
+    )
+    children = []  # the rank children, stopped here whatever happens
+    try:
+        return run_mesh_legs(dev, snap, legs, out, by_path, t_phase, children)
+    finally:
+        for proc, _t0 in children:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+
+
+def run_mesh_legs(dev, snap, legs, out, by_path, t_phase, children) -> tuple:
+    """``phase_mesh``'s legs in order (the rank children start after the
+    step leg, into ``children``)."""
+    wants = ranks = None
+    for name, fn in legs:
+        t0 = time.perf_counter()
+        got = fn()
+        out[name], by_path[f"mesh_{name}"] = got[0], got[1]
+        if name == "step":
+            wants = got[2]
+            ranks = start_mesh_ranks(dev)  # after the timed steps
+            children.extend(ranks)
+        out[name]["seconds"] = time.perf_counter() - t0
+    for name, key in (("step", "mesh_step"), ("burst", "mesh_burst")):
+        if dev.type == "cuda" and (by_path[key]["gang"] < 1 or by_path[key]["score"] < 1):
+            raise AssertionError(f"mesh {name}: K1 {by_path[key]['score']}, "
+                                 f"K2 {by_path[key]['gang']}")
+    t0 = time.perf_counter()
+    out["distributed"], by_path["mesh_distributed"] = mesh_distributed_leg(dev, snap, wants,
+                                                                           ranks)
+    out["distributed"]["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["cli"], cli_paths = mesh_cli_legs(dev)
+    out["cli"]["seconds"] = time.perf_counter() - t0
+    by_path.update(cli_paths)
+    out["seconds"] = time.perf_counter() - t_phase
+    log("mesh", tiles=MESH_TILES, launches=by_path, **out)
+    return out, by_path
+
+
 def build_host_library():
     """Start building the host library (``native/lib.py``: both libraries,
     one compiler each) on a thread; the returned call waits for it, raises
@@ -6477,6 +7186,9 @@ def main() -> int:
         return serve_twin_child(float(sys.argv[2]))
     if sys.argv[1:2] == [CLI_CHILD_ARG]:
         return cli_child(sys.argv[2], sys.argv[3:])
+    if sys.argv[1:2] == [MESH_RANK_ARG]:
+        return mesh_rank_child(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
+                               int(sys.argv[5]), int(sys.argv[6]))
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
         return 2
@@ -6534,6 +7246,8 @@ def main() -> int:
     by_path.update(control_paths)
     _, shard_paths = phase_shards(dev, wire)
     by_path.update(shard_paths)
+    _, mesh_paths = phase_mesh(dev)
+    by_path.update(mesh_paths)
 
     kernels = [
         {

@@ -42,10 +42,13 @@ mirror and binding through the ``binding`` subresource:
   hashes to ``i``; ``--serve`` polls the ring file and adopts a
   higher-versioned ring live.
 
-``--placement-mesh`` with ``--master`` exits with a usage error naming
-``ROADMAP.md`` Queue 1 item 7 (multi-GPU). Without ``--master`` the
-master-mode flags parse and do nothing, exactly as in the reference's
-sim mode.
+- ``--placement-mesh N``: the drip window (plugin mode, one shot and
+  ``--serve``) tiles its columns over a placement mesh of N distinct GPUs
+  (with ``--device cpu`` the host is one device); more than the host has
+  raises the reference's ``requested N devices, only K available``.
+
+Without ``--master`` the master-mode flags parse and do nothing, exactly
+as in the reference's sim mode.
 
 The result is one JSON line with the reference's keys.
 
@@ -180,8 +183,9 @@ def main(argv=None) -> int:
                              help="--serve: exit after this long (0 = until "
                                   "SIGTERM/SIGINT)")
     master_only.add_argument("--placement-mesh", type=int, default=0,
-                             help="multi-GPU placement (not ported: a usage "
-                                  "error with --master)")
+                             help="shard the drip window's columns over the "
+                                  "first N local devices; 0 = single-device "
+                                  "window")
     master_only.add_argument("--shards", type=int, default=1,
                              help="partition the node keyspace into N shards "
                                   "and schedule only this process's shard")
@@ -205,9 +209,6 @@ def main(argv=None) -> int:
                                   "process is a warm standby until it holds "
                                   "the lease and has reconciled the journal")
     args = parser.parse_args(argv)
-    if args.master and args.placement_mesh > 0:
-        parser.error("--placement-mesh needs multi-GPU placement, which the "
-                     "PyTorch port does not have yet (ROADMAP.md Queue 1 item 7)")
 
     if args.flight_dir:
         os.environ["CRANE_FLIGHT_DIR"] = args.flight_dir
@@ -344,6 +345,15 @@ def _master(args, config, profile, policy, device) -> int:
     return 0
 
 
+def _placement_mesh(args, device):
+    """``--placement-mesh N``: the drip window's placement mesh, or None."""
+    if args.placement_mesh <= 0:
+        return None
+    from ..parallel.mesh import local_mesh
+
+    return local_mesh(args.placement_mesh, device)
+
+
 def _master_once(args, cluster, config, profile, policy, device, recovery) -> None:
     """One pass over the live cluster's pending pods (the reference's
     one-shot ``--master`` branch); prints the result line."""
@@ -381,6 +391,7 @@ def _master_once(args, cluster, config, profile, policy, device, recovery) -> No
             # is installed, an empty lister otherwise
             sched_cluster, config, nrt_lister=cluster.nrt_lister,
             policy=policy, tie_break_seed=args.tie_break_seed, device=device,
+            mesh=_placement_mesh(args, device),
         )
         if pod_filter is not None:
             sched.conflict_retry = True
@@ -456,6 +467,7 @@ def _serve(args, cluster, config, policy, device, journal, recovery, telemetry) 
     sched = build_scheduler_from_config(
         sched_cluster, config, nrt_lister=cluster.nrt_lister,
         policy=policy, tie_break_seed=args.tie_break_seed, device=device,
+        mesh=_placement_mesh(args, device),
     )
     if pod_filter is not None:
         sched.conflict_retry = True

@@ -28,10 +28,11 @@ replica of that primary; ``--replicas N`` runs N in-process replicas fed
 by this primary behind a router on ``--port`` (``--router hash|rr``,
 catch-up gate ``--lag-budget``), with the fleet plane federating them.
 
-The reference's multi-process plane is not ported yet, and its flags
-exit with a usage error naming the ``ROADMAP.md`` Queue 1 item that
-brings it: ``--coordinator-address``, ``--num-processes``,
-``--process-id``, item 7.
+Multi-process: with ``--coordinator-address HOST:PORT``,
+``--num-processes`` and ``--process-id`` the process first joins a
+``torch.distributed`` group (``parallel.initialize``: NCCL on the GPU,
+gloo with ``--device cpu``) and prints its process line, as the reference
+does for ``jax.distributed``; scoring is unchanged.
 
 Usage:
   python -m crane_scheduler_tpu_torch.cli.service_main --port 8080 --f32
@@ -49,13 +50,6 @@ import json
 import os
 import signal
 import threading
-
-# flag -> the ROADMAP.md Queue 1 item that brings its plane
-_UNPORTED = (
-    ("coordinator_address", "--coordinator-address", "multi-GPU serving", "item 7"),
-    ("num_processes", "--num-processes", "multi-GPU serving", "item 7"),
-    ("process_id", "--process-id", "multi-GPU serving", "item 7"),
-)
 
 
 def main(argv=None) -> int:
@@ -149,19 +143,13 @@ def main(argv=None) -> int:
                         help="raise [crane] log verbosity (-v sweeps/"
                              "windows, -vv cycles, -vvv per-pod); "
                              "default run is quiet")
-    # the reference's flags whose planes are not ported: accepted by the
-    # parser only to refuse them by name
-    unported = parser.add_argument_group("not ported yet")
-    unported.add_argument("--coordinator-address", default=None)
-    unported.add_argument("--num-processes", type=int, default=None)
-    unported.add_argument("--process-id", type=int, default=None)
+    # multi-process: every process serves; all three flags set =>
+    # distributed (parallel.distributed)
+    parser.add_argument("--coordinator-address", default=None,
+                        help="host:port of process 0 (torch.distributed)")
+    parser.add_argument("--num-processes", type=int, default=None)
+    parser.add_argument("--process-id", type=int, default=None)
     args = parser.parse_args(argv)
-    for dest, flag, plane, item in _UNPORTED:
-        if getattr(args, dest) is not None:
-            parser.error(
-                f"{flag} needs {plane}, which the PyTorch port does not "
-                f"have yet (ROADMAP.md Queue 1 {item})"
-            )
 
     if args.flight_dir:
         os.environ["CRANE_FLIGHT_DIR"] = args.flight_dir
@@ -173,6 +161,20 @@ def main(argv=None) -> int:
         set_verbosity(args.verbose)
 
     import torch
+
+    if args.coordinator_address is not None:
+        import torch.distributed as dist
+
+        from ..parallel import distributed
+
+        distributed.initialize(args.coordinator_address, args.num_processes,
+                               args.process_id, device=args.device)
+        print(
+            f"torch.distributed: process {dist.get_rank()}/"
+            f"{dist.get_world_size()}, {distributed.global_node_mesh().size} "
+            f"global devices",
+            flush=True,
+        )
 
     from ..policy import DEFAULT_POLICY, load_policy_from_file
     from ..service import ScoringHTTPServer, ScoringService
@@ -215,6 +217,7 @@ def main(argv=None) -> int:
         stop.wait(timeout=args.run_seconds or None)
         replica.stop()
         print(json.dumps({"kernel_launches": kernel_launches()}), flush=True)
+        _leave_group()
         return 0
 
     mirror = None
@@ -382,7 +385,15 @@ def main(argv=None) -> int:
     if mirror is not None:
         mirror.stop()
     print(json.dumps({"kernel_launches": kernel_launches()}), flush=True)
+    _leave_group()
     return 0
+
+
+def _leave_group() -> None:
+    """Leave the process group ``--coordinator-address`` joined, if any."""
+    from ..parallel.distributed import shutdown
+
+    shutdown()
 
 
 def kernel_launches() -> dict:

@@ -2,9 +2,10 @@
 
 Counterpart of ``crane_scheduler_tpu/cli/sim_main.py``, on PyTorch:
 ``--device`` (default ``cuda``, which needs a GPU; or ``cpu``) is where
-the scheduler runs. The ``sharded`` mode and ``--devices`` need the
-multi-GPU slice and exit with a usage error naming ``ROADMAP.md``
-Queue 1 item 7.
+the scheduler runs. ``--mode sharded`` tiles the batch step's node axis
+over a node mesh of ``--devices`` distinct GPUs (0 = all of them); with
+``--device cpu`` the host is one device, as JAX's CPU platform is, and
+asking for more raises the reference's device-count error.
 
 Runs the full loop (synthetic metrics -> annotator -> scorer -> binding
 feedback) in one of three scorer modes and reports placement + latency
@@ -35,8 +36,8 @@ def main(argv=None) -> int:
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--sync-every", type=int, default=0,
                         help="re-run the annotator every K pods (plugin mode)")
-    parser.add_argument("--devices", type=int, default=None,
-                        help="sharded mode: mesh size (not ported yet)")
+    parser.add_argument("--devices", type=int, default=0,
+                        help="sharded mode: mesh size (0 = all)")
     parser.add_argument("--device", default="cuda",
                         help="torch device to schedule on: cuda (default; "
                              "needs a GPU) or cpu")
@@ -46,11 +47,6 @@ def main(argv=None) -> int:
                              "windows, -vv cycles, -vvv per-pod); "
                              "default run is quiet")
     args = parser.parse_args(argv)
-    if args.mode == "sharded" or args.devices is not None:
-        parser.error(
-            "the sharded mode needs the node-sharded step, which the "
-            "PyTorch port does not have yet (ROADMAP.md Queue 1 item 7)"
-        )
 
     from ..utils.logging import set_verbosity
 
@@ -59,6 +55,7 @@ def main(argv=None) -> int:
 
     import torch
 
+    from ..parallel.mesh import local_mesh
     from ..policy import DEFAULT_POLICY, load_policy_from_file
     from ..scorer import gang_kernel, score_kernel
     from ..sim import SimConfig, Simulator
@@ -92,7 +89,10 @@ def main(argv=None) -> int:
             if args.sync_every and (i + 1) % args.sync_every == 0:
                 sim.sync_metrics()
     else:
-        sched = sim.build_batch_scheduler(dtype=dtype, device=args.device)
+        mesh = None
+        if args.mode == "sharded":
+            mesh = local_mesh(args.devices or None, args.device)
+        sched = sim.build_batch_scheduler(dtype=dtype, device=args.device, mesh=mesh)
         pods = [sim.make_pod() for _ in range(args.pods)]
         t0 = _time.perf_counter()
         result = sched.schedule_batch(pods)

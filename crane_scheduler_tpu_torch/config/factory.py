@@ -32,6 +32,7 @@ def build_scheduler_from_config(
     policy=None,
     tie_break_seed=None,
     device=None,
+    mesh=None,
 ) -> Scheduler:
     """Build a Scheduler for the first profile.
 
@@ -41,14 +42,15 @@ def build_scheduler_from_config(
     ``tie_break_seed`` opts into the stock framework's random-among-ties
     host selection (seeded; default off = lowest snapshot index);
     ``device`` is where the batched drip window runs (``None`` means the
-    GPU and raises without one; ``"cpu"`` for the CPU)."""
+    GPU and raises without one; ``"cpu"`` for the CPU); ``mesh`` tiles that
+    window over a placement mesh (``parallel.mesh.make_placement_mesh``)."""
     if not config.profiles:
         raise ValueError("scheduler configuration has no profiles")
     profile = config.profiles[0]
     weights = {pw.name: pw.weight for pw in profile.score_enabled}
     enabled = set(profile.filter_enabled) | set(weights)
     sched = Scheduler(cluster, clock=clock or time.time, tie_break_seed=tie_break_seed,
-                      device=device)
+                      device=device, mesh=mesh)
 
     # allocatable-fit predicate: always on, like the stock scheduler's
     # default-enabled NodeResourcesFit. Fails open on nodes that never

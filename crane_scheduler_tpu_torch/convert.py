@@ -108,3 +108,41 @@ def cluster_from_nodes(nodes) -> ClusterState:
             allocatable=dict(n.get("allocatable") or {}),
         ))
     return cluster
+
+
+_TILED_FIELDS = (
+    "values", "ts", "hot_value", "hot_ts", "node_valid", "capacity", "offsets",
+    "ovr_mask", "ovr_sched", "ovr_score",
+)
+
+
+def tiled_snapshot_from_shards(step, shards, now: float, epoch: float = 0.0,
+                               ovr_now: float | None = None):
+    """A ``TiledSnapshot`` of ``step`` (a ``ShardedScheduleStep``) from the
+    reference's per-device shards: ``shards`` maps each prepared field
+    (``values``, ``ts``, ``hot_value``, ``hot_ts``, ``node_valid``,
+    ``capacity``, ``offsets`` and, for a hybrid step, the ``ovr_*``
+    vectors) to the list of its shards as numpy, in mesh order (``[s.data
+    for s in arr.addressable_shards]``). Each shard becomes the tile at the
+    same position, uploaded to that tile's device as is, so the port scores
+    exactly the tiles the reference placed. ``now`` is the prepared
+    (rebased) scheduling time."""
+    from .parallel.column_cache import upload
+    from .parallel.sharded import TiledSnapshot
+
+    devices = step.mesh.devices
+    tiles = {}
+    for name in _TILED_FIELDS:
+        if name not in shards:
+            continue
+        parts = [np.array(p) for p in shards[name]]  # private, writable
+        if len(parts) != len(devices):
+            raise ValueError(f"{name}: {len(parts)} shards for {len(devices)} tiles")
+        tiles[name] = tuple(upload(p, dev) for p, dev in zip(parts, devices))
+    n_rows = sum(int(t.shape[0]) for t in tiles["capacity"]) * step.mesh.process_count
+    return TiledSnapshot(
+        now=step.scorer.consts.round(float(now)), epoch=float(epoch),
+        ovr_now=ovr_now, n_rows=n_rows, host_row0=step.mesh.first_tile * (
+            n_rows // step.mesh.size), host_rows=n_rows // step.mesh.process_count,
+        **tiles,
+    )

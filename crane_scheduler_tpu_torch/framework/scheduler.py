@@ -56,6 +56,7 @@ from ..cluster.state import ClusterState, Pod
 from ..constants import MAX_NODE_SCORE
 from ..device import resolve_device
 from ..loadstore.store import NodeLoadStore
+from ..parallel.sharded import ShardedScheduleStep
 from ..parallel.step import EPOCH_REBASE_SECONDS, PackedFetch, ScheduleStep
 from ..policy.compile import compile_policy
 from ..policy.types import DynamicSchedulerPolicy
@@ -70,6 +71,20 @@ BURST_STAGES = ("refresh", "prepare", "dispatch", "add_pod_burst", "wait", "expa
 
 # re-solve passes of ``_bind_recover_loop`` (the reference's ``max_passes`` default)
 _RECOVER_PASSES = 4
+
+
+def _mesh_device(mesh, device) -> torch.device:
+    """A scheduler's device: ``device``, else the mesh's first tile's. A
+    ``device`` other than that first tile's is refused."""
+    if mesh is None:
+        return resolve_device(device)
+    first = mesh.devices[0]
+    if device is None:
+        return first
+    dev = resolve_device(device)
+    if dev != first:
+        raise ValueError(f"device {dev} is not the mesh's first tile device {first}")
+    return dev
 
 
 def _submit_fetch(pool, fetch: PackedFetch, telemetry=None) -> Future:
@@ -405,6 +420,7 @@ class BatchScheduler:
         refresh_from_cluster: bool = True,
         telemetry=None,
         device=None,
+        mesh=None,
     ):
         """``dtype``: ``torch.float64`` (default) is the parity mode;
         ``torch.float32`` is the fast mode, always hybrid (f64 rescue rows)
@@ -415,7 +431,12 @@ class BatchScheduler:
         the store's versions still drive the device snapshot.
         ``device``: ``None`` means the GPU (raises without one); tests pass
         ``"cpu"``. ``telemetry``: a ``Telemetry`` bundle, else the
-        process-global one (``telemetry.active()``), else none."""
+        process-global one (``telemetry.active()``), else none.
+        ``mesh``: a node mesh (``parallel.mesh.make_node_mesh``); the burst,
+        gang, NUMA and mixed steps then run ``ShardedScheduleStep`` with the
+        node axis tiled over it (K1 and K2 once per tile), placements
+        unchanged. Without ``device`` its first tile's device is the
+        scheduler's; the gang window and the NUMA evaluation run there."""
         self.cluster = cluster
         self.policy = policy
         self.tensors = compile_policy(policy)
@@ -428,11 +449,11 @@ class BatchScheduler:
         self._refresh_from_cluster = refresh_from_cluster
         self._clock = clock
         self._bucket = snapshot_bucket
-        self.device = resolve_device(device)
+        self.device = _mesh_device(mesh, device)
+        self._mesh = mesh
         tel = self._telemetry = telemetry if telemetry is not None else active_telemetry()
         self._dtype = dtype or torch.float64
-        self._step = ScheduleStep(self.tensors, dtype=self._dtype, device=self.device,
-                                  telemetry=tel)
+        self._step = self._new_step()
         self._hybrid = self._step.hybrid
         self.scorer = self._step.scorer
         self.gang = self._step.gang
@@ -1064,6 +1085,14 @@ class BatchScheduler:
 
     # -- gangs: combined plugin scoring and the multi-gang window ------------
 
+    def _new_step(self, **kw) -> ScheduleStep:
+        """A score + gang step: on the mesh when there is one."""
+        if self._mesh is not None:
+            return ShardedScheduleStep(self.tensors, self._mesh, dtype=self._dtype,
+                                       telemetry=self._telemetry, **kw)
+        return ScheduleStep(self.tensors, dtype=self._dtype, device=self.device,
+                            telemetry=self._telemetry, **kw)
+
     def _combined_step(self, dynamic_weight: int, topology_weight: int) -> ScheduleStep:
         """The score + gang step in the combined-score domain (Dynamic x
         ``dynamic_weight`` plus offsets up to ``100 x topology_weight``),
@@ -1071,11 +1100,8 @@ class BatchScheduler:
         key = (dynamic_weight, topology_weight)
         step = self._combined.get(key)
         if step is None:
-            step = ScheduleStep(
-                self.tensors, dtype=self._dtype, device=self.device,
-                telemetry=self._telemetry, dynamic_weight=dynamic_weight,
-                max_offset=MAX_NODE_SCORE * topology_weight,
-            )
+            step = self._new_step(dynamic_weight=dynamic_weight,
+                                  max_offset=MAX_NODE_SCORE * topology_weight)
             while len(self._combined) >= 8:
                 self._combined.pop(next(iter(self._combined)))
         else:
@@ -1278,7 +1304,7 @@ class BatchScheduler:
 
         step = self._combined_step(dynamic_weight, topology_weight)
         fit_rows = self._fit_capacity(template, names, n)
-        npad = int(prepared.capacity.shape[0])
+        npad = prepared.rows()
         if topology is not None:
             offsets, capacity = self._numa_vectors(template, topology, topology_weight,
                                                    names, n)
@@ -2070,17 +2096,16 @@ class Scheduler:
         identical to the scalar loop. ``device``: where the batched window
         runs; ``None`` means the GPU (raises without one), tests pass
         ``"cpu"``. ``telemetry``: a ``Telemetry`` bundle, else the
-        process-global one (``telemetry.active()``), else none. ``mesh``
-        must be None: the shard-parallel window is not ported yet."""
+        process-global one (``telemetry.active()``), else none. ``mesh``: a
+        placement mesh (``parallel.mesh.make_placement_mesh``): the batched
+        window tiles its columns over it and runs the shard-parallel
+        window, placements unchanged; without ``device`` its first tile's
+        device is the scheduler's."""
         import random
 
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh= is not ported: the shard-parallel drip window comes "
-                "with the multi-GPU slice"
-            )
         self.cluster = cluster
-        self.device = resolve_device(device)
+        self.device = _mesh_device(mesh, device)
+        self._kernel_mesh = mesh
         self._clock = clock
         self._plugins: list[_WeightedPlugin] = []
         self._tie_rng = random.Random(tie_break_seed) if tie_break_seed is not None else None
@@ -2602,7 +2627,8 @@ class Scheduler:
                     vecs[i] = vec
             kern = self._batch_kernel
             if kern is None:
-                kern = self._batch_kernel = DripBatchKernel(device=self.device)
+                kern = self._batch_kernel = DripBatchKernel(device=self.device,
+                                                            mesh=self._kernel_mesh)
             chosen, feasible, ties = kern.dispatch(
                 drip.schedulable, drip.weighted, drip.bounded, drip.free, vecs,
                 want_ties=self._tie_rng is not None, col_version=drip.col_epoch,

@@ -2,9 +2,8 @@
 
 Counterpart of ``crane_scheduler_tpu/framework/shardplane.py``. The
 schedulers are the port's drip ``Scheduler``; each one's batched window
-runs on its own device (``Scheduler(device=...)``); the reference's
-``mesh=`` (one window's columns tiled over several devices) belongs to
-the multi-GPU slice (``ROADMAP.md`` Queue 1 item 7) and is left out.
+runs on its own device (``Scheduler(device=...)``), or, with ``mesh=``,
+tiles its columns over that placement mesh (the shard-parallel window).
 
 One scheduler over 250k nodes pays O(cluster) per column rebuild and
 serializes every bind through one loop. This module splits the node
@@ -310,7 +309,7 @@ class ShardedPlacementPlane:
     """
 
     def __init__(self, cluster, count: int, overlap: float = 0.0,
-                 telemetry=None, layout=None):
+                 telemetry=None, mesh=None, layout=None):
         if count < 1:
             raise ValueError(f"scheduler count must be >= 1, got {count}")
         cluster.configure_shards(count, overlap, layout=layout)
@@ -318,6 +317,7 @@ class ShardedPlacementPlane:
         self.count = count
         self.overlap = overlap
         self.layout = layout
+        self.mesh = mesh
         self.arbiter = BindArbiter()
         self._telemetry = telemetry
         self._m_conflicts = None
@@ -390,6 +390,8 @@ class ShardedPlacementPlane:
             sched = factory(view)
             sched.conflict_retry = True
             sched.conflict_cb = view.note_conflict
+            if self.mesh is not None:
+                sched._kernel_mesh = self.mesh
             self.schedulers.append(sched)
         return self.schedulers
 

@@ -14,9 +14,13 @@ host array it mirrors. A column patched in place between two versions
 (``DripColumns._patch_dynamic``, driven by the dirty-name journal) passes
 ``delta_rows``: the device copy is then patched with one exact-row
 ``index_copy`` into a new tensor, never in place, since an earlier
-window's work may still read the old one. The reference's mesh partitions
-wait for the multi-GPU slice; ``set_partition`` takes the single-device
-token only.
+window's work may still read the old one.
+
+A column tiled over a node mesh (the shard-parallel drip window) is put
+with ``place=``, which turns the prepared host array into its per-tile
+device tensors; such a column is re-uploaded on a version change, never
+patched, as in the reference. ``set_partition`` fences the cache to one
+partitioning: a changed token drops every slot.
 """
 
 from __future__ import annotations
@@ -43,23 +47,23 @@ class DeviceColumnCache:
         self._slots: dict[str, tuple] = {}
         self.uploads = 0
         self.scatters = 0  # delta-row device patches (avoided uploads)
+        # the partitioning the slots are placed for: a resized mesh must
+        # never serve columns tiled for the old one
         self._partition_token = None
+        self.repartitions = 0
 
     def set_partition(self, token) -> bool:
-        """Declare the partitioning the cached columns are placed for.
-        Returns True (and drops every slot) when it changed from an
-        earlier token."""
-        if token != SINGLE_DEVICE:
-            raise NotImplementedError(
-                "only the single-device partition is ported (multi-GPU "
-                "placement meshes come with the multi-GPU slice)"
-            )
+        """Declare the partitioning the cached columns are placed for (any
+        token that compares by value: ``SINGLE_DEVICE`` or a mesh's
+        ``token()``). Returns True (and drops every slot) when it changed
+        from an earlier token."""
         if token == self._partition_token:
             return False
         changed = self._partition_token is not None
         self._partition_token = token
         if changed:
             self._slots.clear()
+            self.repartitions += 1
         return changed
 
     def held_version(self, name: str, arr):
@@ -76,7 +80,7 @@ class DeviceColumnCache:
         return key[2]
 
     def put(self, name: str, arr: np.ndarray, version=0, prepare=None,
-            delta_rows=None, row_prepare=None) -> torch.Tensor:
+            delta_rows=None, row_prepare=None, place=None):
         """Device tensor for ``arr``, uploading only when the ``(identity,
         shape, version)`` key changed since the last call.
 
@@ -86,13 +90,16 @@ class DeviceColumnCache:
         is then patched by one ``index_copy`` of those rows into a new
         tensor instead of a full upload. An empty delta keeps the held
         tensor. ``row_prepare`` is the elementwise (dtype) half of
-        ``prepare``, applied to the scattered rows."""
+        ``prepare``, applied to the scattered rows. ``place`` (the prepared
+        host array -> its device value, e.g. per-tile tensors) replaces the
+        single-device upload and rules the scatter out."""
         key = (id(arr), arr.shape, version)
         slot = self._slots.get(name)
         if slot is not None and slot[0] == key:
             return slot[1]
         if (
             delta_rows is not None
+            and place is None
             and slot is not None
             and slot[0][0] == id(arr)
             and slot[0][1] == arr.shape
@@ -111,7 +118,7 @@ class DeviceColumnCache:
             self.scatters += 1
             return dev
         host = arr if prepare is None else prepare(arr)
-        dev = upload(host, self._device)
+        dev = upload(host, self._device) if place is None else place(host)
         self._slots[name] = (key, dev, arr)
         self.uploads += 1
         return dev

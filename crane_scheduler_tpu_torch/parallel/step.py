@@ -17,6 +17,11 @@ the rescue vectors for a later wall time or for the rows those updates
 touched (full or incremental; the incremental path patches the device
 vectors with ``index_copy``).
 
+The uploads and updates are written once over spans, the ``(device,
+start, stop)`` of each tile in the host snapshot's rows: here one span
+over every row, and ``ShardedScheduleStep`` (``parallel/sharded.py``)
+says where its tiles lie and keeps only its own step body.
+
 Every update returns a new ``PreparedSnapshot`` and leaves the one it was
 given as it was (out-of-place ``index_copy``, or a private clone that is
 then written), as the reference's immutable arrays do: a pipelined loop
@@ -41,6 +46,7 @@ from ..scorer.batched import BatchedScorer
 from ..scorer.hybrid import compute_overrides_incremental
 from ..scorer.topk import GangScheduler
 from ..telemetry import maybe_span
+from .column_cache import upload
 
 # compact packed layout (single source of truth for pack AND unpack):
 # per-node uint32 = counts(COMPACT_COUNT_BITS) | score | schedulable(msb).
@@ -83,6 +89,10 @@ class PreparedSnapshot:
     ovr_cache: Any = None  # host-side scorer.hybrid.OverrideCache
     ovr_rescan_rows: int = 0  # rows rescanned by the last override refresh
 
+    def rows(self) -> int:
+        """The padded node rows the snapshot holds."""
+        return int(self.capacity.shape[0])
+
 
 @dataclass
 class StepResult:
@@ -91,6 +101,38 @@ class StepResult:
     counts: Any  # [N] int32 — pods assigned per node
     unassigned: Any  # 0-dim int32
     waterline: Any  # 0-dim int32
+
+
+def compact_body(schedulable, scores, counts):
+    """The compact layout's per-node words, as int64."""
+    return (
+        counts.to(torch.int64)
+        | (scores.to(torch.int64) << COMPACT_COUNT_BITS)
+        | (schedulable.to(torch.int64) << 31)
+    )
+
+
+def compact_tail(unassigned, waterline):
+    """The compact layout's ``[unassigned, waterline]`` words, as int64."""
+    return torch.stack([unassigned.to(torch.int64), waterline.to(torch.int64) & 0xFFFFFFFF])
+
+
+def compact_words(parts):
+    """int64 word pieces (one device), concatenated and stored as the same
+    32 bits in int32."""
+    words = torch.cat(parts)
+    return torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
+
+
+def split_rows(rows, spans):
+    """Per span ``(tile-local ids, positions in rows)`` for host-numbered
+    ``rows``; rows outside every span drop."""
+    rows = np.asarray(rows, dtype=np.int64)
+    out = []
+    for _dev, a, b in spans:
+        pos = np.flatnonzero((rows >= a) & (rows < b))
+        out.append((rows[pos] - a, pos))
+    return out
 
 
 class PackedFetch:
@@ -120,6 +162,11 @@ class PackedFetch:
 
 class ScheduleStep:
     """score + gang-assign on one device."""
+
+    # A tiled step (``ShardedScheduleStep`` over several tiles) holds each
+    # snapshot field as a tuple of per-tile tensors; this one holds the
+    # tensor itself.
+    tiled = False
 
     def __init__(self, tensors: PolicyTensors, dtype=torch.float32, device=None,
                  telemetry=None, dynamic_weight: int = 1, max_offset: int = 0):
@@ -176,40 +223,60 @@ class ScheduleStep:
         views it as ``np.uint32``. Sound while counts <= num_pods < 2^18
         (``packed`` enforces) and scores are in [0, 8191]."""
         schedulable, scores, counts, unassigned, waterline = self._step(vecs, num_pods)
-        body = (
-            counts.to(torch.int64)
-            | (scores.to(torch.int64) << COMPACT_COUNT_BITS)
-            | (schedulable.to(torch.int64) << 31)
-        )
-        tail = torch.stack([
-            unassigned.to(torch.int64),
-            waterline.to(torch.int64) & 0xFFFFFFFF,
-        ])
-        words = torch.cat([body, tail])
-        return torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
+        return compact_words([compact_body(schedulable, scores, counts),
+                              compact_tail(unassigned, waterline)])
+
+    # -- tiles -------------------------------------------------------------
+    # Every upload and update below is written once over spans: the
+    # ``(device, start, stop)`` of each tile in the host snapshot's rows.
+    # One device is one span over every row.
+
+    def _row_spans(self, n_rows: int, host_row0: int = 0) -> list:
+        """The spans of a snapshot of ``n_rows`` global rows whose host
+        arrays start at global row ``host_row0``."""
+        return [(self.device, 0, int(n_rows))]
+
+    def _spans(self, prepared: PreparedSnapshot) -> list:
+        return self._row_spans(prepared.rows())
+
+    def _snapshot(self, fields: dict, n_rows: int, host_row0: int,
+                  host_rows: int) -> PreparedSnapshot:
+        return PreparedSnapshot(**fields)
+
+    def _join(self, tiles: list):
+        """A snapshot field from its per-span tensors."""
+        return tuple(tiles) if self.tiled else tiles[0]
+
+    @staticmethod
+    def _tiles(field) -> list:
+        """A snapshot field's per-span tensors."""
+        return list(field) if isinstance(field, tuple) else [field]
+
+    def _put(self, arr: np.ndarray, spans):
+        """One host array (host rows) to its spans' devices: a pinned,
+        non-blocking copy on CUDA; a private copy on the CPU (snapshots
+        are mutable hosts)."""
+        return self._join([upload(arr[a:b], dev) for dev, a, b in spans])
 
     # -- uploads -----------------------------------------------------------
 
     def _np_dtype(self):
         return np.float64 if self.scorer.dtype == torch.float64 else np.float32
 
-    def _upload(self, arr: np.ndarray) -> torch.Tensor:
-        """One host array to the device: a pinned, non-blocking copy on
-        CUDA; a private copy on the CPU (snapshots are mutable hosts)."""
-        t = torch.from_numpy(np.ascontiguousarray(arr))
-        if self.device.type == "cpu":
-            return t.clone()
-        return t.pin_memory().to(self.device, non_blocking=True)
-
-    def prepare(self, snapshot, now: float) -> PreparedSnapshot:
+    def prepare(self, snapshot, now: float, capacity=None, offsets=None) -> PreparedSnapshot:
         """Upload a store snapshot. Host -> device transfer happens here,
         once per refresh; the step then reruns against the resident
-        tensors for any pod batch. Capacity is unbounded (1 << 30 per
-        node) and offsets are zero: the plain Dynamic-score domain."""
+        tensors for any pod batch. Capacity defaults to unbounded (1 << 30
+        per node) and offsets to zero: the plain Dynamic-score domain."""
         with maybe_span(self.telemetry, "h2d_prepare", n=int(snapshot.n_nodes)):
-            return self._prepare_impl(snapshot, now)
+            n = int(np.asarray(snapshot.ts).shape[0])
+            return self._prepare_rows(snapshot, now, capacity, offsets, n, 0)
 
-    def _prepare_impl(self, snapshot, now: float) -> PreparedSnapshot:
+    def _host_arrays(self, snapshot, now: float, capacity=None, offsets=None) -> tuple:
+        """The snapshot's scoring inputs as host arrays of the step's dtype,
+        timestamps rebased in f32: ``(arrays, now_value, epoch)`` with
+        ``arrays`` = values, ts, hot_value, hot_ts, node_valid, capacity,
+        offsets."""
         np_dtype = self._np_dtype()
         ts = np.asarray(snapshot.ts, np.float64)
         hot_ts = np.asarray(snapshot.hot_ts, np.float64)
@@ -221,38 +288,56 @@ class ScheduleStep:
             hot_ts = hot_ts - epoch
             now_value = 0.0
         n = ts.shape[0]
-        up = self._upload
-        prepared = PreparedSnapshot(
-            values=up(np.asarray(snapshot.values, dtype=np_dtype)),
-            ts=up(ts.astype(np_dtype)),
-            hot_value=up(np.asarray(snapshot.hot_value, dtype=np_dtype)),
-            hot_ts=up(hot_ts.astype(np_dtype)),
-            node_valid=up(np.asarray(snapshot.node_valid, dtype=bool)),
-            now=self.scorer.consts.round(now_value),
-            capacity=up(np.full((n,), 1 << 30, dtype=np.int64)),
-            offsets=up(np.zeros((n,), dtype=np.int32)),
-            epoch=epoch,
+        if capacity is None:
+            capacity = np.full((n,), 1 << 30, dtype=np.int64)
+        if offsets is None:
+            offsets = np.zeros((n,), dtype=np.int32)
+        arrays = (
+            np.asarray(snapshot.values, dtype=np_dtype),
+            ts.astype(np_dtype),
+            np.asarray(snapshot.hot_value, dtype=np_dtype),
+            hot_ts.astype(np_dtype),
+            np.asarray(snapshot.node_valid, dtype=bool),
+            np.asarray(capacity, dtype=np.int64),
+            np.asarray(offsets, dtype=np.int32),
+        )
+        return arrays, now_value, epoch
+
+    def _prepare_rows(self, snapshot, now: float, capacity, offsets, n_rows: int,
+                      host_row0: int) -> PreparedSnapshot:
+        """Upload ``snapshot``, which holds the ``n_rows``-row node axis's
+        rows from ``host_row0`` on (all of them, or one process's shard)."""
+        arrays, now_value, epoch = self._host_arrays(snapshot, now, capacity, offsets)
+        spans = self._row_spans(n_rows, host_row0)
+        values, ts, hot_value, hot_ts, node_valid, capacity, offsets = (
+            self._put(a, spans) for a in arrays
+        )
+        prepared = self._snapshot(
+            dict(values=values, ts=ts, hot_value=hot_value, hot_ts=hot_ts,
+                 node_valid=node_valid, now=self.scorer.consts.round(now_value),
+                 capacity=capacity, offsets=offsets, epoch=epoch),
+            n_rows, host_row0, int(arrays[1].shape[0]),
         )
         if self.hybrid:
             # the risk scan overlaps the uploads still in flight
             prepared = dataclasses.replace(
-                prepared, **self._override_vectors(snapshot, float(now))
+                prepared, **self._override_vectors(prepared, snapshot, float(now))
             )
         return prepared
 
-    def _override_vectors(self, snapshot, now: float, rebase_age: float = 0.0) -> dict:
+    def _override_vectors(self, prepared: PreparedSnapshot, snapshot, now: float,
+                          rebase_age: float = 0.0) -> dict:
         """Compute (a full scan) and upload the hybrid f64 rescue vectors
         for ``(snapshot, now)``."""
-        ovr_mask, ovr_sched, ovr_score, _, new_cache, scanned = (
-            compute_overrides_incremental(
-                self.tensors, snapshot.values, snapshot.ts, snapshot.hot_value,
-                snapshot.hot_ts, snapshot.node_valid, now, rebase_age=rebase_age,
-            )
+        mask, sched, score, _, new_cache, scanned = compute_overrides_incremental(
+            self.tensors, snapshot.values, snapshot.ts, snapshot.hot_value,
+            snapshot.hot_ts, snapshot.node_valid, now, rebase_age=rebase_age,
         )
+        spans = self._spans(prepared)
         return {
-            "ovr_mask": self._upload(ovr_mask),
-            "ovr_sched": self._upload(ovr_sched),
-            "ovr_score": self._upload(np.asarray(ovr_score, dtype=np.int32)),
+            "ovr_mask": self._put(np.asarray(mask, bool), spans),
+            "ovr_sched": self._put(np.asarray(sched, bool), spans),
+            "ovr_score": self._put(np.asarray(score, np.int32), spans),
             "ovr_now": now,
             "ovr_cache": new_cache,
             "ovr_rescan_rows": scanned,
@@ -284,57 +369,58 @@ class ScheduleStep:
 
     def _with_overrides_impl(self, prepared: PreparedSnapshot, snapshot, now: float,
                              force: bool, dirty_rows) -> PreparedSnapshot:
-        age = abs(float(now) - prepared.epoch)
+        now = float(now)
+        age = abs(now - prepared.epoch)
+        spans = self._spans(prepared)
         if age > EPOCH_REBASE_SECONDS:  # hybrid is always non-f64
-            np_dtype = np.float32
-            ts = np.asarray(snapshot.ts, np.float64) - float(now)
-            hot_ts = np.asarray(snapshot.hot_ts, np.float64) - float(now)
+            ts = (np.asarray(snapshot.ts, np.float64) - now).astype(np.float32)
+            hot_ts = (np.asarray(snapshot.hot_ts, np.float64) - now).astype(np.float32)
+            rebased = dataclasses.replace(
+                prepared, ts=self._put(ts, spans), hot_ts=self._put(hot_ts, spans),
+                now=0.0, epoch=now,
+            )
             return dataclasses.replace(
-                prepared,
-                ts=self._upload(ts.astype(np_dtype)),
-                hot_ts=self._upload(hot_ts.astype(np_dtype)),
-                now=0.0,
-                epoch=float(now),
-                **self._override_vectors(snapshot, float(now), rebase_age=0.0),
+                rebased, **self._override_vectors(rebased, snapshot, now)
             )
         cache = prepared.ovr_cache if prepared.ovr_mask is not None else None
         if force and dirty_rows is None:
             cache = None  # unknown mutations: a full rescan is required
         if cache is None:
             return dataclasses.replace(
-                prepared, **self._override_vectors(snapshot, float(now), rebase_age=age)
+                prepared, **self._override_vectors(prepared, snapshot, now, age)
             )
-        mask, sched, score, changed, new_cache, scanned = (
-            compute_overrides_incremental(
-                self.tensors, snapshot.values, snapshot.ts, snapshot.hot_value,
-                snapshot.hot_ts, snapshot.node_valid, float(now),
-                cache=cache, dirty_rows=dirty_rows, rebase_age=age,
-            )
+        mask, sched, score, changed, new_cache, scanned = compute_overrides_incremental(
+            self.tensors, snapshot.values, snapshot.ts, snapshot.hot_value,
+            snapshot.hot_ts, snapshot.node_valid, now,
+            cache=cache, dirty_rows=dirty_rows, rebase_age=age,
         )
+        host = {"ovr_mask": np.asarray(mask, bool), "ovr_sched": np.asarray(sched, bool),
+                "ovr_score": np.asarray(score, np.int32)}
         if changed is None:  # the cache was rebuilt: full re-upload
             return dataclasses.replace(
-                prepared,
-                ovr_mask=self._upload(mask),
-                ovr_sched=self._upload(sched),
-                ovr_score=self._upload(np.asarray(score, dtype=np.int32)),
-                ovr_now=float(now), ovr_cache=new_cache,
-                ovr_rescan_rows=scanned,
+                prepared, **{k: self._put(v, spans) for k, v in host.items()},
+                ovr_now=now, ovr_cache=new_cache, ovr_rescan_rows=scanned,
             )
         if changed.size == 0:  # nothing changed on device: no upload
-            return dataclasses.replace(
-                prepared, ovr_now=float(now), ovr_cache=new_cache,
-                ovr_rescan_rows=0,
-            )
-        idx = self._upload(changed.astype(np.int64))
-        return dataclasses.replace(
-            prepared,
-            ovr_mask=prepared.ovr_mask.index_copy(0, idx, self._upload(mask[changed])),
-            ovr_sched=prepared.ovr_sched.index_copy(0, idx, self._upload(sched[changed])),
-            ovr_score=prepared.ovr_score.index_copy(
-                0, idx, self._upload(np.asarray(score[changed], dtype=np.int32))
-            ),
-            ovr_now=float(now), ovr_cache=new_cache, ovr_rescan_rows=scanned,
-        )
+            return dataclasses.replace(prepared, ovr_now=now, ovr_cache=new_cache,
+                                       ovr_rescan_rows=0)
+        out = self._scatter(prepared, spans, changed,
+                            {k: v[changed] for k, v in host.items()})
+        return dataclasses.replace(prepared, **out, ovr_now=now, ovr_cache=new_cache,
+                                   ovr_rescan_rows=scanned)
+
+    def _scatter(self, prepared: PreparedSnapshot, spans, rows, host: dict) -> dict:
+        """New copies of the fields named in ``host`` with ``rows`` (host
+        numbering) replaced by ``host[name]`` (one entry per row), by one
+        ``index_copy`` per touched tile."""
+        out = {name: self._tiles(getattr(prepared, name)) for name in host}
+        for t, ((dev, _a, _b), (local, pos)) in enumerate(zip(spans, split_rows(rows, spans))):
+            if local.size == 0:
+                continue
+            idx = upload(local, dev)
+            for name, arr in host.items():
+                out[name][t] = out[name][t].index_copy(0, idx, upload(arr[pos], dev))
+        return {name: self._join(tiles) for name, tiles in out.items()}
 
     def with_vectors(self, prepared: PreparedSnapshot, capacity=None,
                      offsets=None) -> PreparedSnapshot:
@@ -342,12 +428,13 @@ class ScheduleStep:
         reusing the resident load tensors: only the ``[N]`` capacity
         (clipped to 2^31-1) and offset rows upload (the per-gang-request
         path)."""
+        spans = self._spans(prepared)
         changes = {}
         if capacity is not None:
             capacity = np.minimum(np.asarray(capacity, np.int64), 2**31 - 1)
-            changes["capacity"] = self._upload(capacity)
+            changes["capacity"] = self._put(capacity, spans)
         if offsets is not None:
-            changes["offsets"] = self._upload(np.asarray(offsets, np.int32))
+            changes["offsets"] = self._put(np.asarray(offsets, np.int32), spans)
         return dataclasses.replace(prepared, **changes) if changes else prepared
 
     # -- resident-snapshot updates -----------------------------------------
@@ -358,8 +445,10 @@ class ScheduleStep:
         instead of re-uploading full matrices. Timestamps rebase to the
         snapshot's existing epoch (in float64 on the host, then cast), so
         the result equals a full ``prepare`` of the updated store at the
-        same epoch bit for bit. Hybrid callers must refresh their override
-        vectors afterwards: the rescue rows derive from the changed data."""
+        same epoch bit for bit. Rows past the snapshot drop (the
+        reference's padding index). Hybrid callers must refresh their
+        override vectors afterwards: the rescue rows derive from the
+        changed data."""
         k = len(rows)
         if k == 0:
             return prepared
@@ -371,16 +460,14 @@ class ScheduleStep:
     def _apply_delta_impl(self, prepared, rows, values_rows, ts_rows, hot_rows,
                           hot_ts_rows) -> PreparedSnapshot:
         np_dtype = self._np_dtype()
-        up = self._upload
-        idx = up(np.asarray(rows, dtype=np.int64))
-        ts_rows = np.asarray(ts_rows, np.float64) - prepared.epoch
-        hot_ts_rows = np.asarray(hot_ts_rows, np.float64) - prepared.epoch
+        host = {
+            "values": np.asarray(values_rows, np_dtype),
+            "ts": (np.asarray(ts_rows, np.float64) - prepared.epoch).astype(np_dtype),
+            "hot_value": np.asarray(hot_rows, np_dtype),
+            "hot_ts": (np.asarray(hot_ts_rows, np.float64) - prepared.epoch).astype(np_dtype),
+        }
         return dataclasses.replace(
-            prepared,
-            values=prepared.values.index_copy(0, idx, up(np.asarray(values_rows, np_dtype))),
-            ts=prepared.ts.index_copy(0, idx, up(ts_rows.astype(np_dtype))),
-            hot_value=prepared.hot_value.index_copy(0, idx, up(np.asarray(hot_rows, np_dtype))),
-            hot_ts=prepared.hot_ts.index_copy(0, idx, up(hot_ts_rows.astype(np_dtype))),
+            prepared, **self._scatter(prepared, self._spans(prepared), rows, host)
         )
 
     def apply_columns(self, prepared: PreparedSnapshot, entries, n: int) -> PreparedSnapshot:
@@ -397,52 +484,72 @@ class ScheduleStep:
 
     def _apply_columns_impl(self, prepared: PreparedSnapshot, entries, n: int) -> PreparedSnapshot:
         np_dtype = self._np_dtype()
-        up = self._upload
-        npad = int(prepared.capacity.shape[0])
+        spans = self._spans(prepared)
+        npad = spans[-1][2]  # the host rows the spans cover
         own: dict = {}
+        cloned: set = set()
 
-        def private(name):
-            # one copy of each touched array per replay, then written in place
-            t = own.get(name)
-            if t is None:
-                t = own[name] = getattr(prepared, name).clone()
-            return t
+        def private(name, t):
+            # one copy of each touched tile per replay, then written in place
+            tiles = own.setdefault(name, self._tiles(getattr(prepared, name)))
+            if (name, t) not in cloned:
+                tiles[t] = tiles[t].clone()
+                cloned.add((name, t))
+            return tiles[t]
 
         for col, ids, v, t, hv, ht in entries:
+            ids = np.asarray(ids)
             full = len(ids) == n and np.array_equal(ids, np.arange(n, dtype=ids.dtype))
-            idx = None if full else up(np.asarray(ids, dtype=np.int64))
+            parts = None if full else split_rows(ids, spans)
             if col is not None:
-                values, ts = private("values"), private("ts")
                 t64 = np.asarray(t, np.float64) - prepared.epoch
                 if full:
                     v_pad = np.full((npad,), np.nan)
                     v_pad[:n] = v
-                    values[:, col] = up(v_pad.astype(np_dtype))
-                    if t64.size and np.all(t64 == t64[0]):
-                        # one scalar, rounded to the dtype on the host
-                        ts[:, col] = float(np_dtype(t64[0]))
-                    else:
+                    v_pad = v_pad.astype(np_dtype)
+                    uniform = t64.size and np.all(t64 == t64[0])
+                    if not uniform:
                         t_pad = np.full((npad,), -np.inf)
                         t_pad[:n] = t64
-                        ts[:, col] = up(t_pad.astype(np_dtype))
+                        t_pad = t_pad.astype(np_dtype)
+                    for k, (dev, a, b) in enumerate(spans):
+                        private("values", k)[:, col] = upload(v_pad[a:b], dev)
+                        if uniform:
+                            # one scalar, rounded to the dtype on the host
+                            private("ts", k)[:, col] = float(np_dtype(t64[0]))
+                        else:
+                            private("ts", k)[:, col] = upload(t_pad[a:b], dev)
                 else:
-                    values[idx, col] = up(np.asarray(v, np_dtype))
-                    ts[idx, col] = up(t64.astype(np_dtype))
+                    vv = np.asarray(v, np_dtype)
+                    tt = t64.astype(np_dtype)
+                    for k, ((dev, _a, _b), (local, pos)) in enumerate(zip(spans, parts)):
+                        if local.size:
+                            idx = upload(local, dev)
+                            private("values", k)[idx, col] = upload(vv[pos], dev)
+                            private("ts", k)[idx, col] = upload(tt[pos], dev)
             if hv is not None:
                 ht64 = np.asarray(ht, np.float64) - prepared.epoch
                 if full:
-                    # fresh uploads: private already, nothing to clone
                     h_pad = np.full((npad,), np.nan)
                     h_pad[:n] = hv
                     ht_pad = np.full((npad,), -np.inf)
                     ht_pad[:n] = ht64
-                    own["hot_value"] = up(h_pad.astype(np_dtype))
-                    own["hot_ts"] = up(ht_pad.astype(np_dtype))
+                    # fresh uploads: private already, nothing to clone
+                    for name, arr in (("hot_value", h_pad), ("hot_ts", ht_pad)):
+                        arr = arr.astype(np_dtype)
+                        own[name] = [upload(arr[a:b], dev) for dev, a, b in spans]
+                        cloned.update((name, k) for k in range(len(spans)))
                 else:
-                    hot, hot_ts = private("hot_value"), private("hot_ts")
-                    hot[idx] = up(np.asarray(hv, np_dtype))
-                    hot_ts[idx] = up(ht64.astype(np_dtype))
-        return dataclasses.replace(prepared, **own) if own else prepared
+                    hh = np.asarray(hv, np_dtype)
+                    hts = ht64.astype(np_dtype)
+                    for k, ((dev, _a, _b), (local, pos)) in enumerate(zip(spans, parts)):
+                        if local.size:
+                            idx = upload(local, dev)
+                            private("hot_value", k)[idx] = upload(hh[pos], dev)
+                            private("hot_ts", k)[idx] = upload(hts[pos], dev)
+        if not own:
+            return prepared
+        return dataclasses.replace(prepared, **{k: self._join(v) for k, v in own.items()})
 
     # -- calls -------------------------------------------------------------
 
@@ -479,11 +586,17 @@ class ScheduleStep:
         Bursts below ``COMPACT_MAX_PODS`` use the compact [N+2] layout
         (a third of the wide [3N+2] layout's bytes); larger bursts use
         the wide one. ``unpack`` tells them apart by dtype."""
-        vecs = self._args(prepared, now)
         num_pods = int(num_pods)
-        if num_pods < COMPACT_MAX_PODS:
-            return PackedFetch(self._step_packed_compact(vecs, num_pods), compact=True)
-        return PackedFetch(self._step_packed(vecs, num_pods), compact=False)
+        compact = num_pods < COMPACT_MAX_PODS
+        return PackedFetch(self._packed_words(prepared, num_pods, now, compact),
+                           compact=compact)
+
+    def _packed_words(self, prepared: PreparedSnapshot, num_pods: int, now,
+                      compact: bool) -> torch.Tensor:
+        vecs = self._args(prepared, now)
+        if compact:
+            return self._step_packed_compact(vecs, num_pods)
+        return self._step_packed(vecs, num_pods)
 
     @staticmethod
     def unpack(packed_host: np.ndarray, n: int):

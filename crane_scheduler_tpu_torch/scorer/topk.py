@@ -409,57 +409,96 @@ class GangScheduler:
         (0-dim int32 tensors) out. All arithmetic is int32, exact because
         per-node tokens are clipped to (2^31-1)/N so every level total
         fits. ``levels=None`` scans the dense grid through ``_totals``; a
-        ``candidate_levels`` array scans only achievable token values."""
-        n = scores.shape[0]
-        n_levels = self._n_levels
+        ``candidate_levels`` array scans only achievable token values.
+
+        The solve runs in three phases, which ``parallel.sharded`` runs
+        once per node tile with the combines between them done across
+        tiles: tile-local clipped inputs and level totals
+        (``_tile_inputs``, ``_tile_totals``); one global combine, the
+        waterline ``l_star`` from the summed totals (``_waterline``) and
+        the remainder from the summed ``upper``; tile-local counts, whose
+        node-order prefix starts at the tile's offset (``_tile_counts``)."""
         num_pods = min(int(num_pods), 2**31 - 1)
+        s, offs, k_cap, pri = self._tile_inputs(
+            scores, schedulable, num_pods, capacity, offsets, prior, scores.shape[0]
+        )
+        if levels is not None:
+            levels = levels.to(torch.int32)  # [C], levels[0] == 0
+        totals = self._tile_totals(s, offs, k_cap, pri, levels)
+        if levels is None:
+            levels = torch.arange(self._n_levels, dtype=torch.int32, device=s.device)
+        l_star = self._waterline(totals, levels, num_pods)
+        upper, exact = self._tile_upper_exact(s, offs, k_cap, pri, l_star)
+        # sum(upper) == totals(L* + 1) exactly (int32 sums)
+        remainder = num_pods - upper.sum(dtype=torch.int32)
+        counts = self._tile_counts(k_cap, upper, exact, remainder, 0, l_star)
+        unassigned, waterline = self._outcome(totals, l_star, num_pods)
+        return counts, unassigned, waterline
+
+    # -- the solve's phases ------------------------------------------------
+
+    def _tile_inputs(self, scores, schedulable, num_pods: int, capacity, offsets,
+                     prior, n_global: int):
+        """Phase 1, tile-local: the clipped int32 ``(s, offs, k_cap, pri)``.
+        The token clip ``(2^31-1) // N`` takes the global row count
+        ``n_global`` (the reference's GSPMD program sees the global
+        array), never the tile's own."""
         capacity = torch.clamp(capacity, 0, 2**31 - 1).to(torch.int32)
         k_cap = torch.where(schedulable, capacity, 0)
         # no node ever needs more than num_pods tokens; the second clip
         # keeps the level-total reductions within int32
         k_cap = torch.clamp(k_cap, max=max(num_pods, 0))
-        k_cap = torch.clamp(k_cap, max=(2**31 - 1) // max(n, 1)).contiguous()
-
+        k_cap = torch.clamp(k_cap, max=(2**31 - 1) // max(int(n_global), 1)).contiguous()
         s = scores.to(torch.int32).contiguous()
         offs = torch.clamp(offsets.to(torch.int32), 0, self._max_offset).contiguous()
         pri = torch.clamp(prior.to(torch.int32), 0, 2**31 - 1).contiguous()
+        return s, offs, k_cap, pri
 
+    def _tile_totals(self, s, offs, k_cap, pri, levels=None):
+        """Phase 1, tile-local: the level totals over ``levels``; None is the
+        dense grid (one K2 launch on CUDA tensors)."""
         if levels is None:
-            levels = torch.arange(n_levels, dtype=torch.int32, device=s.device)
-            totals = self._totals(s, offs, k_cap, pri)  # [n_levels]
-        else:
-            levels = levels.to(torch.int32)  # [C], levels[0] == 0
-            totals = self._a_table(
-                s[None, :], offs[None, :], k_cap[None, :], pri[None, :],
-                levels[:, None],
-            ).sum(dim=1, dtype=torch.int32)
+            return self._totals(s, offs, k_cap, pri)  # [n_levels]
+        return self._a_table(
+            s[None, :], offs[None, :], k_cap[None, :], pri[None, :], levels[:, None],
+        ).sum(dim=1, dtype=torch.int32)
 
+    @staticmethod
+    def _waterline(totals, levels, num_pods: int):
+        """Phase 2, global: ``l_star`` over the totals of every node (-1:
+        capacity short)."""
         meets = totals >= num_pods  # True for L <= L*
-        l_star = torch.where(meets, levels, -1).max()  # -1: capacity short
-        short = l_star < 0
-        # Both outcomes are computed and selected on the device (the
-        # reference branches with lax.cond); with capacity short the
-        # waterline side runs at level 0 and is discarded.
+        return torch.where(meets, levels, -1).max()
+
+    def _tile_upper_exact(self, s, offs, k_cap, pri, l_star):
+        """Phase 3, tile-local: tokens above ``l_star`` and exactly at it.
+        Both outcomes are computed and selected on the device (the
+        reference branches with lax.cond); with capacity short the
+        waterline side runs at level 0 and is discarded."""
         l_at = torch.clamp(l_star, min=0)
         upper = torch.where(
-            l_at + 1 >= n_levels, 0, self._a_table(s, offs, k_cap, pri, l_at + 1)
+            l_at + 1 >= self._n_levels, 0, self._a_table(s, offs, k_cap, pri, l_at + 1)
         )
         at_or_above = self._a_table(s, offs, k_cap, pri, l_at)
-        exact = at_or_above - upper  # tokens exactly at L*
-        # sum(upper) == totals(L* + 1) exactly (int32 sums)
-        remainder = num_pods - upper.sum(dtype=torch.int32)
-        # exclusive prefix sum in node-index order, int32 pinned
-        prefix = torch.cumsum(exact, dim=0, dtype=torch.int32) - exact
+        return upper, at_or_above - upper
+
+    @staticmethod
+    def _tile_counts(k_cap, upper, exact, remainder, offset, l_star):
+        """Phase 3, tile-local: counts per node. ``offset`` is the exclusive
+        sum of ``exact`` over the earlier tiles (0 for one tile), so the
+        node-order prefix runs on across tiles; int32 pinned."""
+        prefix = offset + torch.cumsum(exact, dim=0, dtype=torch.int32) - exact
         take = torch.minimum(torch.clamp(remainder - prefix, min=0), exact)
-        counts = torch.where(short, k_cap, upper + take)
-        # levels[0] == 0 in both grids: totals[0] counts every token
+        return torch.where(l_star < 0, k_cap, upper + take).to(torch.int32)
+
+    @staticmethod
+    def _outcome(totals, l_star, num_pods: int):
+        """``(unassigned, waterline)``: 0-dim int32. ``totals[0]`` counts
+        every token (``levels[0] == 0`` in both grids)."""
+        short = l_star < 0
         unassigned = torch.where(short, num_pods - totals[0], 0)
         waterline = torch.where(short, -1, l_star)
-        return (
-            counts.to(torch.int32),
-            unassigned.to(torch.int32),
-            waterline.to(torch.int32),
-        )
+        return unassigned.to(torch.int32), waterline.to(torch.int32)
 
 
 # ---------------------------------------------------------------------------

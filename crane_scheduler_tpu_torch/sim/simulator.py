@@ -2,8 +2,8 @@
 
 Copy of ``crane_scheduler_tpu/sim/simulator.py``. ``build_scheduler`` and
 ``build_batch_scheduler`` take ``device=`` (``None`` means the GPU and
-raises without one); ``mesh=`` raises until the multi-GPU slice
-(``ROADMAP.md`` Queue 1 item 7). A metric column renders in one host-library
+raises without one); ``build_batch_scheduler(mesh=)`` tiles the step over
+a node mesh. A metric column renders in one host-library
 call (``native.codec.bulk_render_f5``) and is served in the aligned
 three-column form ``(hosts, strings, floats)``, as in the reference. The
 base loads come from ``random.Random(seed)`` in node order, exactly as in
@@ -244,11 +244,6 @@ class Simulator:
     def build_batch_scheduler(
         self, dtype=None, mesh=None, bucket=2048, device=None
     ) -> BatchScheduler:
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh= needs the node-sharded step, which the PyTorch port "
-                "does not have yet (ROADMAP.md Queue 1 item 7)"
-            )
         return BatchScheduler(
             self.cluster,
             self.policy,
@@ -256,6 +251,7 @@ class Simulator:
             clock=self.clock,
             snapshot_bucket=bucket,
             device=device,
+            mesh=mesh,
         )
 
     def record(self, node: str | None) -> None:

@@ -518,8 +518,19 @@ def test_simulator_closed_loop_strings_and_placements_equal_reference():
                 sim.sync_metrics()
             assert annos(port.cluster) == annos(ref.cluster), k
     assert [p for p, _ in placed] == [r for _, r in placed] and placed[0][0]
-    with pytest.raises(NotImplementedError, match="item 7"):
-        port.build_batch_scheduler(mesh=object(), device="cpu")
+    # the batch path on a node mesh: two tiles, against the reference's
+    # two virtual devices
+    from crane_scheduler_tpu.parallel import make_node_mesh as ref_node_mesh
+    from crane_scheduler_tpu_torch.parallel import make_node_mesh
+
+    rb = ref.build_batch_scheduler(mesh=ref_node_mesh(2))
+    pb = port.build_batch_scheduler(mesh=make_node_mesh(2, [torch.device("cpu")] * 2),
+                                    device="cpu")
+    r_pods = [ref.make_pod() for _ in range(30)]
+    p_pods = [port.make_pod() for _ in range(30)]
+    want, got = rb.schedule_batch(r_pods), pb.schedule_batch(p_pods)
+    assert got.assignments == want.assignments and got.scores == want.scores
+    assert len(got.assignments) == 30
 
 
 def test_simulator_direct_store_rows_equal_reference():

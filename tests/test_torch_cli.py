@@ -22,9 +22,12 @@ as subprocesses of each package over identically seeded stubs
 crane-descheduler ``--master`` with its two-life indeterminate eviction),
 result lines equal apart from ``wall_seconds`` and the stub's URL; the
 reference's drip window imports only with the ``enable_x64`` shim, which
-its subprocess sets in a ``-c`` wrapper. ``--placement-mesh`` under
-``--master`` still exits with a usage error naming its ``ROADMAP.md``
-item. The config loaders give
+its subprocess sets in a ``-c`` wrapper. The multi-GPU flags:
+``--placement-mesh`` under ``--master`` (one tile equals the reference;
+more tiles than the host has devices fail with the reference's error),
+crane-sim ``--mode sharded`` and crane-scorer's three distributed flags
+(the ``/v1/score`` body equals the non-distributed run's). The config
+loaders give
 the reference's configuration from every committed deploy document
 (PyYAML is on the card, so they read YAML there too).
 Equality throughout.
@@ -150,19 +153,125 @@ def test_crane_scheduler_master_only_flags_do_nothing_in_sim_mode(capsys):
     ["--concurrent-syncs", "4"],
 ])
 def test_crane_scheduler_refuses_kube_mirror_flags(flags, capsys):
-    """The kube mirror's flags and the serving, journal and shard planes on
-    it parse; with ``--master`` only ``--placement-mesh`` (multi-GPU) is
-    still refused at parse time, naming its item (7). The apiserver is a
-    local address with nothing behind it: the refusal comes before any
-    connection."""
-    with pytest.raises(SystemExit) as exc:
-        scheduler_main.main(["--device", "cpu", *flags, "--master", "http://127.0.0.1:1",
-                             "--serve", "--journal-dir", "/nonexistent", "--lock-file",
-                             "/nonexistent/l", "--shards", "2", "--placement-mesh", "2"])
-    assert exc.value.code == 2
-    err = capsys.readouterr().err
-    assert "ROADMAP.md Queue 1 item 7" in err and "--placement-mesh" in err
-    assert "item 8" not in err
+    """Every flag of the kube mirror and its planes runs now, with
+    ``--placement-mesh 1`` too (the last multi-GPU refusal is gone): a
+    one-shot plugin pass over two identically seeded stubs, in-process,
+    the port's drip window on a one-tile placement mesh of the CPU and the
+    reference's on its first virtual device. Result lines and bindings
+    equal."""
+    import time as _time
+
+    now = _time.time()
+    out = []
+    for main, extra in ((ref_scheduler_main.main, []),
+                        (scheduler_main.main, ["--device", "cpu"])):
+        server = _master_stub(now)
+        try:
+            line = _result_line(main, [*flags, "--master", server.url, "--placement-mesh", "1",
+                                       "--pods", "12", *extra], capsys)
+            assert line.pop("master") == server.url
+            out.append((line, _bindings(server.state)))
+        finally:
+            server.stop()
+    assert out[1] == out[0] and out[0][0]["scheduled"] > 0
+
+
+def test_crane_scheduler_placement_mesh_above_device_count_fails_like_reference():
+    """``--placement-mesh 2`` on a host with one device (the reference's CPU
+    platform, the port's ``--device cpu``): both processes fail with the
+    reference's device-count error once the mirror is up."""
+    import time as _time
+
+    errs = []
+    for pkg in ("ref", "port"):
+        server = _master_stub(_time.time())
+        try:
+            proc = _scheduler_proc(pkg, ["--master", server.url, "--placement-mesh", "2"])
+            _out, err = proc.communicate(timeout=120)
+        finally:
+            server.stop()
+        assert proc.returncode == 1, err[-1500:]
+        errs.append(err.strip().splitlines()[-1])
+    assert errs[0] == errs[1] == "ValueError: requested 2 devices, only 1 available"
+
+
+@pytest.mark.parametrize("devices", ["1", "0"])
+def test_crane_sim_sharded_mode_equals_reference(devices, capsys):
+    """crane-sim ``--mode sharded`` in both packages, in-process: the
+    reference on its first virtual device (``--devices 1``; ``0`` means
+    all, so the port's one CPU device against the reference's eight),
+    the result lines equal apart from the latencies and the port's device
+    and launch keys."""
+    from crane_scheduler_tpu.cli import sim_main as ref_sim_main
+    from crane_scheduler_tpu_torch.cli import sim_main
+
+    def line(main, args):
+        assert main(args) == 0
+        return json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+
+    argv = ["--nodes", "48", "--pods", "96", "--mode", "sharded", "--devices", devices]
+    want = line(ref_sim_main.main, argv)
+    got = line(sim_main.main, [*argv, "--device", "cpu"])
+    for line in (want, got):
+        line.pop("latency_ms")
+    assert got.pop("device") == "cpu" and got.pop("kernel_launches")
+    assert got == want and got["scheduled"] == 96
+
+
+def test_crane_scorer_distributed_flags_serve_the_same_body(tmp_path):
+    """crane-scorer ``--coordinator-address`` / ``--num-processes`` /
+    ``--process-id`` (a one-process gloo group on the CPU): the process
+    line, then one ``/v1/score`` whose body is byte-equal to a
+    non-distributed run's (apart from the staleness, which is each
+    process's own refresh time)."""
+    import http.client
+    import socket
+    import time as _time
+
+    def free_port():
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            return s.getsockname()[1]
+
+    bodies, lines = [], []
+    for dist in (False, True):
+        port = free_port()
+        argv = [sys.executable, "-m", "crane_scheduler_tpu_torch.cli.service_main",
+                "--device", "cpu", "--demo-nodes", "16", "--port", str(port),
+                "--run-seconds", "60", "--now-bucket", "0"]
+        if dist:
+            argv += ["--coordinator-address", f"127.0.0.1:{free_port()}",
+                     "--num-processes", "1", "--process-id", "0"]
+        proc = subprocess.Popen(argv, cwd=REPO, env=_cli_env(), stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+        try:
+            deadline = _time.monotonic() + 60.0
+            while True:
+                try:
+                    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=10)
+                    conn.request("POST", "/v1/score", body=b'{"now": 1753776000.0}',
+                                 headers={"Content-Type": "application/json"})
+                    resp = conn.getresponse()
+                    break
+                except OSError:
+                    assert proc.poll() is None, proc.communicate()
+                    assert _time.monotonic() < deadline, "CLI did not come up"
+                    _time.sleep(0.1)
+            assert resp.status == 200
+            bodies.append(resp.read())
+            conn.close()
+        finally:
+            proc.send_signal(signal.SIGTERM)
+            out, err = proc.communicate(timeout=60)
+        assert proc.returncode == 0, err[-1500:]
+        lines.append([ln for ln in out.splitlines() if ln.startswith("torch.distributed")])
+    # the staleness is the request's `now` minus each process's refresh
+    # time; every other byte is equal
+    import re
+
+    same = [re.sub(rb'"stalenessSeconds": [-0-9.e]+', b"", b) for b in bodies]
+    assert same[0] == same[1] and b'"backend": "cpu"' in bodies[0]
+    assert lines == [[], ["torch.distributed: process 0/1, 1 global devices"]]
 
 
 def test_batch_mode_sweep_caches_follow_binds():

@@ -3,6 +3,7 @@ package and without PyYAML, and its entry points never move to the CPU
 on their own."""
 
 import ast
+import json
 import os
 import re
 import subprocess
@@ -146,10 +147,17 @@ def test_drip_entry_points_without_device_need_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Scheduler(ClusterState(), telemetry=tel)
     assert Scheduler(ClusterState(), telemetry=tel, device="cpu")._telemetry is tel
-    with pytest.raises(NotImplementedError, match="mesh"):
-        Scheduler(ClusterState(), mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        DripBatchKernel(mesh=object(), device="cpu")
+    # a placement mesh: CPU tiles only when passed explicitly; the default
+    # mesh needs the GPUs it names and never shrinks to the CPU
+    from crane_scheduler_tpu_torch.parallel.mesh import make_placement_mesh
+
+    cpu2 = make_placement_mesh(2, [torch.device("cpu")] * 2)
+    assert Scheduler(ClusterState(), mesh=cpu2, device="cpu")._kernel_mesh is cpu2
+    assert DripBatchKernel(mesh=cpu2, device="cpu").mesh is cpu2
+    with pytest.raises(ValueError, match="requested 2 devices, only 0 available"):
+        Scheduler(ClusterState(), mesh=make_placement_mesh(2), device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DripBatchKernel(mesh=make_placement_mesh())
     # the CPU is used only when asked for
     assert Scheduler(ClusterState(), device="cpu").device.type == "cpu"
     assert DripBatchKernel(device="cpu").device.type == "cpu"
@@ -186,9 +194,23 @@ def test_metrics_sync_plane_entry_points_default_to_cuda(monkeypatch, capsys):
         with pytest.raises(urllib.error.URLError):
             annotator_main.main(["--device", "cpu", "--health-port", "0", *argv])
         assert "ROADMAP" not in capsys.readouterr().err
-    with pytest.raises(SystemExit) as exc:
-        sim_main.main(["--device", "cpu", "--mode", "sharded"])
-    assert exc.value.code == 2 and "Queue 1 item 7" in capsys.readouterr().err
+    # crane-sim's sharded mode: the card unless --device cpu, where the
+    # host is one device, as in the reference's CPU platform; the line
+    # equals the reference's (in-process on its first virtual device)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sim_main.main(["--mode", "sharded"])
+    assert sim_main.main(["--device", "cpu", "--mode", "sharded", "--devices", "1"]) == 0
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    from crane_scheduler_tpu.cli import sim_main as ref_sim_main
+
+    assert ref_sim_main.main(["--mode", "sharded", "--devices", "1"]) == 0
+    want = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    for key in ("latency_ms",):
+        line.pop(key), want.pop(key)
+    assert line.pop("device") == "cpu" and line.pop("kernel_launches")
+    assert line == want and line["mode"] == "sharded"
+    with pytest.raises(ValueError, match="requested 2 devices, only 1 available"):
+        sim_main.main(["--device", "cpu", "--mode", "sharded", "--devices", "2"])
 
 
 def test_front_doors_default_to_cuda(monkeypatch, capsys):

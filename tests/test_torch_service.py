@@ -620,6 +620,13 @@ def test_cli_serves_on_cpu():
     (["--coordinator-address", "127.0.0.1:1234"], "item 7"),
 ])
 def test_cli_refuses_unported_planes(flags, item, capsys):
+    """Every plane of the reference's crane-scorer is ported now. The kube
+    mirror's flags (item 8) go on to list the apiserver. The
+    multi-process flags (item 7): ``--coordinator-address`` joins a
+    one-process ``torch.distributed`` group and prints the reference's
+    process line (the reference's ``jax.distributed`` line, held against
+    it word for word after the prefix); ``--num-processes`` alone does
+    nothing, as in the reference."""
     from crane_scheduler_tpu_torch.cli import service_main
 
     if item == "item 8":
@@ -632,11 +639,25 @@ def test_cli_refuses_unported_planes(flags, item, capsys):
             service_main.main(["--device", "cpu", *flags, "--master", "http://127.0.0.1:1"])
         assert "item 8" not in capsys.readouterr().err
         return
-    with pytest.raises(SystemExit) as exc:
-        service_main.main(["--device", "cpu", *flags])
-    assert exc.value.code == 2
-    err = capsys.readouterr().err
-    assert f"ROADMAP.md Queue 1 {item}" in err and flags[0] in err
+    lines = {}
+    for pkg, extra, env in (("crane_scheduler_tpu_torch", ["--device", "cpu"], {}),
+                            ("crane_scheduler_tpu", [], {"JAX_PLATFORMS": "cpu"})):
+        argv = list(flags)
+        if flags[0] == "--coordinator-address":
+            argv = ["--coordinator-address", f"127.0.0.1:{_free_port()}",
+                    "--num-processes", "1", "--process-id", "0"]
+        out = subprocess.run(
+            [sys.executable, "-m", f"{pkg}.cli.service_main", *extra, "--port", "0",
+             "--run-seconds", "1", *argv],
+            cwd=REPO, env=dict(_cli_env(), **env), capture_output=True, text=True,
+            timeout=120,
+        )
+        assert out.returncode == 0, out.stderr[-2000:]
+        lines[pkg] = [ln.split(": ", 1)[1] for ln in out.stdout.splitlines()
+                      if ln.startswith(("torch.distributed: ", "jax.distributed: "))]
+    assert lines["crane_scheduler_tpu_torch"] == lines["crane_scheduler_tpu"]
+    want = ["process 0/1, 1 global devices"] if flags[0] == "--coordinator-address" else []
+    assert lines["crane_scheduler_tpu_torch"] == want
 
 
 def _wait_healthz(proc, port, timeout=45.0):
