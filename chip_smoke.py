@@ -1416,7 +1416,6 @@ def phase_drip_queue(dev, annos) -> tuple:
 
     kern = sched._batch_kernel
     windows = stats["batch"]["dispatches"] - pre["batch"]["dispatches"]
-    dispatch_s = stats["batch"]["kernel_seconds"][-windows:]
     extra = iter(range(2))
     prof = profile_windows(lambda: sched.schedule_queue(
         storm(cluster, f"prof{next(extra)}", DRIP_WINDOW), window=DRIP_WINDOW), 1)
@@ -1425,7 +1424,9 @@ def phase_drip_queue(dev, annos) -> tuple:
         "equal_to_perpod": True, "binds": binds, "folds": folds, "fallbacks": 0,
         "nodes_at_pod_cap": int((per_node == int(DRIP_ALLOCATABLE["pods"])).sum()),
         "ms_per_pod": wall_ms / DRIP_PODS, "wall_ms": wall_ms, "windows": windows,
-        "dispatch_ms_median": statistics.median(dispatch_s) * 1e3,
+        "stage_ms_per_window": {
+            name: (s - pre["batch"]["stage_seconds"][name]) * 1e3 / windows
+            for name, s in stats["batch"]["stage_seconds"].items()},
         "free_uploads": kern.free_uploads, "column_uploads": kern._cols.uploads,
         "perpod_ms_per_pod": perpod_ms / DRIP_PODS,
         "profiled_window": {k: prof[k] for k in ("device_us", "wall_us", "device_idle_share",
@@ -3841,7 +3842,7 @@ def desched_leg(mode: str, dev) -> dict:
     if sched is not None:
         out["drip_stats"] = {k: v for k, v in sched.drip_stats().items() if k != "batch"}
         out["windows"] = sched.drip_stats()["batch"]["dispatches"]
-        out["window_ms"] = [s * 1e3 for s in sched.drip_stats()["batch"]["kernel_seconds"]]
+        out["stage_seconds"] = sched.drip_stats()["batch"]["stage_seconds"]
     return out
 
 
@@ -3894,7 +3895,7 @@ def phase_desched(dev) -> tuple:
         "replace_window_ms": ms(card, "replace_ms"), "cpu_twin_sync_once_ms": ms(cpu, "sync_ms"),
         "cpu_twin_replace_ms": ms(cpu, "replace_ms"),
         "no_descheduler_annotate_ms": ms(none, "annotate_ms"),
-        "windows": card["windows"], "window_dispatch_ms": card["window_ms"],
+        "windows": card["windows"], "window_stage_seconds": card["stage_seconds"],
         "profiled_window": card["profiled"], "drip_stats": card["drip_stats"],
         "launches": launched, "seconds": time.perf_counter() - t_phase,
     }

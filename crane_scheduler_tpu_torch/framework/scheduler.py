@@ -62,7 +62,7 @@ from ..policy.compile import compile_policy
 from ..policy.types import DynamicSchedulerPolicy
 from ..scorer.topk import gang_assign_host
 from ..telemetry import active as active_telemetry
-from ..telemetry import maybe_span, tracing
+from ..telemetry import StageClock, maybe_span, tracing
 from ..utils.logging import verbosity, vlog
 from .types import CycleState, NodeInfo
 
@@ -2064,6 +2064,11 @@ class _Hooks:
         self.unreserve = hooks("unreserve")
 
 
+# the batched drip window's stages, in order (Scheduler._dispatch_window)
+DRIP_STAGES = ("drip_admit", "drip_prepare", "drip_launch", "drip_wait", "drip_bind",
+               "drip_fold")
+
+
 class Scheduler:
     """Plugin-driven single-pod scheduler (the reference-shaped path).
 
@@ -2126,7 +2131,7 @@ class Scheduler:
         self._batch_kernel = None
         self._batch = {
             "dispatches": 0, "pods": 0, "replays": 0,
-            "batch_sizes": [], "kernel_seconds": [], "conflicts": 0,
+            "batch_sizes": [], "conflicts": 0,
         }
         # optimistic multi-scheduler mode: re-check the pod_version fence
         # after the window and before the bind POSTs, dropping and
@@ -2135,6 +2140,9 @@ class Scheduler:
         self.conflict_cb = None  # callable(outcome: str) | None
         self.max_window_retries = 4
         tel = self._telemetry = telemetry if telemetry is not None else active_telemetry()
+        # the batched window's stages, always timed; with telemetry on each
+        # is also a span (and, under profiler_ranges(), a profiler range)
+        self._stages = StageClock(DRIP_STAGES, tel.spans if tel is not None else None)
         self._m_decisions = self._m_fallback = self._m_batch_pods = self._m_kernel_s = None
         if tel is not None:
             reg = tel.registry
@@ -2166,7 +2174,8 @@ class Scheduler:
     def drip_stats(self) -> dict:
         """Column-cache counters (hits/rebuilds/folds/drops/topk_*), the
         per-reason scalar-fallback histogram and the batch windows'
-        distributions."""
+        distributions, with the host seconds of each window stage
+        (``batch["stage_seconds"]``, ``DRIP_STAGES``)."""
         out = {"hits": 0, "rebuilds": 0, "folds": 0, "drops": 0,
                "topk_builds": 0, "topk_updates": 0}
         if self._drip is not None:
@@ -2179,7 +2188,7 @@ class Scheduler:
             "replays": b["replays"],
             "conflicts": b["conflicts"],
             "batch_sizes": list(b["batch_sizes"]),
-            "kernel_seconds": list(b["kernel_seconds"]),
+            "stage_seconds": dict(self._stages.seconds),
         }
         return out
 
@@ -2576,31 +2585,49 @@ class Scheduler:
             return results
         buf: list = []  # (pod, request vec) rows of the open window
         fence = None  # cluster versions the open window observed
+        stages = self._stages
+        # drip_admit runs from the call's start or a window's end to the
+        # next window's start; it opens at the next pod, so no stage is
+        # left open once the queue is through
+        admit_from = stages.clock()
         for pod in pods:
+            if admit_from is not None:
+                stages.begin("drip_admit", admit_from)
+                admit_from = None
             fallback = self._queue_fallback(pod, rec)
             if buf and (fallback is not None or self._window_fence() != fence):
-                self._dispatch_window(buf, rec, results)
+                admit_from = self._dispatch_window(buf, rec, results)
                 buf = []
             if fallback is not None:
-                # schedule_one re-derives and counts the fallback itself
+                # schedule_one re-derives and counts the fallback itself;
+                # a per-pod placement is no stage of the window
+                stages.stop()
                 results.append(self.schedule_one(pod))
+                admit_from = stages.clock()
                 continue
             if not buf:
                 fence = self._window_fence()
             buf.append((pod, self._request_row(pod, rec)))
             if len(buf) >= window:
-                self._dispatch_window(buf, rec, results)
+                admit_from = self._dispatch_window(buf, rec, results)
                 buf = []
         if buf:
             self._dispatch_window(buf, rec, results)
         return results
 
-    def _dispatch_window(self, buf, rec, results, _retry: int = 0) -> None:
+    def _dispatch_window(self, buf, rec, results, _retry: int = 0) -> float:
         """One coalesced window: dispatch, then either accept (bulk bind +
         sequential host folds under the pre -> pre+n_bound stamp
         discipline) or replay per-pod (seeded tie in the window). The
         window is pure with respect to the host columns, so rejecting it
-        costs only its own time.
+        costs only its own time. Returns the stage clock's reading at its
+        end.
+
+        Stages (``self._stages``): ``drip_prepare`` (column refresh, the
+        request matrix, the uploads), ``drip_launch`` (the K-step enqueue),
+        ``drip_wait`` (the fetch), ``drip_bind`` (lifecycle marks and
+        ``bind_pods``), ``drip_fold`` (the results and the host folds). A
+        rejected window keeps the first three; its per-pod replay is none.
 
         Under ``conflict_retry`` the window re-reads the pod_version fence
         after the window and before the bind POSTs: a competing binder
@@ -2617,7 +2644,10 @@ class Scheduler:
         drip = self._ensure_drip(rec)
         tel = self._telemetry
         now = dyn._clock()
+        stages = self._stages
+        t = stages.stop()  # the end of drip_admit
         with maybe_span(tel, "drip_dispatch", pods=k):
+            stages.begin("drip_prepare", t)
             drip.ensure(now)
             names = drip.names
             n = len(names)
@@ -2629,21 +2659,22 @@ class Scheduler:
             if kern is None:
                 kern = self._batch_kernel = DripBatchKernel(device=self.device,
                                                             mesh=self._kernel_mesh)
+            t_upload = stages.clock()
             chosen, feasible, ties = kern.dispatch(
                 drip.schedulable, drip.weighted, drip.bounded, drip.free, vecs,
                 want_ties=self._tie_rng is not None, col_version=drip.col_epoch,
-                col_delta=drip.dirty_rows_between,
+                col_delta=drip.dirty_rows_between, stages=stages,
             )
-        dt = kern.last_kernel_seconds
+            t_fetched = stages.stop()
         b = self._batch
         b["dispatches"] += 1
         b["pods"] += k
         if len(b["batch_sizes"]) < 4096:
             b["batch_sizes"].append(k)
-            b["kernel_seconds"].append(dt)
         if self._m_batch_pods is not None:
             self._m_batch_pods.observe(k)
-            self._m_kernel_s.observe(dt)
+            # the uploads, the launch and the wait
+            self._m_kernel_s.observe(t_fetched - t_upload)
 
         if (
             self.conflict_retry
@@ -2660,11 +2691,10 @@ class Scheduler:
             if self.conflict_cb is not None:
                 self.conflict_cb("stale_window")
             if _retry < self.max_window_retries:
-                self._dispatch_window(buf, rec, results, _retry + 1)
-            else:
-                for pod, _vec in buf:
-                    results.append(self.schedule_one(pod))
-            return
+                return self._dispatch_window(buf, rec, results, _retry + 1)
+            for pod, _vec in buf:
+                results.append(self.schedule_one(pod))
+            return stages.clock()
 
         if self._tie_rng is not None and bool((ties > 1).any()):
             # a real tie consumes seeded RNG the window cannot replay —
@@ -2674,8 +2704,9 @@ class Scheduler:
             b["replays"] += 1
             for pod, _vec in buf:
                 results.append(self.schedule_one(pod))
-            return
+            return stages.clock()
 
+        stages.begin("drip_bind", t_fetched)
         lc = tel.lifecycle if tel is not None else None
         if lc is not None:
             # stage marks precede the bind (as on the per-pod path)
@@ -2692,6 +2723,7 @@ class Scheduler:
         ]
         pre_pod = self.cluster.pod_version
         bound = self.cluster.bind_pods(pairs, self._clock()) if pairs else []
+        stages.split("drip_fold")
         bound_set = set(bound)
         n_bound = len(bound)
         # fold discipline, checked once for the window: the fit column must
@@ -2737,6 +2769,7 @@ class Scheduler:
             else:
                 drip.drop_fit()
                 kern.mark_desynced()
+        return stages.stop()
 
     def open_queue(self, window: int = 32) -> "DripQueue":
         """An incremental front end to ``schedule_queue`` for a serving

@@ -47,8 +47,6 @@ window's output sync.
 
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 
@@ -245,7 +243,6 @@ class DripBatchKernel:
         self._event = None
         self.dispatches = 0
         self.free_uploads = 0
-        self.last_kernel_seconds = 0.0
         self._mesh = None
         self.repartitions = 0
         if mesh is None:
@@ -310,6 +307,7 @@ class DripBatchKernel:
         want_ties: bool = True,
         col_version: int = 0,
         col_delta=None,
+        stages=None,
     ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
         """Run one window; returns ``(chosen, feasible, ties)`` int64[K]
         (chosen = -1 where no feasible node; ties is a constant 1 when
@@ -321,16 +319,18 @@ class DripBatchKernel:
         arrays in place, so identity alone does not key freshness.
         ``col_delta(held, current)`` (``DripColumns.dirty_rows_between``)
         turns a version miss into a row scatter on the device instead of a
-        full column upload; returning None falls back to the upload."""
+        full column upload; returning None falls back to the upload.
+
+        ``stages`` (a ``telemetry.StageClock``, or None) is split into
+        ``drip_launch`` before the K-step enqueue and ``drip_wait`` before
+        the fetch."""
         n = int(schedulable.shape[0])
         k = int(vecs.shape[0])
-        t0 = time.perf_counter()
         if n == 0:
             # no node: every pod is infeasible, as the reference's padded
             # rows report (no tie among infeasible rows; 1 without ties)
             self.mark_desynced()
             self.dispatches += 1
-            self.last_kernel_seconds = time.perf_counter() - t0
             ties = np.zeros(k, np.int64) if want_ties else np.ones(k, np.int64)
             return np.full(k, -1, np.int64), np.zeros(k, np.int64), ties
         if self._cols.set_partition(self._partition_token()):
@@ -339,7 +339,7 @@ class DripBatchKernel:
         mesh = self._mesh
         if mesh is not None and mesh.size > 1:
             return self._dispatch_tiled(schedulable, weighted, bounded, free, vecs,
-                                        want_ties, col_version, t0)
+                                        want_ties, col_version, stages)
         cols = self._cols
         dev = cols._device
         sched_d = cols.put("schedulable", schedulable, version=col_version,
@@ -364,18 +364,21 @@ class DripBatchKernel:
             self.free_uploads += 1
         vecs_d = upload(np.asarray(vecs, dtype=np.int64).reshape(k, 4), dev)
         active = torch.ones((k,), dtype=torch.bool, device=dev)
+        if stages is not None:
+            stages.split("drip_launch")
         outs, free_out = _drip_batch(sched_d, w_d, bnd_d, free_d, vecs_d, active,
                                      want_ties=want_ties)
+        if stages is not None:
+            stages.split("drip_wait")
         host = self._fetch(outs)
         self._free_dev = free_out
         self._free_synced = True  # provisional; the caller desyncs on reject
-        self.last_kernel_seconds = time.perf_counter() - t0
         self.dispatches += 1
         return host[:, 0], host[:, 1], host[:, 2]
 
 
     def _dispatch_tiled(self, schedulable, weighted, bounded, free, vecs, want_ties,
-                        col_version, t0):
+                        col_version, stages):
         """The shard-parallel window (``_sharded_drip``) over ``self.mesh``:
         columns padded to ``round_up_to_shards(_bucket_nodes(n))`` rows and
         tiled; no delta scatter, the carry kept per tile."""
@@ -409,20 +412,25 @@ class DripBatchKernel:
             self.free_uploads += 1
         vecs_d = upload(np.asarray(vecs, dtype=np.int64).reshape(k, 4), self.device)
         tiles = list(zip(sched_t, w_t, bnd_t, free_t))
+        if stages is not None:
+            stages.split("drip_launch")
         if mesh.distributed:
             from ..parallel.distributed import all_sum
 
             with _COLLECTIVE_LOCK:
                 outs, free_out = _sharded_drip(tiles, vecs_d, want_ties, mesh.first_tile,
                                                mesh.size, combine=all_sum)
+                if stages is not None:
+                    stages.split("drip_wait")
                 # the output sync inside the lock: every collective retired
                 host = self._fetch(outs)
         else:
             outs, free_out = _sharded_drip(tiles, vecs_d, want_ties)
+            if stages is not None:
+                stages.split("drip_wait")
             host = self._fetch(outs)
         self._free_dev = tuple(free_out)
         self._free_synced = True  # provisional; the caller desyncs on reject
-        self.last_kernel_seconds = time.perf_counter() - t0
         self.dispatches += 1
         return host[:, 0], host[:, 1], host[:, 2]
 

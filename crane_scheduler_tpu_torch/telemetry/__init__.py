@@ -15,6 +15,11 @@ bundle:
 - ``PodLifecycleTracker`` — per-pod stage timestamps (seen -> filtered
   -> scored -> bind_post), with an optional on-disk ``FlightRecorder``.
 
+Port-only: ``stages.StageClock`` splits the drip window into stages on
+one clock for the counters, the spans and ``torch.profiler``
+(``profiler_ranges()`` puts every span and stage in the profiler's
+trace); ``gcpause.GC_PAUSES`` counts the collector's pauses.
+
 The fleet plane (``fleet``: ``FleetPlane``, ``MetricsFederator``,
 ``SLOEngine``, ``FleetAnomalies``) federates many processes' ``/metrics``
 and serves burn-rate SLOs; the sidecar mounts it.
@@ -32,7 +37,7 @@ import contextlib
 import os
 import threading
 
-from . import tracing
+from . import stages, tracing
 from .decisions import DecisionTraceBuffer
 from .fleet import (
     FleetAnomalies,
@@ -44,6 +49,7 @@ from .fleet import (
     register_build_info,
     set_process_role,
 )
+from .gcpause import GC_PAUSES
 from .lifecycle import FlightRecorder, PodLifecycleTracker, slo_report
 from .registry import (
     DEFAULT_LATENCY_BUCKETS,
@@ -54,11 +60,15 @@ from .registry import (
     log_buckets,
 )
 from .spans import SpanRecorder
+from .stages import StageClock, profiler_ranges
 
 __all__ = [
     "Telemetry",
     "MetricsRegistry",
     "SpanRecorder",
+    "StageClock",
+    "profiler_ranges",
+    "GC_PAUSES",
     "DecisionTraceBuffer",
     "PodLifecycleTracker",
     "FlightRecorder",
@@ -186,23 +196,30 @@ class Telemetry:
 
 _active: Telemetry | None = None
 _lock = threading.Lock()
+_gc_hooked = False  # enable() installed GC_PAUSES (disable() removes it)
 
 
 def enable(telemetry: Telemetry | None = None) -> Telemetry:
-    """Install (and return) the process-global telemetry instance."""
-    global _active
+    """Install (and return) the process-global telemetry instance, with
+    the GC pause counter exported in its registry."""
+    global _active, _gc_hooked
     with _lock:
         if telemetry is not None:
             _active = telemetry
         elif _active is None:
             _active = Telemetry()
+        GC_PAUSES.export(_active.registry)
+        _gc_hooked = GC_PAUSES.install() or _gc_hooked
         return _active
 
 
 def disable() -> None:
-    global _active
+    global _active, _gc_hooked
     with _lock:
         _active = None
+        if _gc_hooked:
+            GC_PAUSES.uninstall()
+            _gc_hooked = False
 
 
 def active() -> Telemetry | None:
@@ -220,7 +237,10 @@ _NULL_CTX = contextlib.nullcontext()
 
 def maybe_span(telemetry: Telemetry | None, name: str, **args):
     """``telemetry.spans.span(...)`` when enabled, a shared no-op context
-    otherwise — the hot-path gating idiom."""
+    otherwise — the hot-path gating idiom. Under ``profiler_ranges()`` the
+    span is also a ``torch.profiler`` range of the same name."""
+    if stages.RANGES:
+        return stages.ranged(telemetry, name, args)
     if telemetry is None:
         return _NULL_CTX
     return telemetry.spans.span(name, **args)

@@ -338,6 +338,29 @@ class _HistogramTimer:
         return False
 
 
+class _Reading:
+    """One series value read at render time (``CounterFunc``)."""
+
+    __slots__ = ("value",)
+
+    def __init__(self, value: float):
+        self.value = value
+
+
+class CounterFunc(Counter):
+    """A counter family whose series are read at render time from
+    ``read()`` (``{label values: value}``): for totals kept by code that
+    must take no lock, such as a ``gc.callbacks`` hook."""
+
+    def __init__(self, name, help, labelnames, read):
+        super().__init__(name, help, labelnames)
+        self._read = read
+
+    def children(self):
+        return sorted((tuple(str(v) for v in values), _Reading(float(value)))
+                      for values, value in self._read().items())
+
+
 class MetricsRegistry:
     """Named families, get-or-create, rendered deterministically."""
 
@@ -377,6 +400,9 @@ class MetricsRegistry:
 
     def counter(self, name: str, help: str = "", labelnames=()) -> Counter:
         return self._get_or_create(Counter, name, help, labelnames)
+
+    def counter_func(self, name: str, help: str, labelnames, read) -> CounterFunc:
+        return self._get_or_create(CounterFunc, name, help, labelnames, read=read)
 
     def gauge(self, name: str, help: str = "", labelnames=()) -> Gauge:
         return self._get_or_create(Gauge, name, help, labelnames)

@@ -3,12 +3,13 @@
 Counterpart of ``crane_scheduler_tpu/utils/profiling.py``, with
 ``torch_trace`` in place of ``jax_trace``:
 
-- ``PhaseTimer``: lightweight wall-clock phase timing with counters
-  (always available, no deps);
 - ``torch_trace``: wraps a block in ``torch.profiler`` (host and CUDA
   activity) and writes its trace under ``log_dir`` (viewable with
   TensorBoard's profiler plugin, Perfetto or ``chrome://tracing``) for
-  device-level analysis of the kernels;
+  device-level analysis of the kernels; the port's spans and drip-window
+  stages land in it as host ranges, on the profiler's clock;
+- ``device_idle_by_range``: where the device waited in such a trace, by
+  the innermost host range open while it had nothing to run;
 - ``chrome_trace``: dumps a telemetry ``SpanRecorder``'s host-side
   pipeline spans as Chrome trace-event JSON at block exit — the host
   twin of ``torch_trace`` (see ``crane_scheduler_tpu_torch.telemetry``).
@@ -17,55 +18,75 @@ Counterpart of ``crane_scheduler_tpu/utils/profiling.py``, with
 from __future__ import annotations
 
 import contextlib
-import time
-from collections import defaultdict
-
-
-class PhaseTimer:
-    """Accumulates per-phase wall time and counts."""
-
-    def __init__(self):
-        self.seconds: dict[str, float] = defaultdict(float)
-        self.counts: dict[str, int] = defaultdict(int)
-
-    @contextlib.contextmanager
-    def phase(self, name: str):
-        start = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.seconds[name] += time.perf_counter() - start
-            self.counts[name] += 1
-
-    def report(self) -> dict:
-        return {
-            name: {
-                "total_ms": round(self.seconds[name] * 1e3, 3),
-                "count": self.counts[name],
-                "mean_ms": round(self.seconds[name] * 1e3 / max(self.counts[name], 1), 3),
-            }
-            for name in sorted(self.seconds)
-        }
 
 
 @contextlib.contextmanager
 def torch_trace(log_dir: str | None):
     """``torch.profiler`` trace of the block when ``log_dir`` is set, a
     no-op otherwise. Records host and (where a GPU is present) CUDA
-    activity and writes one ``*.pt.trace.json`` file under ``log_dir``
-    when the block exits; yields the profiler (``None`` when off), whose
-    ``key_averages()`` the caller may read afterwards."""
+    activity, with the port's spans and stages as ranges
+    (``telemetry.profiler_ranges``), and writes one ``*.pt.trace.json``
+    file under ``log_dir`` when the block exits; yields the profiler
+    (``None`` when off), whose ``key_averages()`` and ``events()`` the
+    caller may read afterwards."""
     if not log_dir:
         yield None
         return
     import torch
     from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
 
+    from ..telemetry import profiler_ranges
+
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(log_dir)) as prof:
-        yield prof
+        with profiler_ranges():
+            yield prof
+
+
+def device_idle_by_range(events) -> dict:
+    """Idle seconds of the device between its first and last operation in
+    a profiler session's ``events()``, by the innermost host range
+    (``record_function``) open during each idle stretch; a stretch that
+    crosses ranges is split by overlap, and what no range covers is booked
+    to ``None``. Device-side copies of host ranges (the profiler's GPU
+    annotations, named as the ranges) are not device work."""
+    from torch.autograd import DeviceType
+
+    # by start, and the outer of two that start together first
+    ranges = sorted(((e.time_range.start, e.time_range.end, e.name) for e in events
+                     if e.device_type == DeviceType.CPU
+                     and getattr(e, "is_user_annotation", False)),
+                    key=lambda r: (r[0], -r[1]))
+    names = {name for _s, _e, name in ranges}
+    dev = sorted((e.time_range.start, e.time_range.end) for e in events
+                 if e.device_type != DeviceType.CPU and e.name not in names
+                 and e.time_range.end > e.time_range.start)
+    gaps = []
+    if dev:
+        end = dev[0][1]
+        for s, e in dev[1:]:
+            if s > end:
+                gaps.append((end, s))
+            end = max(end, e)
+    # sweep the idle stretches and the ranges' boundaries in time order;
+    # the innermost open range is the latest-started one
+    points = sorted({p for g in gaps for p in g} | {p for s, e, _n in ranges for p in (s, e)})
+    out: dict = {}
+    opened = []  # ranges started by the current point, by start
+    i = g = 0
+    for a, b in zip(points, points[1:]):
+        while i < len(ranges) and ranges[i][0] <= a:
+            opened.append(ranges[i])
+            i += 1
+        opened = [r for r in opened if r[1] > a]
+        while g < len(gaps) and gaps[g][1] <= a:
+            g += 1
+        if g < len(gaps) and gaps[g][0] <= a:
+            owner = opened[-1][2] if opened else None
+            out[owner] = out.get(owner, 0.0) + (b - a) * 1e-6
+    return out
 
 
 @contextlib.contextmanager

@@ -36,6 +36,7 @@ from crane_scheduler_tpu.telemetry import lifecycle as jlifecycle
 from crane_scheduler_tpu_torch import cluster as pc
 from crane_scheduler_tpu_torch import telemetry as ptel
 from crane_scheduler_tpu_torch.framework.scheduler import BatchScheduler as PortBatchScheduler
+from crane_scheduler_tpu_torch.framework.scheduler import DRIP_STAGES
 from crane_scheduler_tpu_torch.framework.scheduler import Scheduler as PortScheduler
 from crane_scheduler_tpu_torch.policy import DEFAULT_POLICY as PORT_POLICY
 from crane_scheduler_tpu_torch.policy import compile_policy
@@ -413,14 +414,18 @@ def test_bundle_flight_flush_and_globals(tmp_path, monkeypatch):
 
 # -- the scheduler paths -------------------------------------------------------
 
+# what only the port records: the drip window's stage spans and the GC
+# pause families (tests/test_torch_drip_stages.py holds them)
+PORT_ONLY = DRIP_STAGES + ("crane_gc_pause_seconds_total", "crane_gc_collections_total")
+
 
 def track_names(tel) -> dict:
-    """Sorted span names per track."""
+    """Sorted span names per track, the port-only ones left out."""
     events = tel.export_chrome_trace()["traceEvents"]
     tracks = {e["tid"]: e["args"]["name"] for e in events if e["ph"] == "M"}
     out: dict = {}
     for e in events:
-        if e["ph"] == "X":
+        if e["ph"] == "X" and e["name"] not in PORT_ONLY:
             out.setdefault(tracks[e["tid"]], []).append(e["name"])
     return {k: sorted(v) for k, v in out.items()}
 
@@ -428,7 +433,8 @@ def track_names(tel) -> dict:
 def comparable_snapshot(tel) -> dict:
     return {k: v for k, v in tel.registry.snapshot().items()
             if "_ms_total" not in k and not (k.startswith(("crane_bind_flush_window_seconds_sum",
-                                                            "crane_drip_kernel_seconds_sum")))}
+                                                            "crane_drip_kernel_seconds_sum")))
+            and k.split("{")[0] not in PORT_ONLY}
 
 
 def comparable_decisions(tel) -> list:
