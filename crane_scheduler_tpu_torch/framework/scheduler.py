@@ -2175,7 +2175,9 @@ class Scheduler:
         """Column-cache counters (hits/rebuilds/folds/drops/topk_*), the
         per-reason scalar-fallback histogram and the batch windows'
         distributions, with the host seconds of each window stage
-        (``batch["stage_seconds"]``, ``DRIP_STAGES``)."""
+        (``batch["stage_seconds"]``, ``DRIP_STAGES``) and the batch
+        kernel's CUDA-graph counters (``graph_captures``, ``graph_replays``,
+        ``eager_windows``; ``replays`` counts tie replays)."""
         out = {"hits": 0, "rebuilds": 0, "folds": 0, "drops": 0,
                "topk_builds": 0, "topk_updates": 0}
         if self._drip is not None:
@@ -2190,6 +2192,9 @@ class Scheduler:
             "batch_sizes": list(b["batch_sizes"]),
             "stage_seconds": dict(self._stages.seconds),
         }
+        kern = self._batch_kernel
+        for name in ("graph_captures", "graph_replays", "eager_windows"):
+            out["batch"][name] = getattr(kern, name, 0)
         return out
 
     def _recognition(self):

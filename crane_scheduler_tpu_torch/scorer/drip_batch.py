@@ -22,10 +22,19 @@ replay in ``Scheduler.schedule_queue`` free.
 
 The math is exact int64 (memory bytes exceed int32). ``torch.argmax``
 returns the first maximum, as ``np.argmax`` and XLA's argmax do. Shapes
-are not padded to the reference's buckets: nothing here compiles per
-shape. ``_drip_batch`` still takes padded inputs (padded nodes are
-``schedulable=False``, padded pods ``active=False``) with the reference's
-results.
+are not padded to the reference's buckets. ``_drip_batch`` still takes
+padded inputs (padded nodes are ``schedulable=False``, padded pods
+``active=False``) with the reference's results.
+
+On a CUDA device the window is the counterpart of the reference's
+compile-once-per-shape program: when two windows in a row have one shape
+``(device, n, k, want_ties)``, the second captures ``_drip_batch`` into a
+CUDA graph (``_WindowGraph``) and every later window of that shape replays
+it with one launch instead of enqueuing its ~16 ops per pod from the host.
+The kernels and their arithmetic are the eager ones. ``GraphSlot`` decides
+which route a window takes and holds one graph: a shape that does not
+repeat back to back runs eagerly and leaves the held graph in place, so
+shapes that alternate never capture each other out.
 
 The fold carry stays on the device across windows: after a fully accepted
 window the host applies the same integer folds to its own ``free`` copy
@@ -47,6 +56,9 @@ window's output sync.
 
 from __future__ import annotations
 
+import gc
+import threading
+
 import numpy as np
 import torch
 
@@ -58,6 +70,14 @@ from ..parallel.mesh import node_tiles, round_up_to_shards
 __all__ = ["DripBatchKernel", "drip_batch_dispatch"]
 
 _I64_MIN = int(np.iinfo(np.int64).min)
+
+# The threaded shard plane runs one kernel per scheduler on one card. A
+# capture runs in ``thread_local`` mode, so CUDA work of other threads
+# (eager windows, fetch waits, K1/K2, the gang window) cannot invalidate
+# it; this lock, held over each graph window's input copies, capture and
+# replay (not its wait), keeps one capture at a time in the process, as
+# PyTorch requires, and none beside another kernel's replay.
+_GRAPH_LOCK = threading.Lock()
 
 # the reference's shape buckets, which the sharded window pads to: small
 # node counts round up to a power of two >= 256, past 4096 to the next
@@ -210,6 +230,90 @@ def col_delta_rows(cols: DeviceColumnCache, name: str, arr, col_version, col_del
     return col_delta(held, col_version)
 
 
+class GraphSlot:
+    """Which route a window of shape ``key = (device, n, k, want_ties)``
+    takes: ``"replay"`` when the held graph has that shape, ``"capture"``
+    (replacing the held graph) when the previous window had it too, else
+    ``"eager"``. Holds any graph object, so it runs without a card."""
+
+    def __init__(self):
+        self.key = None  # the held graph's shape
+        self.graph = None
+        self._last = None  # the previous window's shape
+
+    def route(self, key) -> str:
+        """Note one window of shape ``key``; returns its route."""
+        last, self._last = self._last, key
+        if key == self.key:
+            return "replay"
+        return "capture" if key == last else "eager"
+
+    def hold(self, key, graph) -> None:
+        self.key, self.graph = key, graph
+
+
+class _WindowGraph:
+    """One shape's window captured as a CUDA graph: static inputs, the
+    graph, its ``outs``. The graph folds the carry in place into ``free``
+    (``_drip_batch`` reads it into a clone first), so after an accepted
+    window the carry is already the next replay's input."""
+
+    def __init__(self, dev: torch.device, n: int, k: int):
+        self.sched = torch.empty((n,), dtype=torch.bool, device=dev)
+        self.weighted = torch.empty((n,), dtype=torch.int64, device=dev)
+        self.bounded = torch.empty((n,), dtype=torch.bool, device=dev)
+        self.free = torch.empty((n, 4), dtype=torch.int64, device=dev)
+        self.vecs = torch.empty((k, 4), dtype=torch.int64, device=dev)
+        self.active = torch.ones((k,), dtype=torch.bool, device=dev)
+        self._cols = (None, None, None)  # the column tensors last copied in
+        self.graph = None
+        self.outs = None
+
+    def load(self, cols, free, vecs) -> None:
+        """Copy the window's inputs into the static buffers, on the current
+        stream: a device column only where its tensor changed (the column
+        cache returns a new one on an upload or a scatter), the carry unless
+        it is already ``self.free``; ``free`` and ``vecs`` may be pinned
+        host tensors."""
+        for static, src, last in zip((self.sched, self.weighted, self.bounded), cols,
+                                     self._cols):
+            if src is not last:
+                static.copy_(src)
+        self._cols = tuple(cols)
+        if free is not self.free:
+            self.free.copy_(free, non_blocking=True)
+        self.vecs.copy_(vecs, non_blocking=True)
+
+    def capture(self, want_ties: bool, stream) -> None:
+        """Record the window on the side ``stream``; nothing runs until a
+        replay. The collector stays off meanwhile, so no finalizer touches
+        CUDA inside the capture."""
+        cur = torch.cuda.current_stream(self.free.device)
+        stream.wait_stream(cur)
+        graph = torch.cuda.CUDAGraph()
+        gc_on = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.stream(stream):
+                graph.capture_begin(capture_error_mode="thread_local")
+                try:
+                    outs, free_out = _drip_batch(self.sched, self.weighted, self.bounded,
+                                                 self.free, self.vecs, self.active,
+                                                 want_ties=want_ties)
+                    self.free.copy_(free_out)
+                finally:
+                    graph.capture_end()
+        finally:
+            if gc_on:
+                gc.enable()
+        cur.wait_stream(stream)
+        self.graph, self.outs = graph, outs
+
+
+def _pinned(host: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(host)).pin_memory()
+
+
 class DripBatchKernel:
     """Host wrapper: device column placement and fold-carry reuse.
 
@@ -229,6 +333,12 @@ class DripBatchKernel:
     shard-parallel window, one tile the single-device window on that tile's
     device. With a mesh and no ``device`` the first tile's device holds the
     window's outputs.
+
+    On a CUDA device without tiles, once two windows in a row share a
+    shape, that shape's windows replay a captured graph (``GraphSlot``).
+    ``graph_captures``, ``graph_replays`` and ``eager_windows`` count them:
+    every window is a replay or eager, so ``dispatches == graph_replays +
+    eager_windows``.
     """
 
     def __init__(self, device=None, mesh=None):
@@ -243,6 +353,11 @@ class DripBatchKernel:
         self._event = None
         self.dispatches = 0
         self.free_uploads = 0
+        self._graphs = GraphSlot()
+        self._capture_stream = None
+        self.graph_captures = 0
+        self.graph_replays = 0
+        self.eager_windows = 0
         self._mesh = None
         self.repartitions = 0
         if mesh is None:
@@ -331,6 +446,7 @@ class DripBatchKernel:
             # rows report (no tie among infeasible rows; 1 without ties)
             self.mark_desynced()
             self.dispatches += 1
+            self.eager_windows += 1
             ties = np.zeros(k, np.int64) if want_ties else np.ones(k, np.int64)
             return np.full(k, -1, np.int64), np.zeros(k, np.int64), ties
         if self._cols.set_partition(self._partition_token()):
@@ -356,18 +472,28 @@ class DripBatchKernel:
             free = np.zeros((n, 4), dtype=np.int64)
         bnd_d = cols.put("bounded", bounded)
         free_d = self._free_dev
-        if (not self._free_synced or free_d is None or self._free_src is not free
-                or self._free_rows is not None):
-            free_d = upload(free, dev)
+        fresh = (not self._free_synced or free_d is None or self._free_src is not free
+                 or self._free_rows is not None)
+        if fresh:
             self._free_src = free
             self._free_rows = None
             self.free_uploads += 1
-        vecs_d = upload(np.asarray(vecs, dtype=np.int64).reshape(k, 4), dev)
-        active = torch.ones((k,), dtype=torch.bool, device=dev)
-        if stages is not None:
-            stages.split("drip_launch")
-        outs, free_out = _drip_batch(sched_d, w_d, bnd_d, free_d, vecs_d, active,
-                                     want_ties=want_ties)
+        vecs = np.asarray(vecs, dtype=np.int64).reshape(k, 4)
+        key = (dev, n, k, bool(want_ties))
+        route = self._graphs.route(key) if dev.type == "cuda" and k > 0 else "eager"
+        if route == "eager":
+            if fresh:
+                free_d = upload(free, dev)
+            vecs_d = upload(vecs, dev)
+            active = torch.ones((k,), dtype=torch.bool, device=dev)
+            if stages is not None:
+                stages.split("drip_launch")
+            outs, free_out = _drip_batch(sched_d, w_d, bnd_d, free_d, vecs_d, active,
+                                         want_ties=want_ties)
+            self.eager_windows += 1
+        else:
+            outs, free_out = self._replay(route, key, (sched_d, w_d, bnd_d),
+                                          _pinned(free) if fresh else free_d, vecs, stages)
         if stages is not None:
             stages.split("drip_wait")
         host = self._fetch(outs)
@@ -376,6 +502,25 @@ class DripBatchKernel:
         self.dispatches += 1
         return host[:, 0], host[:, 1], host[:, 2]
 
+    def _replay(self, route, key, cols, free, vecs, stages):
+        """The window from its shape's graph, captured first on the
+        ``"capture"`` route: the inputs copied into its static buffers,
+        one launch. Returns the graph's ``outs`` and its carry."""
+        dev, n, k, want_ties = key
+        with _GRAPH_LOCK:
+            graph = _WindowGraph(dev, n, k) if route == "capture" else self._graphs.graph
+            graph.load(cols, free, _pinned(vecs))
+            if stages is not None:
+                stages.split("drip_launch")
+            if route == "capture":
+                if self._capture_stream is None:
+                    self._capture_stream = torch.cuda.Stream(device=dev)
+                graph.capture(want_ties, self._capture_stream)
+                self._graphs.hold(key, graph)
+                self.graph_captures += 1
+            graph.graph.replay()
+        self.graph_replays += 1
+        return graph.outs, graph.free
 
     def _dispatch_tiled(self, schedulable, weighted, bounded, free, vecs, want_ties,
                         col_version, stages):
@@ -432,6 +577,7 @@ class DripBatchKernel:
         self._free_dev = tuple(free_out)
         self._free_synced = True  # provisional; the caller desyncs on reject
         self.dispatches += 1
+        self.eager_windows += 1
         return host[:, 0], host[:, 1], host[:, 2]
 
 

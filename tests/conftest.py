@@ -23,3 +23,7 @@ try:
     jax.config.update("jax_num_cpu_devices", 8)
 except Exception:  # backend already initialized (e.g. single-process reuse)
     pass
+
+
+def pytest_configure(config):
+    config.addinivalue_line("markers", "card: needs a CUDA device (run on the chip)")

@@ -11,6 +11,9 @@ one JSON line:
 - ``call_ms_mean`` / ``call_ms_median``: each call's host wall time;
 - ``stage_ms``: ``drip_stats()["batch"]["stage_seconds"]`` over the timed
   window per dispatched window, and their sum against the mean call;
+- ``graph``: the batch kernel's ``graph_captures``, ``graph_replays`` and
+  ``eager_windows`` since set-up (``total``) and over the timed window
+  (``timed``), and the timed windows' replay share;
 - ``gc``: pause ms per window and collections per generation while the
   GC pause counter was installed (``--mode gc`` or ``--mode telemetry``);
   with ``--mode gc`` also the median call with the counter on and off;
@@ -39,6 +42,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
+
+GRAPH_COUNTERS = ("graph_captures", "graph_replays", "eager_windows")
 
 
 def main() -> int:
@@ -127,6 +132,11 @@ def main() -> int:
         "call_ms_mean": mean_ms, "call_ms_median": 1e3 * statistics.median(calls),
         "stage_ms": stage_ms, "stage_sum_ms": sum(stage_ms.values()),
         "stage_share_of_call": sum(stage_ms.values()) / mean_ms,
+        "graph": {
+            "total": {k: post[k] for k in GRAPH_COUNTERS},
+            "timed": {k: post[k] - pre[k] for k in GRAPH_COUNTERS},
+            "replay_share": (post["graph_replays"] - pre["graph_replays"]) / windows,
+        },
     }
     if a.mode != "plain":
         counted = on_windows if a.mode == "gc" else windows
