@@ -9,6 +9,24 @@ A driver's life: ``setup`` -> ``warm`` -> ``window`` -> (``profile``) ->
 per-layer readers read. Only the entry calls are the port's work: the
 work is made before the window, and nothing the benchmark does for itself
 runs inside it.
+
+The kind owns everything that differs between kinds, so a cell of a new
+kind joins the benchmark through new files alone. Its ``Driver``
+declares:
+
+- ``checks``: the names of the numbers ``compare`` returns, each an exact
+  count of disagreements with the plain reference; the harness gives each
+  the limit 0, and ``check`` raises when ``compare`` returns a name not
+  declared or leaves one out;
+- ``controls``: what ``check(control)`` can put in the port's place, and
+  ``breaks``: the one of them that breaks the cell's guarantee, which
+  must come out not correct;
+- ``span``: the benchmark's span around each profiled entry call;
+
+and implements ``setup(profile_calls)``, ``warm()``, ``step()``,
+``window(seconds)``, ``end_to_end()``, ``reference(control)``, ``port()``,
+``compare(got, want)`` and ``observations()``. The faults its timed path
+can have are planted by ``portbench/tests/kinds/<kind>.py``.
 """
 
 from __future__ import annotations
@@ -30,7 +48,9 @@ def sync(device) -> None:
 
 class Driver:
     span = "bench.call"
+    checks: tuple = ()  # the names of the numbers ``compare`` returns
     controls: tuple = ()  # what ``check(control)`` can put in the port's place
+    breaks: str | None = None  # the control that breaks the cell's guarantee
 
     def __init__(self, config: dict, traffic: dict, seed: int, device, nodes=None):
         self.config = config
@@ -67,11 +87,19 @@ class Driver:
 
     def check(self, control: str | None = None) -> dict:
         """The numbers compared, each a count of disagreements with the
-        float64 reference; ``control`` puts one of ``controls`` in the
-        port's place on the same work."""
+        reference, in the order of ``checks``; ``control`` puts one of
+        ``controls`` in the port's place on the same work."""
+        if not self.checks:
+            raise TypeError(f"{type(self).__module__}.Driver declares no checks")
         want = self.reference(None)
         got = self.reference(control) if control else self.port()
-        return self.compare(got, want)
+        out = self.compare(got, want)
+        undeclared = sorted(set(out) - set(self.checks))
+        missing = sorted(set(self.checks) - set(out))
+        if undeclared or missing:
+            raise ValueError(f"{type(self).__module__}.Driver.compare returned undeclared "
+                             f"checks {undeclared} and left out declared ones {missing}")
+        return {k: out[k] for k in self.checks}
 
     def profile(self, session, calls: int) -> None:
         for _ in range(calls):

@@ -5,7 +5,9 @@
 small size). A run: set-up (cluster, scheduler, traffic, warm-up) ->
 measured window -> with ``--trace 1`` a profiled stretch -> the check
 against the reference -> the line. ``correct`` holds when every number
-compared is within its limit.
+compared is within its limit. What differs between traffic kinds (the
+numbers compared, the controls, what the readers read) is the kind's own
+(``drivers.py``); this file names none of it.
 """
 
 from __future__ import annotations
@@ -21,9 +23,6 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "crane_scheduler_tpu")
-# every number compared is an exact count of disagreements with the
-# reference: its limit is 0
-LIMITS = {"placement_mismatch": 0, "score_mismatch": 0, "count_mismatch": 0}
 
 
 def load_manifest(root: Path = ROOT) -> dict:
@@ -42,6 +41,19 @@ def _reader(root: Path, name: str):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod.read
+
+
+def resolve(manifest: dict, workload: str, root: Path = ROOT) -> tuple:
+    """The cell, its configuration, its traffic mix and the module of the
+    mix's kind (``portbench.kinds.<kind>``)."""
+    from .cluster import load_config
+    from .traffic import load_traffic
+
+    cell = next(w for w in manifest["workloads"] if w["name"] == workload)
+    cfg = next(c for c in manifest["configs"] if c["name"] == cell["config"])
+    traffic = load_traffic(root, cell["traffic"])
+    kind = importlib.import_module(f"portbench.kinds.{traffic['kind']}")
+    return cell, load_config(root, cfg["file"]), traffic, kind
 
 
 def cell_metrics(manifest: dict, workload: str) -> tuple[list, list]:
@@ -63,16 +75,9 @@ def run_cell(manifest: dict, workload: str, seed: int, seconds: float, trace: bo
     place on the same work (``control.py``; never in a benchmark run)."""
     import torch
 
-    from .cluster import load_config
-    from .traffic import load_traffic
-
-    cell = next(w for w in manifest["workloads"] if w["name"] == workload)
-    cfg = next(c for c in manifest["configs"] if c["name"] == cell["config"])
-    config = load_config(root, cfg["file"])
-    traffic = load_traffic(root, cell["traffic"])
     # the driver of the mix's kind, and the entry calls it profiles in a
     # traced run
-    kind = importlib.import_module(f"portbench.kinds.{traffic['kind']}")
+    cell, config, traffic, kind = resolve(manifest, workload, root)
     profile_calls = int(traffic["profile_calls"])
     # the cluster and the backlog are built in bulk with the collector off
     # (it would walk the growing heap again and again); the window's
@@ -114,9 +119,12 @@ def run_cell(manifest: dict, workload: str, seed: int, seconds: float, trace: bo
         values = dict(rates, setup_s=setup_s)
         for m in e2e:
             out_metrics[m["name"]] = {"value": float(values[m["name"]]), "unit": m["unit"]}
+    # every number compared is an exact count of disagreements with the
+    # reference: its limit is 0
+    limits = dict.fromkeys(driver.checks, 0)
     checks = driver.check()
     result = {
-        "correct": all(checks[k] <= LIMITS[k] for k in checks),
+        "correct": all(checks[k] <= limits[k] for k in checks),
         "attempted": int(driver.attempted), "failed": int(driver.failed),
         "metrics": out_metrics, "device": dev,
     }
@@ -127,11 +135,12 @@ def run_cell(manifest: dict, workload: str, seed: int, seconds: float, trace: bo
     # how the window's calls moved from its first tenth to its last (a
     # state that drifts with the window's length shows here)
     result["window"] = {"calls": len(calls), "wall_s": driver.wall_s,
+                        "mean_ms": 1e3 * sum(calls) / len(calls) if calls else None,
                         "first_tenth_ms": 1e3 * sum(calls[:tenth]) / tenth if calls else None,
                         "last_tenth_ms": 1e3 * sum(calls[-tenth:]) / tenth if calls else None}
     if controls:
         result["controls"] = {c: driver.check(c) for c in driver.controls}
-    result["checks"] = {k: {"value": v, "limit": LIMITS[k]} for k, v in checks.items()}
+    result["checks"] = {k: {"value": v, "limit": limits[k]} for k, v in checks.items()}
     return result
 
 

@@ -1,6 +1,12 @@
 """``Scheduler.schedule_queue(window=W)`` over a closed backlog of bare
 pods, one window per call: every pod of the run is made and queued in
-set-up, as a scheduler's queue holds them, and the window drains it."""
+set-up, as a scheduler's queue holds them, and the window drains it.
+
+The pods of a run, in queue order: one warm window of pods that fit
+nowhere, ``warm_windows`` windows, the backlog proper (``backlog_pods``),
+and in a traced run ``profile_calls`` windows set apart for the profiled
+stretch. The measured window stops at the end of the backlog proper, so a
+run that drains it early still profiles every one of its windows."""
 
 from __future__ import annotations
 
@@ -18,9 +24,14 @@ from ..reference import place as ref_place
 
 class Driver(Base):
     span = "bench.drip.schedule_queue"
+    checks = ("placement_mismatch", "score_mismatch", "count_mismatch")
     # ``float32``: the reference a precision below the plugin's float64;
     # ``no_fold``: a window whose pods all see the free state at its start
     controls = ("float32", "no_fold")
+    breaks = "no_fold"
+    # the batch counters of ``drip_stats()`` whose deltas over the measured
+    # window the readers read, beside the stage clock's seconds
+    COUNTERS = ("dispatches", "graph_captures", "graph_replays", "eager_windows")
 
     def setup(self, profile_calls: int) -> None:
         from crane_scheduler_tpu_torch.cluster import Container, Pod, ResourceRequirements
@@ -62,6 +73,9 @@ class Driver(Base):
         self.vecs = np.concatenate([np.tile(cl.request_vec(t["warm_infeasible"]),
                                             (self.window_k, 1)), self.vecs])
         self.cluster.add_pods(self.pods)
+        # where the measured window stops: the profiled windows' pods follow
+        self.backlog_end = self.window_k * (1 + int(t["warm_windows"])) + int(t["backlog_pods"])
+        self.stop = self.backlog_end
         # each backlog pod's node (None: not placed), in order; the results
         # are dropped at once, as a serving loop would, but for the last
         self.results = []
@@ -70,9 +84,9 @@ class Driver(Base):
         self.next = 0
 
     def step(self) -> bool:
-        if self.next >= len(self.pods):
+        if self.next >= self.stop:
             return False
-        chunk = self.pods[self.next:self.next + self.window_k]
+        chunk = self.pods[self.next:min(self.next + self.window_k, self.stop)]
         self.next += len(chunk)
         out = self.sched.schedule_queue(chunk, window=self.window_k)
         self.results.extend(r.node for r in out)
@@ -86,11 +100,18 @@ class Driver(Base):
 
     def window(self, seconds: float) -> None:
         self.window_from = len(self.results)
+        # the scheduler's counters are read outside the measured window
+        before = self.sched.drip_stats()["batch"]
         self.timed_loop(seconds, self.step)
+        after = self.sched.drip_stats()["batch"]
         self.window_to = len(self.results)
-        if self.next >= len(self.pods):
-            print("portbench: the backlog ran out before the window closed", flush=True,
-                  file=sys.stderr)
+        self.batch = {k: after[k] - before[k] for k in self.COUNTERS}
+        self.batch["stage_seconds"] = {k: after["stage_seconds"][k] - before["stage_seconds"][k]
+                                       for k in after["stage_seconds"]}
+        if self.next >= self.backlog_end:
+            print(f"portbench: the backlog ran out after {self.wall_s:.3f} s; the window "
+                  "ended early", flush=True, file=sys.stderr)
+        self.stop = len(self.pods)  # the profiled stretch takes the pods set apart
 
     def end_to_end(self) -> dict:
         win = self.results[self.window_from:self.window_to]
@@ -140,4 +161,6 @@ class Driver(Base):
         }
 
     def observations(self) -> dict:
-        return {"n": self.inputs["n"], "window_k": self.window_k}
+        """The shapes, and the measured window's deltas of the scheduler's
+        batch counters and stage seconds (``drip_stats()["batch"]``)."""
+        return {"n": self.inputs["n"], "window_k": self.window_k, "batch": self.batch}
