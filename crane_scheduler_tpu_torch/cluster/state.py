@@ -1126,6 +1126,29 @@ class ClusterState:
                 self._note_pod_change_locked(pod.node_name)
             return True
 
+    def patch_pod_annotations(self, items) -> list[str]:
+        """``patch_pod_annotation`` for many ``(pod key, annotation key,
+        value)`` triples in one lock hold, each write with the versions and
+        journal entry one call gives; returns the keys not found."""
+        missing = []
+        with self._lock:
+            for key, anno_key, value in items:
+                pod = self._pods.get(key)
+                if pod is None and self._bursts:
+                    hit = self._burst_lookup_locked(key)
+                    if hit is not None:
+                        pod = self._materialize_out_locked(*hit)
+                if pod is None:
+                    missing.append(key)
+                    continue
+                anno = dict(pod.annotations)
+                anno[anno_key] = value
+                self._pods[key] = replace(pod, annotations=anno)
+                if pod.node_name:
+                    self._sched_version += 1
+                    self._note_pod_change_locked(pod.node_name)
+        return missing
+
     def bind_pod(self, pod_key: str, node_name: str, now: float | None = None) -> bool:
         """Bind one pod and stamp its ``Scheduled`` event (``bind_pods``
         is the single implementation)."""

@@ -35,6 +35,11 @@ caches them on the versions that can change them:
   ``pod_version`` moved exactly from the pre-bind stamp to pre+1 (our own
   bump), drop on any interleaved writer or pod re-placement.
 
+- **Zone columns** (``ZoneColumns``, the NRT drip window only) — each
+  node's NodeResourceTopology CR and the milli-CPU its NUMA zones hold,
+  keyed on the lister's version, ``cluster.pod_version`` and the assume
+  cache's versions, folded in place by the window's own binds.
+
 Per-pod work is then one ``free >= request`` broadcast, one mask AND and
 one argmax (or an O(log n) ``SegMaxTree`` read) with no Python per-node
 loop. Everything the columns cannot express (daemonset bypass, degraded
@@ -43,6 +48,8 @@ scalar loop, which stays the bit-identical parity oracle.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 
@@ -56,8 +63,17 @@ from ..scorer.columns import (
 )
 from ..scorer.topk import SegMaxTree
 from ..telemetry import maybe_span
+from ..topology.types import (
+    ANNOTATION_POD_TOPOLOGY_RESULT,
+    CPU_MANAGER_POLICY_STATIC,
+    TOPOLOGY_MANAGER_POLICY_SINGLE_NUMA_POD,
+    ZONE_TYPE_NODE,
+    zones_from_json,
+)
+from ..topology.plugin import ERR_FAILED_TO_GET_NRT, ERR_NUMA_INSUFFICIENT
+from .types import Resource
 
-__all__ = ["DripColumns", "GangColumns"]
+__all__ = ["DripColumns", "GangColumns", "ZoneColumns"]
 
 _I64_MIN = np.int64(np.iinfo(np.int64).min)
 
@@ -100,11 +116,14 @@ class DripColumns:
         telemetry=None,
         bucket_seconds: float = 0.25,
         policy=None,
+        topology=None,
     ):
         """``policy`` is the plugin-less alternative to ``dyn``: a caller
         holding a ``DynamicSchedulerPolicy`` but no plugin instance (the
         gang engine: ``BatchScheduler`` has no plugin registry) passes it
-        directly; exactly one of the two must be given."""
+        directly; exactly one of the two must be given. ``topology``: the
+        ``TopologyMatch`` plugin whose zone columns the NRT drip window
+        reads (``zones``, a ``ZoneColumns``), or None."""
         self.cluster = cluster
         self._dyn = dyn
         self._dyn_weight = int(dyn_weight)
@@ -168,6 +187,8 @@ class DripColumns:
             "topk_builds": 0, "topk_updates": 0,
             "dirty_patches": 0, "dirty_rows": 0, "full_sweeps": 0,
         }
+        self.zones = None if topology is None else ZoneColumns(cluster, topology)
+        self._folds: _Folds | None = None  # the next NRT window's fold record
         self._m_hits = self._m_rebuilds = self._m_dirty_rows = None
         if telemetry is not None:
             reg = telemetry.registry
@@ -238,6 +259,8 @@ class DripColumns:
             if stale:
                 with maybe_span(self._telemetry, "drip_column_rebuild", column="fit"):
                     rebuilt = self._refresh_fit(pv, nv) or rebuilt
+        if self.zones is not None:
+            self.zones.ensure(self.names, self._pos_map())
         if not rebuilt:
             self.stats["hits"] += 1
             if self._m_hits is not None:
@@ -598,9 +621,10 @@ class DripColumns:
         self.stats["topk_builds"] += 1
         return tree
 
-    def reason_for(self, i: int, vec: np.ndarray) -> str:
+    def reason_for(self, i: int, vec: np.ndarray, nrt_code: int = -1) -> str:
         """The scalar loop's Filter failure message for node row ``i`` —
-        first failing plugin in registration order, exact wording."""
+        first failing plugin in registration order, exact wording.
+        ``nrt_code``: the NRT verdict of the row (``nrt_codes``)."""
         name = self.names[i]
         for kind in self._order:
             if kind == "fit":
@@ -608,6 +632,9 @@ class DripColumns:
                     reason = row_fail_reason(self.free[i], vec)
                     if reason:
                         return f"Node {name} fit failure: {reason}"
+            elif kind == "nrt":
+                if nrt_code >= 0:
+                    return _NRT_REASONS[nrt_code]
             else:
                 entry = int(self.fail_entry[i])
                 if entry >= 0:
@@ -615,30 +642,34 @@ class DripColumns:
                     return f"Load[{metric}] of node[{name}] is too high"
         return ""
 
-    def reason_counts(self, mask: np.ndarray, vec: np.ndarray) -> dict:
+    def reason_counts(self, mask: np.ndarray, vec: np.ndarray, nrt=None, free=None) -> dict:
         """Filter-reason histogram over infeasible nodes, in node-index
         order so dict insertion order matches the scalar loop: one
         ``rows_fail_codes`` pass over the infeasible fit rows plus the
         cached ``fail_entry`` column give each node's first-failing
-        (plugin, code) pair with no per-row Python but the formatting."""
+        (plugin, code) pair with no per-row Python but the formatting.
+        ``nrt``: the NRT verdict per node (``nrt_codes``); ``free``: the
+        fit rows to read instead of the live column."""
         idx = np.flatnonzero(~mask)
         if idx.size == 0:
             return {}
+        free = self.free if free is None else free
         entries = self.fail_entry[idx]
         has_fit = "fit" in self._order and self.bounded is not None and vec is not None
         if has_fit:
-            fit_codes = rows_fail_codes(self.free[idx], vec)
+            fit_codes = rows_fail_codes(free[idx], vec)
             fit_codes[~self.bounded[idx]] = -1
         else:
             fit_codes = np.full((idx.size,), -1, dtype=np.int8)
+        nrt_codes = (np.full((idx.size,), -1, dtype=np.int8) if nrt is None
+                     else np.asarray(nrt)[idx])
         # first failing plugin in registration order, per node
-        if self._order and self._order[0] == "fit":
-            use_fit = fit_codes >= 0
-            use_dyn = ~use_fit & (entries >= 0)
-        else:
-            use_dyn = entries >= 0
-            use_fit = ~use_dyn & (fit_codes >= 0)
-        kinds = np.where(use_dyn, 1, np.where(use_fit, 2, 0))
+        fails = {"dyn": (entries >= 0, 1), "fit": (fit_codes >= 0, 2),
+                 "nrt": (nrt_codes >= 0, 3)}
+        kinds = np.zeros(idx.size, dtype=np.int8)
+        for kind in reversed(self._order):
+            hit, code = fails[kind]
+            kinds = np.where(hit, code, kinds)
         metric_table = fail_metric_names(self._tensors)
         fit_table = [fail_code_reason(c) for c in range(4)]
         names = self.names
@@ -647,10 +678,306 @@ class DripColumns:
             i = int(idx[p])
             if kinds[p] == 1:
                 reason = f"Load[{metric_table[int(entries[p])]}] of node[{names[i]}] is too high"
-            else:
+            elif kinds[p] == 2:
                 reason = f"Node {names[i]} fit failure: {fit_table[int(fit_codes[p])]}"
+            else:
+                reason = _NRT_REASONS[int(nrt_codes[p])]
             counts[reason] = counts.get(reason, 0) + 1
         return counts
+
+    # -- the NRT window's host side ----------------------------------------
+
+    def nrt_codes(self, pod_row: np.ndarray, used: np.ndarray) -> np.ndarray:
+        """The NRT Filter's verdict per node for a pod (``pod_row``,
+        ``scorer.drip_batch.numa_pod_rows``) over zone usage ``used``: -1
+        passes, else an index into ``_NRT_REASONS`` (no CR; an aware pod
+        with no zone that holds it)."""
+        z = self.zones
+        codes = np.full(len(self.names), -1, dtype=np.int8)
+        req = int(pod_row[0])
+        if req <= 0:
+            return codes
+        codes[~z.has] = 0
+        need_fit = z.act_naw if pod_row[1] > 0 else (z.active & bool(pod_row[2] > 0))
+        fits = ((z.zkey - used) >= req).any(axis=1)
+        codes[need_fit & ~fits] = 1
+        return codes
+
+    def nrt_code(self, i: int, pod_row: np.ndarray, used: np.ndarray) -> int:
+        """``nrt_codes`` of row ``i`` alone."""
+        z = self.zones
+        req = int(pod_row[0])
+        if req <= 0:
+            return -1
+        if not z.has[i]:
+            return 0
+        need_fit = bool(z.act_naw[i]) if pod_row[1] > 0 else bool(z.active[i] and pod_row[2] > 0)
+        if need_fit and not bool(((z.zkey[i] - used[i]) >= req).any()):
+            return 1
+        return -1
+
+    def open_folds(self) -> _Folds:
+        """The record the next NRT window folds into (``_Folds``); a fresh
+        one, ending the chain, once either column was replaced."""
+        tail = self._folds
+        if tail is None or tail.free is not self.free or tail.used is not self.zones.used:
+            tail = self._folds = _Folds(self.free, self.zones.used)
+        return tail
+
+    def close_folds(self, folds: _Folds, rows, dfree, dused) -> None:
+        """Record a window's folds, in bind order, and open the next
+        record."""
+        folds.rows, folds.dfree, folds.dused = rows, dfree, dused
+        folds.next = self._folds = _Folds(self.free, self.zones.used)
+
+
+# a zone past a node's own zones: sorts after every real one, never fits
+_NO_ZONE = -(1 << 62)
+
+# the NRT Filter's failures (topology.plugin), by ``DripColumns.nrt_codes``
+_NRT_REASONS = (ERR_FAILED_TO_GET_NRT, ERR_NUMA_INSUFFICIENT)
+
+
+@functools.lru_cache(maxsize=4096)
+def _annotation_usage(raw: str) -> tuple:
+    """``(name, milli-CPU, memory, ephemeral)`` of each Node-type zone of a
+    topology-result annotation (``helper.get_pod_numa_node_result``), what
+    ``NodeWrapper.add_pod`` adds to the zone of that name."""
+    zones = zones_from_json(raw) or []
+    return _zone_usage([z for z in zones if z.type == ZONE_TYPE_NODE])
+
+
+def _zone_usage(zones) -> tuple:
+    out = []
+    for zone in zones:
+        r = Resource()
+        if zone.resources is not None:
+            r.add(zone.resources.capacity or {})
+        out.append((zone.name, r.milli_cpu, r.memory, r.ephemeral_storage))
+    return tuple(out)
+
+
+class _Folds:
+    """One accepted NRT window's folds into the host columns ``free`` and
+    ``used`` (``ZoneColumns.used``), in bind order: the rows, the request
+    rows taken from ``free`` and the zone takes added to ``used``. ``next``
+    is the following window's record, once it is opened. A result of the
+    window reads the columns as its pod saw them by undoing every fold
+    after its own place (``columns_at``)."""
+
+    __slots__ = ("free", "used", "rows", "dfree", "dused", "next")
+
+    def __init__(self, free, used):
+        self.free, self.used = free, used
+        self.rows = self.dfree = self.dused = self.next = None
+
+
+def columns_at(folds: _Folds, j: int, free, used):
+    """Copies of ``free`` and ``used`` as they were before fold ``j`` of
+    ``folds``: every later fold on the same arrays undone (a record whose
+    arrays were since replaced ends the chain, since replaced arrays are
+    not written again)."""
+    f = None if free is None else free.copy()
+    u = used.copy()
+    while folds is not None and folds.rows is not None and folds.used is used \
+            and folds.free is free:
+        rows = folds.rows[j:]
+        if f is not None:
+            np.add.at(f, rows, folds.dfree[j:])
+        np.subtract.at(u, rows, folds.dused[j:])
+        folds, j = folds.next, 0
+    return f, u
+
+
+class ZoneColumns:
+    """Per-node NUMA zone columns of ``NodeResourceTopologyMatch`` for the
+    batched drip window (``Scheduler.schedule_queue`` with the plugin;
+    ``scorer.drip_batch._drip_batch_numa`` reads them).
+
+    Static columns, from each node's NRT CR (``lister``), rebuilt when the
+    lister's ``version`` or the node list moves and versioned by ``epoch``
+    for the device column cache: ``has`` (a CR), ``active`` (its CPU
+    manager policy is Static), ``act_naw`` (Static and single-NUMA pod
+    level), ``zkey`` int64 [N, Z] (a zone's allocatable milli-CPU in CR
+    order, ``_NO_ZONE`` past the node's zones) and ``zcap`` (the same
+    floored to whole cores, 0 past them); ``zone_names`` with ``layout``
+    [N] give each row's zone names in CR order (-1: no CR).
+
+    ``used`` int64 [N, Z] is each zone's requested milli-CPU, rebuilt as
+    the plugin's ``NodeWrapper.add_pod`` does: every bound pod's
+    topology-result annotation, else its entry in the assume cache. It is
+    keyed on the cluster's ``pod_version`` and the cache's versions: a
+    write the pod journal covers re-reads only its nodes (the cache's
+    additions show through the binds the journal records; a removal, or
+    an uncovered interval, rebuilds every row), and the scheduler's own
+    accepted windows fold their zone takes in place (``fold``) under the
+    stamp discipline of the fit column. A rebuild or patch replaces the
+    array, so a result's view of the columns at its pod (``_Folds``) stays
+    exact.
+
+    ``clean`` is False while a Static node has a zone whose memory or
+    ephemeral storage is overcommitted by the results it holds, or a CR
+    repeats a zone name: the window models milli-CPU only, so the
+    scheduler then places its pods one by one."""
+
+    def __init__(self, cluster, topology):
+        self.cluster = cluster
+        self.topology = topology
+        self.names = None  # the node list the rows align to (identity)
+        self.has = self.active = self.act_naw = None
+        self.zkey = self.zcap = None
+        self.used = None
+        self.zone_names: list[tuple] = []
+        self.layout = None
+        self.epoch = 0
+        self._other = None  # int64 [N, Z, 2] allocatable memory, ephemeral
+        self._dup = None  # bool [N] a CR that repeats a zone name
+        self._over = None  # bool [N] memory or ephemeral overcommitted
+        self._lister_ver = self._pod_ver = self._cache_ver = self._shrink_ver = -1
+        # (zone names, takes) -> (zone result, its annotation text)
+        # (``Scheduler._zone_result``); cleared with the static columns
+        self.results: dict = {}
+        self.stats = {"zone_rebuilds": 0, "zone_rows": 0}
+
+    @property
+    def z(self) -> int:
+        return int(self.zkey.shape[1])
+
+    @property
+    def clean(self) -> bool:
+        return not bool(((self._over | self._dup) & self.active).any())
+
+    def ensure(self, names: list, pos: dict) -> None:
+        """Bring the columns up to date for the node list ``names``."""
+        topo = self.topology
+        lv = topo.lister.version
+        pv = self.cluster.pod_version
+        cache = topo.cache
+        cv, sv = cache.version, cache.shrink_version
+        if names is not self.names or lv != self._lister_ver:
+            self._rebuild_crs(names)
+            self._rebuild_used()
+        elif pv != self._pod_ver or cv != self._cache_ver or sv != self._shrink_ver:
+            changed = None
+            if sv == self._shrink_ver:
+                changed = self.cluster.pod_changes_since(self._pod_ver)
+            if changed is None:
+                self._rebuild_used()
+            else:
+                self._patch_used(sorted(pos[nm] for nm in changed if nm in pos))
+        self._lister_ver, self._pod_ver, self._cache_ver, self._shrink_ver = lv, pv, cv, sv
+
+    def _rebuild_crs(self, names: list) -> None:
+        get = self.topology.lister.get
+        crs = []
+        for name in names:
+            try:
+                crs.append(get(name))
+            except KeyError:
+                crs.append(None)
+        n = len(names)
+        z = max([len(c.zones) for c in crs if c is not None], default=0) or 1
+        zkey = np.full((n, z), _NO_ZONE, np.int64)
+        zcap = np.zeros((n, z), np.int64)
+        other = np.zeros((n, z, 2), np.int64)
+        layout = np.full(n, -1, np.int32)
+        has = np.zeros(n, bool)
+        active = np.zeros(n, bool)
+        naw = np.zeros(n, bool)
+        dup = np.zeros(n, bool)
+        parsed: dict = {}  # id(zones) -> (layout index, alloc rows); zones held by crs
+        self.zone_names = []
+        for i, cr in enumerate(crs):
+            if cr is None:
+                continue
+            has[i] = True
+            policy = cr.crane_manager_policy
+            active[i] = policy.cpu_manager_policy == CPU_MANAGER_POLICY_STATIC
+            naw[i] = policy.topology_manager_policy == TOPOLOGY_MANAGER_POLICY_SINGLE_NUMA_POD
+            hit = parsed.get(id(cr.zones))
+            if hit is None:
+                allocs = []
+                for zone in cr.zones:
+                    r = Resource()
+                    r.add((zone.resources.allocatable if zone.resources else {}) or {})
+                    allocs.append((r.milli_cpu, r.memory, r.ephemeral_storage))
+                zn = tuple(zone.name for zone in cr.zones)
+                self.zone_names.append(zn)
+                hit = parsed[id(cr.zones)] = (len(self.zone_names) - 1, allocs,
+                                              len(set(zn)) != len(zn))
+            li, allocs, repeated = hit
+            layout[i] = li
+            dup[i] = repeated
+            for j, (cpu, mem, eph) in enumerate(allocs):
+                zkey[i, j] = cpu
+                zcap[i, j] = cpu // 1000 * 1000  # whole cores (helper.go:194)
+                other[i, j] = (mem, eph)
+        self.names = names
+        self.has, self.active, self.act_naw = has, active, active & naw
+        self.zkey, self.zcap, self._other = zkey, zcap, other
+        self.layout, self._dup = layout, dup
+        self.results = {}
+        self.epoch += 1
+
+    def _rows_usage(self, rows, pods_of) -> None:
+        """Recompute ``used`` and the overcommit flag of ``rows`` (in
+        place; the caller has replaced the arrays)."""
+        cache = self.topology.cache
+        for i in rows:
+            li = int(self.layout[i])
+            if li < 0:
+                self.used[i] = 0
+                self._over[i] = False
+                continue
+            znames = self.zone_names[li]
+            acc = np.zeros((self.z, 3), np.int64)
+            for pod in pods_of(self.names[i]):
+                raw = (pod.annotations or {}).get(ANNOTATION_POD_TOPOLOGY_RESULT)
+                usage = _annotation_usage(raw) if isinstance(raw, str) else ()
+                if not usage:
+                    try:
+                        usage = _zone_usage(cache.get_pod_topology(pod))
+                    except KeyError:
+                        continue
+                for name, cpu, mem, eph in usage:
+                    for j, zn in enumerate(znames):
+                        if zn == name:
+                            acc[j] += (cpu, mem, eph)
+            self.used[i] = acc[:, 0]
+            self._over[i] = bool((acc[:, 1:] > self._other[i]).any())
+        self.stats["zone_rows"] += len(rows)
+
+    def _rebuild_used(self) -> None:
+        n = len(self.names)
+        by_node: dict = {}
+        for pod in self.cluster.list_pods():
+            if pod.node_name:
+                by_node.setdefault(pod.node_name, []).append(pod)
+        self.used = np.zeros((n, self.z), np.int64)
+        self._over = np.zeros(n, bool)
+        rows = [i for i, nm in enumerate(self.names) if nm in by_node]
+        self._rows_usage(rows, lambda nm: by_node[nm])
+        self.stats["zone_rebuilds"] += 1
+
+    def _patch_used(self, rows) -> None:
+        if not rows:
+            return
+        self.used = self.used.copy()
+        self._over = self._over.copy()
+        self._rows_usage(rows, self.cluster.list_pods)
+
+    def fold(self, row: int, take: np.ndarray) -> None:
+        """One accepted bind's zone takes (unchecked; the window validates
+        the stamps once, as for the fit column)."""
+        self.used[row] += take
+
+    def commit(self, pod_ver: int, cache_ver: int) -> None:
+        """Stamp the columns after a window's folds: the cluster and the
+        cache moved by the window's own binds and assumes alone."""
+        self._pod_ver, self._cache_ver = int(pod_ver), int(cache_ver)
+
+    def stamps(self) -> tuple:
+        return self._pod_ver, self._cache_ver
 
 
 class GangColumns(DripColumns):

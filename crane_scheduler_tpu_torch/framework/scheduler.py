@@ -2064,9 +2064,11 @@ class _Hooks:
         self.unreserve = hooks("unreserve")
 
 
-# the batched drip window's stages, in order (Scheduler._dispatch_window)
+# the batched drip window's stages (Scheduler._dispatch_window); a window
+# runs them in this order, with drip_zone (the NRT window's zone results,
+# annotation writes and assumes) between drip_wait and drip_bind
 DRIP_STAGES = ("drip_admit", "drip_prepare", "drip_launch", "drip_wait", "drip_bind",
-               "drip_fold")
+               "drip_fold", "drip_zone")
 
 
 class Scheduler:
@@ -2077,7 +2079,9 @@ class Scheduler:
     oracle and the fallback for daemonset pods, degraded mode, scalar
     extended-resource requests and unknown plugins), the columnar fast
     path over ``framework.drip.DripColumns``, and the batched windows of
-    ``schedule_queue`` / ``open_queue`` through ``scorer.drip_batch``.
+    ``schedule_queue`` / ``open_queue`` through ``scorer.drip_batch``
+    (with ``TopologyMatch`` registered too: the NRT window,
+    ``_dispatch_numa_window``).
     Host selection takes the max weighted score, the lowest snapshot index
     among ties, or a seeded-random tie with ``tie_break_seed``.
 
@@ -2122,6 +2126,7 @@ class Scheduler:
         # computed, None = unrecognized set (scalar forever)
         self._recognized: tuple | None | bool = False
         self._unrecognized_reason = "unknown_plugin"
+        self._window_rec: tuple | None | bool = False  # the same, for the window
         self._fallbacks: dict[str, int] = {}
         # bind-plane backpressure: an optional callable that blocks while
         # a downstream bind-flush queue is over its watermark, so window
@@ -2132,7 +2137,11 @@ class Scheduler:
         self._batch = {
             "dispatches": 0, "pods": 0, "replays": 0,
             "batch_sizes": [], "conflicts": 0,
+            "zone_windows": 0, "zone_results": 0, "cross_zone_binds": 0,
         }
+        # the NRT window's per-pod request and awareness, by container
+        # tuple and the two annotations (the tuple kept alive beside its id)
+        self._nrt_rows: dict = {}
         # optimistic multi-scheduler mode: re-check the pod_version fence
         # after the window and before the bind POSTs, dropping and
         # retrying the window when another binder moved it
@@ -2170,14 +2179,18 @@ class Scheduler:
         self._hooks = None
         self._drip = None
         self._recognized = False
+        self._window_rec = False
 
     def drip_stats(self) -> dict:
         """Column-cache counters (hits/rebuilds/folds/drops/topk_*), the
         per-reason scalar-fallback histogram and the batch windows'
         distributions, with the host seconds of each window stage
-        (``batch["stage_seconds"]``, ``DRIP_STAGES``) and the batch
+        (``batch["stage_seconds"]``, ``DRIP_STAGES``), the batch
         kernel's CUDA-graph counters (``graph_captures``, ``graph_replays``,
-        ``eager_windows``; ``replays`` counts tie replays)."""
+        ``eager_windows``; ``replays`` counts tie replays) and the NRT
+        window's (``zone_windows``: windows through ``drip_zone``;
+        ``zone_results``: topology results written; ``cross_zone_binds``:
+        bound pods whose result spans more than one zone)."""
         out = {"hits": 0, "rebuilds": 0, "folds": 0, "drops": 0,
                "topk_builds": 0, "topk_updates": 0}
         if self._drip is not None:
@@ -2189,6 +2202,9 @@ class Scheduler:
             "pods": b["pods"],
             "replays": b["replays"],
             "conflicts": b["conflicts"],
+            "zone_windows": b["zone_windows"],
+            "zone_results": b["zone_results"],
+            "cross_zone_binds": b["cross_zone_binds"],
             "batch_sizes": list(b["batch_sizes"]),
             "stage_seconds": dict(self._stages.seconds),
         }
@@ -2230,6 +2246,57 @@ class Scheduler:
             return None
         self._recognized = (dyn, dyn_weight, tracker, tuple(order))
         return self._recognized
+
+    def _window_recognition(self):
+        """The batched window's eligibility: ``_recognition``'s plugin sets,
+        and exactly one ``DynamicPlugin``, at most one
+        ``ResourceFitPlugin`` and exactly one ``TopologyMatch`` (order
+        free) — the NRT window, whose recognition tuple adds ``(plugin,
+        weight)``. The plugin must write to this scheduler's cluster, keep
+        the default topology-aware resources (CPU) and have a lister with
+        a ``version``; the window runs on one device. Anything else goes
+        per pod."""
+        rec = self._window_rec
+        if rec is not False:
+            return rec
+        rec = self._recognition()
+        if rec is None:
+            rec = self._numa_recognition()
+        self._window_rec = rec
+        return rec
+
+    def _numa_recognition(self):
+        from ..fit.plugin import ResourceFitPlugin
+        from ..plugins.dynamic import DynamicPlugin
+        from ..topology.plugin import DEFAULT_TOPOLOGY_AWARE_RESOURCES, TopologyMatch
+
+        mesh = self._kernel_mesh
+        if mesh is not None and mesh.size > 1:
+            return None
+        dyn = tracker = topo = None
+        dyn_weight = 1
+        order: list[str] = []
+        for wp in self._plugins:
+            p = wp.plugin
+            if type(p) is DynamicPlugin and dyn is None:
+                dyn, dyn_weight = p, wp.weight
+                order.append("dyn")
+            elif type(p) is ResourceFitPlugin and tracker is None:
+                tracker = p.tracker
+                order.append("fit")
+            elif type(p) is TopologyMatch and topo is None:
+                topo = (p, wp.weight)
+                order.append("nrt")
+            else:
+                return None
+        if dyn is None or topo is None:
+            return None
+        plugin = topo[0]
+        if (plugin.cluster is not self.cluster
+                or plugin.topology_aware_resources != DEFAULT_TOPOLOGY_AWARE_RESOURCES
+                or not hasattr(plugin.lister, "version")):
+            return None
+        return (dyn, dyn_weight, tracker, tuple(order), topo)
 
     def _count_fallback(self, reason: str) -> None:
         self._fallbacks[reason] = self._fallbacks.get(reason, 0) + 1
@@ -2332,7 +2399,7 @@ class Scheduler:
     @staticmethod
     def _columnar_ineligible(pod: Pod, rec) -> str | None:
         """Per-pod reasons the cached columns cannot express."""
-        dyn, _w, tracker, _order = rec
+        dyn, _w, tracker, _order = rec[:4]
         if pod.is_daemonset_pod():
             return "daemonset"  # Dynamic Filter bypass is per-pod
         if dyn.degraded is not None and dyn.degraded.active:
@@ -2444,9 +2511,10 @@ class Scheduler:
 
         drip = self._drip
         if drip is None:
-            dyn, dyn_weight, tracker, order = rec
-            drip = self._drip = DripColumns(self.cluster, dyn, dyn_weight, order,
-                                            fit_tracker=tracker, telemetry=self._telemetry)
+            dyn, dyn_weight, tracker, order = rec[:4]
+            drip = self._drip = DripColumns(
+                self.cluster, dyn, dyn_weight, order, fit_tracker=tracker,
+                telemetry=self._telemetry, topology=rec[4][0] if len(rec) > 4 else None)
         return drip
 
     @staticmethod
@@ -2546,9 +2614,15 @@ class Scheduler:
 
     # -- the batched window ----------------------------------------------
 
-    def _window_fence(self) -> tuple:
+    def _window_fence(self, rec) -> tuple:
+        """The versions a window's pods must all observe: the cluster's, and
+        with NRT the lister's and the assume cache's."""
         cluster = self.cluster
-        return (cluster.sched_version, cluster.pod_version, cluster.node_version)
+        fence = (cluster.sched_version, cluster.pod_version, cluster.node_version)
+        if len(rec) > 4:
+            topo = rec[4][0]
+            fence += (topo.lister.version, topo.cache.version)
+        return fence
 
     def _queue_fallback(self, pod: Pod, rec) -> str | None:
         """Why ``pod`` cannot join a window: a columnar fallback reason, or
@@ -2567,6 +2641,34 @@ class Scheduler:
 
         return request_vec(pod_fit_request(pod)) if rec[2] is not None else None
 
+    def _nrt_request(self, pod: Pod) -> tuple[int, int]:
+        """The NRT PreFilter of one pod: its guaranteed milli-CPU over the
+        containers whose CPUs can be pinned (0: the plugin leaves the pod
+        alone) and its awareness annotation (-1 absent, 0 false, 1 true)."""
+        from ..topology.helper import (
+            compute_container_specified_resource_request,
+            get_pod_target_container_indices,
+            is_pod_aware_of_topology,
+        )
+        from ..topology.plugin import DEFAULT_TOPOLOGY_AWARE_RESOURCES
+        from ..topology.types import ANNOTATION_POD_CPU_POLICY, ANNOTATION_POD_TOPOLOGY_AWARENESS
+
+        anno = pod.annotations or {}
+        key = (id(pod.containers), anno.get(ANNOTATION_POD_CPU_POLICY),
+               anno.get(ANNOTATION_POD_TOPOLOGY_AWARENESS))
+        hit = self._nrt_rows.get(key)
+        if hit is not None and hit[0] is pod.containers:
+            return hit[1]
+        indices = get_pod_target_container_indices(pod)
+        req = compute_container_specified_resource_request(
+            pod, indices, DEFAULT_TOPOLOGY_AWARE_RESOURCES).milli_cpu if indices else 0
+        aware = is_pod_aware_of_topology(anno)
+        row = (int(req), -1 if aware is None else int(aware))
+        if len(self._nrt_rows) >= 1024:
+            self._nrt_rows.clear()
+        self._nrt_rows[key] = (pod.containers, row)
+        return row
+
     def schedule_queue(self, pods, window: int = 32) -> list[ScheduleResult]:
         """Batched drip: coalesce pending pods into dispatch windows for
         ``scorer.drip_batch`` — one window of K dependent steps, one
@@ -2583,7 +2685,7 @@ class Scheduler:
         replayed through the per-pod columnar path, consuming the RNG call
         for call."""
         results: list[ScheduleResult] = []
-        rec = self._recognition() if self._columnar and window > 1 else None
+        rec = self._window_recognition() if self._columnar and window > 1 else None
         if rec is None:
             for pod in pods:
                 results.append(self.schedule_one(pod))
@@ -2600,7 +2702,7 @@ class Scheduler:
                 stages.begin("drip_admit", admit_from)
                 admit_from = None
             fallback = self._queue_fallback(pod, rec)
-            if buf and (fallback is not None or self._window_fence() != fence):
+            if buf and (fallback is not None or self._window_fence(rec) != fence):
                 admit_from = self._dispatch_window(buf, rec, results)
                 buf = []
             if fallback is not None:
@@ -2611,7 +2713,7 @@ class Scheduler:
                 admit_from = stages.clock()
                 continue
             if not buf:
-                fence = self._window_fence()
+                fence = self._window_fence(rec)
             buf.append((pod, self._request_row(pod, rec)))
             if len(buf) >= window:
                 admit_from = self._dispatch_window(buf, rec, results)
@@ -2640,8 +2742,8 @@ class Scheduler:
         columns, so the window drops and retries at queue position
         (``_retry`` bounds the loop; exhaustion falls back to the per-pod
         path)."""
-        from ..scorer.drip_batch import DripBatchKernel
-
+        if len(rec) > 4:
+            return self._dispatch_numa_window(buf, rec, results, _retry)
         dyn, _dyn_weight, tracker, _order = rec
         if self.bind_backpressure is not None:
             self.bind_backpressure()
@@ -2660,10 +2762,7 @@ class Scheduler:
             if tracker is not None:
                 for i, (_pod, vec) in enumerate(buf):
                     vecs[i] = vec
-            kern = self._batch_kernel
-            if kern is None:
-                kern = self._batch_kernel = DripBatchKernel(device=self.device,
-                                                            mesh=self._kernel_mesh)
+            kern = self._kernel()
             t_upload = stages.clock()
             chosen, feasible, ties = kern.dispatch(
                 drip.schedulable, drip.weighted, drip.bounded, drip.free, vecs,
@@ -2672,34 +2771,11 @@ class Scheduler:
             )
             t_fetched = stages.stop()
         b = self._batch
-        b["dispatches"] += 1
-        b["pods"] += k
-        if len(b["batch_sizes"]) < 4096:
-            b["batch_sizes"].append(k)
-        if self._m_batch_pods is not None:
-            self._m_batch_pods.observe(k)
-            # the uploads, the launch and the wait
-            self._m_kernel_s.observe(t_fetched - t_upload)
-
-        if (
-            self.conflict_retry
-            and tracker is not None
-            and drip.free is not None
-            and self.cluster.pod_version != drip._fit_pod_ver
-        ):
-            # nothing was POSTed (the window is pure): drop it and retry
-            # the pods at queue position over rebuilt columns; after
-            # max_window_retries take the serialized per-pod path
-            kern.mark_desynced()
-            drip.drop_fit()
-            b["conflicts"] += 1
-            if self.conflict_cb is not None:
-                self.conflict_cb("stale_window")
+        self._count_window(k, t_fetched - t_upload)
+        if self._stale_window(tracker, drip, kern):
             if _retry < self.max_window_retries:
                 return self._dispatch_window(buf, rec, results, _retry + 1)
-            for pod, _vec in buf:
-                results.append(self.schedule_one(pod))
-            return stages.clock()
+            return self._replay_per_pod(buf, results)
 
         if self._tie_rng is not None and bool((ties > 1).any()):
             # a real tie consumes seeded RNG the window cannot replay —
@@ -2707,20 +2783,10 @@ class Scheduler:
             # columns: identical placements and RNG consumption
             kern.mark_desynced()
             b["replays"] += 1
-            for pod, _vec in buf:
-                results.append(self.schedule_one(pod))
-            return stages.clock()
+            return self._replay_per_pod(buf, results)
 
         stages.begin("drip_bind", t_fetched)
-        lc = tel.lifecycle if tel is not None else None
-        if lc is not None:
-            # stage marks precede the bind (as on the per-pod path)
-            for i, (pod, _vec) in enumerate(buf):
-                key = pod.key()
-                lc.seen(key, source="drip")
-                if chosen[i] >= 0:
-                    lc.stage(key, "filtered")
-                    lc.stage(key, "scored", node=names[int(chosen[i])])
+        lc = self._mark_scored(buf, chosen, names)
         pairs = [
             (pod.key(), names[int(chosen[i])])
             for i, (pod, _vec) in enumerate(buf)
@@ -2776,6 +2842,260 @@ class Scheduler:
                 kern.mark_desynced()
         return stages.stop()
 
+    def _count_window(self, k: int, kernel_s: float) -> None:
+        """A dispatched window's counts and metrics (``kernel_s``: the
+        uploads, the launch and the wait)."""
+        b = self._batch
+        b["dispatches"] += 1
+        b["pods"] += k
+        if len(b["batch_sizes"]) < 4096:
+            b["batch_sizes"].append(k)
+        if self._m_batch_pods is not None:
+            self._m_batch_pods.observe(k)
+            self._m_kernel_s.observe(kernel_s)
+
+    def _stale_window(self, tracker, drip, kern) -> bool:
+        """Under ``conflict_retry``: whether another binder moved
+        ``pod_version`` under the window. Nothing was POSTed (the window is
+        pure), so it is dropped, to be retried at queue position over
+        rebuilt columns or, after ``max_window_retries``, placed per pod."""
+        if not (self.conflict_retry and tracker is not None and drip.free is not None
+                and self.cluster.pod_version != drip._fit_pod_ver):
+            return False
+        kern.mark_desynced()
+        drip.drop_fit()
+        self._batch["conflicts"] += 1
+        if self.conflict_cb is not None:
+            self.conflict_cb("stale_window")
+        return True
+
+    def _mark_scored(self, buf, chosen, names):
+        """The lifecycle's marks for a window's pods, before the bind (as
+        on the per-pod path); returns the lifecycle, or None."""
+        tel = self._telemetry
+        lc = tel.lifecycle if tel is not None else None
+        if lc is not None:
+            for i, (pod, _vec) in enumerate(buf):
+                key = pod.key()
+                lc.seen(key, source="drip")
+                if chosen[i] >= 0:
+                    lc.stage(key, "filtered")
+                    lc.stage(key, "scored", node=names[int(chosen[i])])
+        return lc
+
+    def _kernel(self):
+        from ..scorer.drip_batch import DripBatchKernel
+
+        kern = self._batch_kernel
+        if kern is None:
+            kern = self._batch_kernel = DripBatchKernel(device=self.device,
+                                                        mesh=self._kernel_mesh)
+        return kern
+
+    def _replay_per_pod(self, buf, results) -> float:
+        """A rejected window's pods, one by one at their queue positions
+        (no stage of the window)."""
+        for pod, _vec in buf:
+            results.append(self.schedule_one(pod))
+        return self._stages.clock()
+
+    def _dispatch_numa_window(self, buf, rec, results, _retry: int = 0) -> float:
+        """``_dispatch_window`` with ``NodeResourceTopologyMatch``: the
+        window carries the zone columns' usage across its steps
+        (``DripBatchKernel.dispatch_numa``) and each accepted bind does
+        what the plugin's Reserve and PreBind do, for the whole window at
+        once in the stage ``drip_zone`` (``TopologyMatch.commit_results``:
+        the zone result assumed in the cache and written onto the pod as
+        its topology-result annotation) before ``bind_pods``.
+
+        The window replays per pod, where the per-pod cycle must decide it:
+        a seeded tie, a feasible node on which the plugin's greedy pack
+        uses no zone (its Score divides by zero), a pod already assumed or
+        missing from the cluster, and zone columns the window does not
+        model (``ZoneColumns.clean``). A result's ``scores`` and filter
+        reasons read the fit and zone columns as its pod saw them
+        (``framework.drip.columns_at``)."""
+        from ..scorer.drip_batch import numa_pod_rows
+
+        dyn, _dyn_weight, tracker, _order, (topo, topo_weight) = rec
+        if self.bind_backpressure is not None:
+            self.bind_backpressure()
+        k = len(buf)
+        drip = self._ensure_drip(rec)
+        zones = drip.zones
+        tel = self._telemetry
+        now = dyn._clock()
+        stages = self._stages
+        t = stages.stop()  # the end of drip_admit
+        with maybe_span(tel, "drip_dispatch", pods=k):
+            stages.begin("drip_prepare", t)
+            drip.ensure(now)
+            if not zones.clean:
+                stages.stop()
+                return self._replay_per_pod(buf, results)
+            names = drip.names
+            n = len(names)
+            vecs = np.zeros((k, 4), dtype=np.int64)
+            if tracker is not None:
+                for i, (_pod, vec) in enumerate(buf):
+                    vecs[i] = vec
+            nrt = np.array([self._nrt_request(pod) for pod, _vec in buf],
+                           dtype=np.int64).reshape(k, 2)
+            pod_rows = numa_pod_rows(nrt[:, 0], nrt[:, 1], topo_weight, zones.z)
+            kern = self._kernel()
+            t_upload = stages.clock()
+            chosen, feasible, ties, bad, takes = kern.dispatch_numa(
+                drip.schedulable, drip.weighted, drip.bounded, drip.free, vecs, zones, pod_rows,
+                want_ties=self._tie_rng is not None, col_version=drip.col_epoch,
+                col_delta=drip.dirty_rows_between, stages=stages,
+            )
+            t_fetched = stages.stop()
+        b = self._batch
+        self._count_window(k, t_fetched - t_upload)
+        if self._stale_window(tracker, drip, kern):
+            if _retry < self.max_window_retries:
+                return self._dispatch_numa_window(buf, rec, results, _retry + 1)
+            return self._replay_per_pod(buf, results)
+
+        tied = self._tie_rng is not None and bool((ties > 1).any())
+        if tied:
+            b["replays"] += 1
+        on = nrt[:, 0] > 0
+        if tied or bool((bad[on] > 0).any()):
+            kern.mark_desynced()
+            return self._replay_per_pod(buf, results)
+
+        stages.begin("drip_zone", t_fetched)
+        entries = [(buf[i][0], *self._zone_result(zones, int(chosen[i]), takes[i]))
+                   for i in np.flatnonzero((chosen >= 0) & takes.any(axis=1)).tolist()]
+        pre_cache = topo.cache.version
+        if entries and not topo.commit_results(entries):
+            stages.stop()
+            kern.mark_desynced()
+            return self._replay_per_pod(buf, results)
+        b["zone_windows"] += 1
+        b["zone_results"] += len(entries)
+
+        stages.split("drip_bind")
+        lc = self._mark_scored(buf, chosen, names)
+        pairs = [(pod.key(), names[int(chosen[i])])
+                 for i, (pod, _vec) in enumerate(buf) if chosen[i] >= 0]
+        pre_pod = self.cluster.pod_version
+        bound = self.cluster.bind_pods(pairs, self._clock()) if pairs else []
+        stages.split("drip_fold")
+        bound_set = set(bound)
+        unbound = [pod for pod, _zl, _raw in entries if pod.key() not in bound_set]
+        if unbound:
+            # the per-pod cycle's Unreserve after a failed bind
+            topo.cache.forget_pods(unbound)
+        n_bound = len(bound)
+        b["cross_zone_binds"] += sum(len(zl) > 1 for pod, zl, _raw in entries
+                                     if pod.key() in bound_set)
+        ok_folds = (
+            n_bound == len(pairs)
+            and self.cluster.pod_version == pre_pod + n_bound
+            and zones.stamps() == (pre_pod, pre_cache)
+            and topo.cache.version == pre_cache + len(entries)
+            and (tracker is None or (drip.free is not None and drip._fit_pod_ver == pre_pod))
+        )
+        folds = drip.open_folds()
+        fold_rows = []
+        j = 0
+        for i, (pod, vec) in enumerate(buf):
+            key = pod.key()
+            ci = int(chosen[i])
+            views = self._numa_views(drip, vec, pod_rows[i], folds, j)
+            if ci < 0:
+                code = drip.nrt_code(n - 1, pod_rows[i], zones.used) if n else -1
+                reason = drip.reason_for(n - 1, vec, code) if n else ""
+                result = self._result(views, key, None, 0, reason or "no feasible nodes")
+            elif key in bound_set:
+                if ok_folds:
+                    if tracker is not None:
+                        drip.free[ci] -= vec
+                    zones.fold(ci, takes[i])
+                    fold_rows.append(i)
+                    j += 1
+                if lc is not None:
+                    lc.posted(key, node=names[ci])
+                result = self._result(views, key, names[ci], int(feasible[i]))
+            else:
+                result = self._result(views, key, None, int(feasible[i]), "bind failed")
+            if tel is not None:
+                self._m_decisions.labels(outcome="scheduled" if result.node else "failed").inc()
+                tel.decisions.offer(self._decision_builder(result))
+            results.append(result)
+        if ok_folds:
+            drip.stats["folds"] += len(fold_rows)
+            drip.close_folds(folds, chosen[fold_rows].astype(np.int64), vecs[fold_rows],
+                             takes[fold_rows])
+            zones.commit(pre_pod + n_bound, pre_cache + len(entries))
+            if tracker is not None:
+                drip.commit_folds(pre_pod + n_bound)
+            kern.mark_synced(drip.free, zones.used)
+        else:
+            if tracker is not None:
+                drip.drop_fit()
+            kern.mark_desynced()
+        return stages.stop()
+
+    @staticmethod
+    def _zone_result(zones, row: int, take) -> tuple:
+        """The plugin's zone result for a bind on ``row`` that takes
+        ``take`` milli-CPU per zone (CR order): the zones sorted by name,
+        each with its CPU as capacity, and their annotation text."""
+        from ..topology.types import ZONE_TYPE_NODE, Zone, ZoneResourceInfo, zones_to_json
+
+        names = zones.zone_names[int(zones.layout[row])]
+        key = (names, tuple(int(t) for t in take))
+        hit = zones.results.get(key)
+        if hit is None:
+            if len(zones.results) >= 4096:
+                zones.results.clear()
+            zl = sorted((Zone(name=names[j], type=ZONE_TYPE_NODE,
+                              resources=ZoneResourceInfo(capacity={"cpu": f"{t}m"}))
+                         for j, t in enumerate(key[1]) if t > 0), key=lambda zn: zn.name)
+            hit = zones.results[key] = (tuple(zl), zones_to_json(zl))
+        return list(hit[0]), hit[1]
+
+    @staticmethod
+    def _numa_views(drip, vec, pod_row, folds, j):
+        """``_lazy_views`` of an NRT window's result: the fit and zone
+        columns as its pod saw them (``columns_at``: ``folds`` up to its
+        place ``j`` in the window), scored with the window's own step
+        (``numa_eval``)."""
+        import heapq
+
+        from ..scorer.drip_batch import numa_eval
+        from .drip import columns_at
+
+        zones = drip.zones
+        names = drip.names
+        cols = (drip.schedulable, drip.weighted, drip.bounded)
+        free, used = drip.free, zones.used
+        zcols = (zones.zkey, zones.zcap, zones.has, zones.active, zones.act_naw)
+
+        def state():
+            f, u = columns_at(folds, j, free, used)
+            mask, total, _idx = numa_eval(*cols, f, vec, zcols, u, pod_row)
+            return f, u, mask, total
+
+        def lazy_scores():
+            _f, _u, mask, total = state()
+            return {names[int(i)]: int(total[i]) for i in np.flatnonzero(mask)}
+
+        def lazy_topk(k):
+            _f, _u, mask, total = state()
+            return heapq.nsmallest(k, ((names[int(i)], int(total[i]))
+                                       for i in np.flatnonzero(mask)),
+                                   key=lambda kv: (-kv[1], kv[0]))
+
+        def reasons():
+            f, u, mask, _total = state()
+            return drip.reason_counts(mask, vec, nrt=drip.nrt_codes(pod_row, u), free=f)
+
+        return lazy_scores, lazy_topk, reasons
+
     def open_queue(self, window: int = 32) -> "DripQueue":
         """An incremental front end to ``schedule_queue`` for a serving
         loop: pods arrive one at a time (``offer``), windows fire under the
@@ -2812,7 +3132,7 @@ class DripQueue:
 
     def offer(self, pod) -> None:
         s = self._s
-        rec = s._recognition() if s._columnar and self.window > 1 else None
+        rec = s._window_recognition() if s._columnar and self.window > 1 else None
         if rec is None:
             # scalar-pinned plugin set: nothing may sit buffered behind a
             # per-pod decision (ordering), so flush, then go scalar
@@ -2821,7 +3141,7 @@ class DripQueue:
             return
         fallback = s._queue_fallback(pod, rec)
         if self._buf and (
-            fallback is not None or s._window_fence() != self._fence or rec is not self._rec
+            fallback is not None or s._window_fence(rec) != self._fence or rec is not self._rec
         ):
             self.drain()
         if fallback is not None:
@@ -2829,7 +3149,7 @@ class DripQueue:
             self.results.append(s.schedule_one(pod))
             return
         if not self._buf:
-            self._fence = s._window_fence()
+            self._fence = s._window_fence(rec)
             self._rec = rec
         self._buf.append((pod, s._request_row(pod, rec)))
         if len(self._buf) >= self.window:

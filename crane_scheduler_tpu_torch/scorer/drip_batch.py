@@ -40,6 +40,15 @@ The fold carry stays on the device across windows: after a fully accepted
 window the host applies the same integer folds to its own ``free`` copy
 (``mark_synced``), so the next dispatch skips the ``[N, 4]`` upload.
 
+With ``NodeResourceTopologyMatch`` registered the scheduler runs
+``_drip_batch_numa`` instead (``DripBatchKernel.dispatch_numa``; port-only,
+the reference places such a queue pod by pod): each step also evaluates
+the plugin's Filter and greedy zone pack over every node's NUMA zones
+(``[N, Z]`` int64 milli-CPU), adds its weighted score to the Dynamic one,
+and folds the winner's zone takes into a second carry, ``used``, which
+stays on the device beside ``free``. Its graphs (``_NumaWindowGraph``)
+are keyed by shape and zone count in the same ``GraphSlot``.
+
 Over a node mesh of more than one tile (``DripBatchKernel(mesh=)``, the
 reference's ``_sharded_drip_fn``) the columns are padded to the
 reference's bucket rounded up to the tile count and split into equal
@@ -139,6 +148,179 @@ def _drip_batch(schedulable, weighted, bounded, free, vecs, active, want_ties=Tr
     if not rows:
         return torch.zeros((0, 3), dtype=torch.int64, device=dev), free
     return torch.stack(rows), free
+
+
+def numa_pod_rows(req: np.ndarray, aware: np.ndarray, weight: int, z: int) -> np.ndarray:
+    """The per-pod input of ``_drip_batch_numa``, int64 [K, 5 + z]: the
+    guaranteed milli-CPU, the awareness annotation absent, true (``aware``:
+    -1 absent, 0 false, 1 true), then the weighted NRT score by zone index:
+    entry ``c`` in 1..z is ``weight * (100 // c)`` (the plugin's score for
+    a pack over ``c`` zones), entry 0 is 0 (a pack over no zone: the
+    plugin divides by zero, flagged as ``bad``), entry ``z + 1`` is 0 (a
+    node NRT leaves alone). A pod with no guaranteed CPU (``req`` 0) gets
+    zeros."""
+    from ..constants import MAX_NODE_SCORE
+
+    req = np.asarray(req, np.int64)
+    on = req > 0
+    aware = np.asarray(aware)
+    table = np.zeros(z + 2, np.int64)
+    table[1:z + 1] = [weight * (MAX_NODE_SCORE // c) for c in range(1, z + 1)]
+    return np.concatenate([req[:, None], (on & (aware < 0))[:, None],
+                           (on & (aware > 0))[:, None],
+                           np.where(on[:, None], table[None, :], 0)], axis=1).astype(np.int64)
+
+
+def _drip_batch_numa(schedulable, weighted, bounded, free, vecs, active, zcols, used, pods,
+                     want_ties=True):
+    """``_drip_batch`` with ``NodeResourceTopologyMatch`` beside Dynamic and
+    Fit: per step, the NRT Filter and the pack over each node's NUMA zones
+    for the pod's guaranteed CPU, its weighted score added to ``weighted``,
+    the argmax, and both folds, ``free`` and the winner's zones.
+
+    ``zcols``, the node columns: ``zkey`` int64 [N, Z], a zone's
+    allocatable milli-CPU (``-2^62`` past the node's zones, so they sort
+    last and never fit); ``zcap`` int64 [N, Z], the allocatable floored to
+    whole cores (0 past the zones); ``nrt_has`` bool [N], a CR exists;
+    ``nrt_active``, the CR's CPU manager policy is Static; ``nrt_act_naw``,
+    Static and the node's topology manager policy single-NUMA. ``used``
+    int64 [N, Z]: each zone's requested milli-CPU (the carry). ``pods``
+    (``numa_pod_rows``) int64 [K, 5 + Z]: per pod the guaranteed milli-CPU
+    ``req`` (0: NRT leaves the pod alone), the awareness annotation absent
+    and true (both 0 where ``req`` is 0), and the score table.
+
+    The zone math is Go's on int64 milli-CPU (``topology.helper``): an
+    aware pod fits where one zone's free CPU holds the whole request and
+    takes the freest zone (first among equals, in CR order); a non-aware
+    pod packs greedily over the zones in free-descending order (stable),
+    ``min(remaining, floored allocatable - requested)`` per zone, which a
+    negative (overcommitted) zone inflates, until the request is met. A
+    zone counts where it takes a positive part; the score divides 100 by
+    the count. Returns ``(outs, free, used)``: ``outs`` int64 [K, 4 + Z]
+    of (chosen or -1, feasible count, tie count, feasible nodes whose pack
+    used no zone, then the winner's take per zone in CR order)."""
+    free = free.clone()
+    used = used.clone()
+    dev = free.device
+    z = used.shape[1]
+    ops = _numa_pod_operands(zcols, pods)
+    neg_delta = torch.where(active[:, None], -vecs, torch.zeros_like(vecs))
+    need = vecs > 0
+    # an aware pod's take: the whole request in its first (freest) zone
+    first_take = torch.zeros((vecs.shape[0], z), dtype=torch.int64, device=dev)
+    first_take[:, 0] = ops[0]
+    act_on = ops[2]
+    minus_one = torch.full((), -1, dtype=torch.int64, device=dev)
+    one = torch.ones((), dtype=torch.int64, device=dev)
+    zero_row = torch.zeros((1, vecs.shape[1]), dtype=torch.int64, device=dev)
+    rows = []
+    for k in range(vecs.shape[0]):
+        mask, total, idx, need_fit, orders, takes = _numa_step(
+            schedulable, weighted, bounded, free, vecs[k], need[k], zcols, used, ops, k)
+        w = torch.where(mask, total, _I64_MIN)
+        best = torch.argmax(w).reshape(1)  # first maximum, like np.argmax
+        feasible = mask.sum(dtype=torch.int64)
+        if want_ties:
+            ties = (mask & (total == w.gather(0, best))).sum(dtype=torch.int64)
+        else:
+            ties = one
+        bad = (mask & (idx == 0)).sum(dtype=torch.int64)
+        some = feasible > 0
+        free.index_add_(0, best, torch.where(some, neg_delta[k:k + 1], zero_row))
+        # the winner's takes by pack position, then by CR zone
+        a_best = torch.cat([t.gather(0, best) for t in takes])[None, :]
+        o_best = torch.cat([o.index_select(0, best) for o in orders], dim=1)
+        t_sorted = torch.where(need_fit.gather(0, best)[:, None], first_take[k:k + 1],
+                               a_best.clamp(min=0))
+        keep = some & act_on[k].gather(0, best)
+        row = torch.zeros_like(t_sorted).scatter(1, o_best, t_sorted)
+        row = torch.where(keep[:, None], row, torch.zeros_like(row))
+        used.index_add_(0, best, row)
+        head = torch.stack([torch.where(some, best[0], minus_one), feasible, ties, bad])
+        rows.append(torch.cat([head, row[0]]))
+    if not rows:
+        return torch.zeros((0, 4 + z), dtype=torch.int64, device=dev), free, used
+    return torch.stack(rows), free, used
+
+
+def _numa_pod_operands(zcols, pods):
+    """The window's per-pod NRT operands, once for every step: the request
+    ``req`` [K], the awareness annotation absent ``aw_none`` [K], and per
+    pod and node (K x N) where NRT acts (``act_on``: Static, and a pod with
+    guaranteed CPU), where an annotated-aware pod needs a zone that fits
+    (``act_if_true``) and where the pod passes unless aware
+    (``has_or_off``: a CR exists, or NRT leaves the pod alone); the score
+    table [K, Z + 2]."""
+    _zkey, _zcap, nrt_has, nrt_active, _act_naw = zcols
+    req = pods[:, 0]
+    on = req > 0
+    act_on = nrt_active[None, :] & on[:, None]
+    return (req, pods[:, 1] > 0, act_on, act_on & (pods[:, 2] > 0)[:, None],
+            nrt_has[None, :] | ~on[:, None], pods[:, 3:])
+
+
+def _numa_step(schedulable, weighted, bounded, free, vec, need, zcols, used, ops, k):
+    """Pod ``k``'s Filter and Score over every node (``_drip_batch_numa``):
+    ``(mask, total, idx, need_fit, orders, takes)``, the feasible nodes,
+    the weighted Dynamic + NRT score, the score table's index (1 for an
+    aware pack, the zone count of a greedy one, ``Z + 1`` where NRT does
+    not act), where the pod needs one fitting zone, and per pack position
+    the zone visited ([N, 1]) and the part it takes ([N], negative on an
+    overcommitted zone)."""
+    zkey, zcap, _has, _active, nrt_act_naw = zcols
+    req, aw_none, act_on, act_if_true, has_or_off, table = ops
+    z = used.shape[1]
+    fit_fail = bounded & (need & (free < vec)).any(dim=1)
+    zfree = zkey - used
+    fits = (zfree >= req[k]).any(dim=1)
+    # aware: the pod's annotation, else the node's policy
+    need_fit = torch.where(aw_none[k], nrt_act_naw, act_if_true[k])
+    mask = schedulable & ~fit_fail & torch.where(need_fit, fits, has_or_off[k])
+    # the greedy pack over zones by free CPU, descending, first among
+    # equals first (argmax), each zone visited once
+    capfree = zcap - used
+    key = zfree
+    rem = req[k]
+    orders, takes = [], []
+    cnt = None
+    for s in range(z):
+        o = torch.argmax(key, dim=1, keepdim=True)
+        if s + 1 < z:
+            key = key.scatter(1, o, _I64_MIN)
+        c = capfree.gather(1, o).squeeze(1)
+        if s == 0:
+            a = torch.minimum(rem, c)
+        else:
+            a = torch.where(rem > 0, torch.minimum(rem, c), torch.zeros_like(c))
+        if s + 1 < z:
+            rem = rem - a
+        pos = (a > 0).to(torch.int64)
+        cnt = pos if cnt is None else cnt + pos
+        orders.append(o)
+        takes.append(a)
+    idx = torch.where(need_fit, 1, torch.where(act_on[k], cnt, z + 1))
+    total = weighted + torch.take(table[k], idx)
+    return mask, total, idx, need_fit, orders, takes
+
+
+def numa_eval(schedulable, weighted, bounded, free, vec, zcols, used, pod_row):
+    """One pod's step of the NRT window over host numpy columns, on the
+    CPU: ``(mask, total, idx)`` as numpy (``_numa_step``). ``bounded`` /
+    ``free`` None: no Fit plugin. ``zcols`` as ``_drip_batch_numa`` takes
+    them, numpy; ``pod_row`` int64 [5 + Z] (``numa_pod_rows``)."""
+    t = torch.from_numpy
+    n = int(schedulable.shape[0])
+    if bounded is None or free is None:
+        bounded = np.zeros((n,), dtype=bool)
+        free = np.zeros((n, 4), dtype=np.int64)
+    vec = np.zeros(4, np.int64) if vec is None else np.asarray(vec, np.int64)
+    zc = tuple(t(np.ascontiguousarray(c)) for c in zcols)
+    ops = _numa_pod_operands(zc, t(np.asarray(pod_row, np.int64)[None, :]))
+    mask, total, idx, *_ = _numa_step(
+        t(np.asarray(schedulable)), t(np.asarray(weighted, np.int64)), t(np.asarray(bounded)),
+        t(np.asarray(free, np.int64)), t(vec), t(vec > 0), zc,
+        t(np.asarray(used, np.int64)), ops, 0)
+    return mask.numpy(), total.numpy(), idx.numpy()
 
 
 def _sharded_drip(tiles, vecs, want_ties=True, first_tile=0, n_tiles=None,
@@ -297,10 +479,7 @@ class _WindowGraph:
             with torch.cuda.stream(stream):
                 graph.capture_begin(capture_error_mode="thread_local")
                 try:
-                    outs, free_out = _drip_batch(self.sched, self.weighted, self.bounded,
-                                                 self.free, self.vecs, self.active,
-                                                 want_ties=want_ties)
-                    self.free.copy_(free_out)
+                    outs = self._run(want_ties)
                 finally:
                     graph.capture_end()
         finally:
@@ -308,6 +487,48 @@ class _WindowGraph:
                 gc.enable()
         cur.wait_stream(stream)
         self.graph, self.outs = graph, outs
+
+    def _run(self, want_ties: bool):
+        """The window over the static buffers, its carry folded back into
+        them; returns ``outs``."""
+        outs, free_out = _drip_batch(self.sched, self.weighted, self.bounded, self.free,
+                                     self.vecs, self.active, want_ties=want_ties)
+        self.free.copy_(free_out)
+        return outs
+
+
+class _NumaWindowGraph(_WindowGraph):
+    """``_WindowGraph`` of the NRT window (``_drip_batch_numa``): the zone
+    columns, the zone carry ``used`` and the per-pod rows beside the plain
+    buffers; both carries fold back in place."""
+
+    def __init__(self, dev: torch.device, n: int, k: int, z: int):
+        super().__init__(dev, n, k)
+        self.zcols = (torch.empty((n, z), dtype=torch.int64, device=dev),
+                      torch.empty((n, z), dtype=torch.int64, device=dev),
+                      *(torch.empty((n,), dtype=torch.bool, device=dev) for _ in range(3)))
+        self.used = torch.empty((n, z), dtype=torch.int64, device=dev)
+        self.pods = torch.empty((k, 5 + z), dtype=torch.int64, device=dev)
+        self._zlast = (None,) * len(self.zcols)
+
+    def load_numa(self, zcols, used, pods) -> None:
+        """As ``load``: a zone column only where its tensor changed, the
+        zone carry unless it is already ``self.used``, the pod rows."""
+        for static, src, last in zip(self.zcols, zcols, self._zlast):
+            if src is not last:
+                static.copy_(src)
+        self._zlast = tuple(zcols)
+        if used is not self.used:
+            self.used.copy_(used, non_blocking=True)
+        self.pods.copy_(pods, non_blocking=True)
+
+    def _run(self, want_ties: bool):
+        outs, free_out, used_out = _drip_batch_numa(
+            self.sched, self.weighted, self.bounded, self.free, self.vecs, self.active,
+            self.zcols, self.used, self.pods, want_ties=want_ties)
+        self.free.copy_(free_out)
+        self.used.copy_(used_out)
+        return outs
 
 
 def _pinned(host: np.ndarray) -> torch.Tensor:
@@ -347,6 +568,8 @@ class DripBatchKernel:
         self._cols = DeviceColumnCache(self.device)
         self._free_dev = None  # device fold carry [N, 4], or per-tile carries
         self._free_src = None  # host free array the carry mirrors
+        self._used_dev = None  # device zone carry [N, Z] of the NRT window
+        self._used_src = None  # host zone array it mirrors
         self._free_rows = None  # padded rows of a tiled carry
         self._free_synced = False
         self._host_out = None  # pinned [K, 3] landing buffer (CUDA only)
@@ -386,9 +609,11 @@ class DripBatchKernel:
             self.repartitions += 1
         return changed
 
-    def mark_synced(self, host_free) -> None:
-        """Host applied exactly the window's folds — carry is reusable."""
+    def mark_synced(self, host_free, host_used=None) -> None:
+        """Host applied exactly the window's folds — carry is reusable
+        (``host_used``: the NRT window's zone carry too)."""
         self._free_src = host_free
+        self._used_src = host_used
         self._free_synced = True
 
     def mark_desynced(self) -> None:
@@ -396,15 +621,18 @@ class DripBatchKernel:
         self._free_dev = None
         self._free_src = None
         self._free_rows = None
+        self._used_dev = None
+        self._used_src = None
 
     def _fetch(self, outs: torch.Tensor) -> np.ndarray:
         """The window's single device-to-host copy: into a reused pinned
         buffer with an event behind it, returned as a private array."""
         if not outs.is_cuda:
             return outs.numpy()
-        k = outs.shape[0]
-        if self._host_out is None or self._host_out.shape[0] < k:
-            self._host_out = torch.empty((k, 3), dtype=torch.int64, pin_memory=True)
+        k, width = outs.shape
+        if (self._host_out is None or self._host_out.shape[0] < k
+                or self._host_out.shape[1] != width):
+            self._host_out = torch.empty((k, width), dtype=torch.int64, pin_memory=True)
             self._event = torch.cuda.Event()
         host = self._host_out[:k]
         host.copy_(outs, non_blocking=True)
@@ -456,21 +684,9 @@ class DripBatchKernel:
         if mesh is not None and mesh.size > 1:
             return self._dispatch_tiled(schedulable, weighted, bounded, free, vecs,
                                         want_ties, col_version, stages)
-        cols = self._cols
-        dev = cols._device
-        sched_d = cols.put("schedulable", schedulable, version=col_version,
-                           delta_rows=col_delta_rows(cols, "schedulable", schedulable,
-                                                     col_version, col_delta))
-        w_d = cols.put("weighted", weighted, version=col_version,
-                       prepare=lambda a: a.astype(np.int64),
-                       delta_rows=col_delta_rows(cols, "weighted", weighted,
-                                                 col_version, col_delta),
-                       row_prepare=lambda v: v.astype(np.int64))
-        if bounded is None or free is None:
-            # tracker-less plugin set: fit never fails
-            bounded = np.zeros((n,), dtype=bool)
-            free = np.zeros((n, 4), dtype=np.int64)
-        bnd_d = cols.put("bounded", bounded)
+        dev = self._cols._device
+        sched_d, w_d, bnd_d, free = self._put_columns(schedulable, weighted, bounded, free,
+                                                      col_version, col_delta)
         free_d = self._free_dev
         fresh = (not self._free_synced or free_d is None or self._free_src is not free
                  or self._free_rows is not None)
@@ -502,14 +718,114 @@ class DripBatchKernel:
         self.dispatches += 1
         return host[:, 0], host[:, 1], host[:, 2]
 
-    def _replay(self, route, key, cols, free, vecs, stages):
+    def _put_columns(self, schedulable, weighted, bounded, free, col_version, col_delta):
+        """The single-device column puts of a window: the device
+        ``schedulable``, ``weighted`` and ``bounded``, and the host ``free``
+        the carry mirrors (zeros for a tracker-less plugin set)."""
+        cols = self._cols
+        sched_d = cols.put("schedulable", schedulable, version=col_version,
+                           delta_rows=col_delta_rows(cols, "schedulable", schedulable,
+                                                     col_version, col_delta))
+        w_d = cols.put("weighted", weighted, version=col_version,
+                       prepare=lambda a: a.astype(np.int64),
+                       delta_rows=col_delta_rows(cols, "weighted", weighted,
+                                                 col_version, col_delta),
+                       row_prepare=lambda v: v.astype(np.int64))
+        if bounded is None or free is None:
+            # tracker-less plugin set: fit never fails
+            n = int(schedulable.shape[0])
+            bounded = np.zeros((n,), dtype=bool)
+            free = np.zeros((n, 4), dtype=np.int64)
+        return sched_d, w_d, cols.put("bounded", bounded), free
+
+    def dispatch_numa(self, schedulable, weighted, bounded, free, vecs, zones, pods,
+                      want_ties=True, col_version=0, col_delta=None, stages=None):
+        """``dispatch`` for the window with ``NodeResourceTopologyMatch``
+        (``_drip_batch_numa``; one device, no tiles). ``zones``: the host
+        zone columns (``framework.drip.ZoneColumns``: ``zkey``, ``zcap``,
+        ``has``, ``active``, ``act_naw`` under the version ``epoch``, and
+        ``used``, which the zone carry mirrors); ``pods`` int64 [K, 5 + Z]
+        (``numa_pod_rows``). Returns ``(chosen, feasible, ties, bad,
+        takes)``: ``bad`` counts the feasible nodes whose pack used no zone,
+        ``takes`` int64 [K, Z] is the winner's milli-CPU per zone in CR
+        order (zeros where NRT took nothing). Both carries, ``free`` and
+        the zones, stay on the device as ``dispatch``'s does; the shape key
+        adds the zone count."""
+        n = int(schedulable.shape[0])
+        k = int(vecs.shape[0])
+        z = int(zones.used.shape[1])
+        if n == 0:
+            self.mark_desynced()
+            self.dispatches += 1
+            self.eager_windows += 1
+            ties = np.zeros(k, np.int64) if want_ties else np.ones(k, np.int64)
+            return (np.full(k, -1, np.int64), np.zeros(k, np.int64), ties,
+                    np.zeros(k, np.int64), np.zeros((k, z), np.int64))
+        if self._mesh is not None and self._mesh.size > 1:
+            raise ValueError("the NRT drip window runs on one device, not over tiles")
+        if self._cols.set_partition(self._partition_token()):
+            self.mark_desynced()
+            self.repartitions += 1
+        cols = self._cols
+        dev = cols._device
+        sched_d, w_d, bnd_d, free = self._put_columns(schedulable, weighted, bounded, free,
+                                                      col_version, col_delta)
+        zcols = tuple(cols.put(f"zone_{name}", getattr(zones, name), version=zones.epoch)
+                      for name in ("zkey", "zcap", "has", "active", "act_naw"))
+        used = zones.used
+        fresh = (not self._free_synced or self._free_dev is None or self._used_dev is None
+                 or self._free_src is not free or self._used_src is not used
+                 or self._free_rows is not None)
+        if fresh:
+            self._free_src, self._used_src = free, used
+            self._free_rows = None
+            self.free_uploads += 1
+        vecs = np.asarray(vecs, dtype=np.int64).reshape(k, 4)
+        pods = np.asarray(pods, dtype=np.int64).reshape(k, 5 + z)
+        key = (dev, n, k, bool(want_ties), "numa", z)
+        route = self._graphs.route(key) if dev.type == "cuda" and k > 0 else "eager"
+        if route == "eager":
+            free_d = upload(free, dev) if fresh else self._free_dev
+            used_d = upload(used, dev) if fresh else self._used_dev
+            vecs_d = upload(vecs, dev)
+            pods_d = upload(pods, dev)
+            active = torch.ones((k,), dtype=torch.bool, device=dev)
+            if stages is not None:
+                stages.split("drip_launch")
+            outs, free_out, used_out = _drip_batch_numa(sched_d, w_d, bnd_d, free_d, vecs_d,
+                                                        active, zcols, used_d, pods_d,
+                                                        want_ties=want_ties)
+            self.eager_windows += 1
+        else:
+            numa = (zcols, _pinned(used) if fresh else self._used_dev, _pinned(pods))
+            outs, free_out, used_out = self._replay(
+                route, key, (sched_d, w_d, bnd_d), _pinned(free) if fresh else self._free_dev,
+                vecs, stages, numa=numa)
+        if stages is not None:
+            stages.split("drip_wait")
+        host = self._fetch(outs)
+        self._free_dev, self._used_dev = free_out, used_out
+        self._free_synced = True  # provisional; the caller desyncs on reject
+        self.dispatches += 1
+        return host[:, 0], host[:, 1], host[:, 2], host[:, 3], host[:, 4:]
+
+    def _replay(self, route, key, cols, free, vecs, stages, numa=None):
         """The window from its shape's graph, captured first on the
         ``"capture"`` route: the inputs copied into its static buffers,
-        one launch. Returns the graph's ``outs`` and its carry."""
-        dev, n, k, want_ties = key
+        one launch. Returns the graph's ``outs`` and its carry, and with
+        ``numa`` (the NRT window's zone columns, zone carry and pod rows)
+        its zone carry too."""
+        dev, n, k, want_ties = key[:4]
         with _GRAPH_LOCK:
-            graph = _WindowGraph(dev, n, k) if route == "capture" else self._graphs.graph
+            if route != "capture":
+                graph = self._graphs.graph
+            elif numa is None:
+                graph = _WindowGraph(dev, n, k)
+            else:
+                graph = _NumaWindowGraph(dev, n, k, key[5])
             graph.load(cols, free, _pinned(vecs))
+            if numa is not None:
+                graph.load_numa(*numa)
             if stages is not None:
                 stages.split("drip_launch")
             if route == "capture":
@@ -520,6 +836,8 @@ class DripBatchKernel:
                 self.graph_captures += 1
             graph.graph.replay()
         self.graph_replays += 1
+        if numa is not None:
+            return graph.outs, graph.free, graph.used
         return graph.outs, graph.free
 
     def _dispatch_tiled(self, schedulable, weighted, bounded, free, vecs, want_ties,

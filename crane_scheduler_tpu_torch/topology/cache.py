@@ -62,6 +62,39 @@ class PodTopologyCache:
             self._deadline[key] = now + self._ttl
             self._version += 1
 
+    def assume_pods(self, items, now: float | None = None) -> None:
+        """``assume_pod`` for many ``(pod, zones)`` pairs in one lock hold,
+        the version moving once per pod as one at a time. A pod already
+        assumed, or named twice, raises KeyError before any is assumed."""
+        if now is None:
+            now = time.time()
+        items = list(items)
+        with self._lock:
+            keys = [pod.key() for pod, _zones in items]
+            taken = [k for k in keys if k in self._topology]
+            if taken or len(set(keys)) != len(keys):
+                raise KeyError(f"pod {(taken or keys)[0]} is already assumed")
+            deadline = now + self._ttl
+            for key, (_pod, zones) in zip(keys, items):
+                self._topology[key] = list(zones)
+                self._deadline[key] = deadline
+            self._version += len(keys)
+
+    def assumed(self, keys) -> bool:
+        """Whether any of ``keys`` is assumed."""
+        with self._lock:
+            return any(k in self._topology for k in keys)
+
+    def forget_pods(self, pods) -> None:
+        """``forget_pod`` for many pods in one lock hold."""
+        with self._lock:
+            for pod in pods:
+                key = pod.key()
+                if self._topology.pop(key, None) is not None:
+                    self._version += 1
+                    self._shrink_version += 1
+                self._deadline.pop(key, None)
+
     def forget_pod(self, pod: Pod) -> None:
         """Idempotent removal (ref: cache.go:72-83)."""
         with self._lock:

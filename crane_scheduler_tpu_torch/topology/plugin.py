@@ -244,6 +244,27 @@ class TopologyMatch:
             nw.add_numa_resources(result)
         return result
 
+    # -- a window of pods at once (the batched drip window) ----------------
+
+    def commit_results(self, entries, now: float | None = None) -> bool:
+        """Reserve and PreBind for a window's pods at once: ``entries`` are
+        ``(pod, zones, annotation)`` triples (the zone result and its
+        ``zones_to_json``), assumed in the cache in one lock hold, then
+        written onto the pods in one. Writes nothing and returns False
+        when a pod is already assumed or missing from the cluster: the
+        per-pod cycle's Reserve or PreBind fails there, and decides such
+        a window."""
+        if self.cluster is None:
+            return False
+        keys = [pod.key() for pod, _zones, _raw in entries]
+        if self.cache.assumed(keys) or any(self.cluster.get_pod(k) is None for k in keys):
+            return False
+        self.cache.assume_pods(((pod, zones) for pod, zones, _raw in entries), now)
+        self.cluster.patch_pod_annotations(
+            (key, ANNOTATION_POD_TOPOLOGY_RESULT, raw)
+            for key, (_pod, _zones, raw) in zip(keys, entries))
+        return True
+
     # -- Score (ref: scorer.go:11-29) --------------------------------------
 
     def score(self, state: CycleState, pod: Pod, node_name: str) -> tuple[int, Status]:

@@ -2,7 +2,8 @@
 pause counter of the PyTorch port, on the CPU.
 
 ``Scheduler.schedule_queue`` splits each window into ``DRIP_STAGES``
-(admit, prepare, launch, wait, bind, fold) on one clock; the readings
+(admit, prepare, launch, wait, bind, fold; the NRT window's zone stage,
+which the plain window never opens) on one clock; the readings
 feed ``drip_stats()["batch"]["stage_seconds"]`` always, the span recorder
 with telemetry on and ``torch.profiler`` under ``profiler_ranges()``.
 ``device_idle_by_range`` books a trace's device idle to those ranges;
@@ -30,6 +31,9 @@ from test_torch_drip import build_cluster, build_scheduler, make_pod
 
 WINDOW = 8
 PODS = 40  # five full windows
+# the stages of the plain Dynamic + Fit window: drip_zone is the NRT
+# window's and reads 0 here
+PLAIN = tuple(s for s in DRIP_STAGES if s != "drip_zone")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -63,7 +67,7 @@ def test_stage_seconds_split_the_call(tiles):
     batch = sched.drip_stats()["batch"]
     stages = batch["stage_seconds"]
     assert tuple(stages) == DRIP_STAGES
-    assert all(s > 0 for s in stages.values())
+    assert all(stages[s] > 0 for s in PLAIN) and stages["drip_zone"] == 0.0
     assert sum(stages.values()) <= wall
     assert batch["dispatches"] == PODS // WINDOW == len(batch["batch_sizes"])
     assert "kernel_seconds" not in batch
@@ -94,7 +98,7 @@ def test_stage_spans_once_per_window_in_order():
     spans = sorted((e for e in tel.export_chrome_trace()["traceEvents"]
                     if e["ph"] == "X" and e["name"] in DRIP_STAGES), key=lambda e: e["ts"])
     windows = sched.drip_stats()["batch"]["dispatches"]
-    assert [e["name"] for e in spans] == list(DRIP_STAGES) * windows
+    assert [e["name"] for e in spans] == list(PLAIN) * windows
     tracks = {e["tid"]: e["args"]["name"] for e in tel.export_chrome_trace()["traceEvents"]
               if e["ph"] == "M"}
     assert {tracks[e["tid"]] for e in spans} == {"MainThread"}
@@ -127,8 +131,9 @@ def test_stage_ranges_in_the_profiler_only_when_asked(ranges):
             sched, _results, _wall = queue_run()
     windows = sched.drip_stats()["batch"]["dispatches"]
     names = [e.name for e in prof.events() if getattr(e, "is_user_annotation", False)]
-    for name in DRIP_STAGES + ("drip_dispatch",):
+    for name in PLAIN + ("drip_dispatch",):
         assert names.count(name) == (windows if ranges else 0), name
+    assert "drip_zone" not in names
     assert "drip_column_rebuild" in names if ranges else "drip_column_rebuild" not in names
     assert not ptel.stages.RANGES
 
@@ -166,7 +171,7 @@ def test_open_queue_books_no_admission():
     q.drain()
     stages = sched.drip_stats()["batch"]["stage_seconds"]
     assert stages["drip_admit"] == 0.0
-    assert all(stages[name] > 0 for name in DRIP_STAGES[1:])
+    assert all(stages[name] > 0 for name in PLAIN[1:])
 
 
 def test_gc_counter_counts_and_unhooks():
