@@ -7,7 +7,7 @@ Each phase prints one line; a failed phase raises, and the script exits
 non-zero without printing a result.
 
 1. environment: the card's name and power limit (``nvidia-smi``);
-2. build: both CUDA kernels from ``crane_scheduler_tpu_torch/csrc``, one
+2. build: the three CUDA kernels from ``crane_scheduler_tpu_torch/csrc``, one
    ``nvcc`` each, started together, and beside them the host library
    (``native/lib.py``: ``crane_native.cpp`` and ``crane_pylist.cpp`` with the
    host C++ compiler, one each); the line names the compiler and the
@@ -24,6 +24,12 @@ non-zero without printing a result.
    with every node on one score; a level count above the kernel's
    shared-memory histogram must raise. Then the kernel's own device time
    per launch in both modes;
+4b. K3 (the drip window's step, ``drip_step.drip_window``) at 65,000
+   nodes, K = 128, plain and with two zone columns: the kernel's own
+   device us per step (``torch.profiler``), its least time per step, the
+   host ms to enqueue one eager window of 128 launches, the device ms of
+   one window replayed from a captured CUDA graph, and the PyTorch
+   window's ms on the card (CUDA events); its equality is phase 11;
 5. the main path: a 50,000-node ``ClusterState`` with fresh annotations,
    ``BatchScheduler(dtype=torch.float32)`` (hybrid f64 rescue rows) through
    eleven ``schedule_pod_burst`` calls of 100,000 pods with the clock moving
@@ -61,16 +67,18 @@ non-zero without printing a result.
    (no claim goes with them);
 10. hybrid_scorer: ``HybridScorer`` over the 50,000-node snapshot equals
    ``BatchedScorer(torch.float64)`` exactly;
-11. drip_window: the drip path's batched window ``_drip_batch`` on the card
-   equals the same function on CPU tensors, exactly (every int64 output and
-   the folded carry), at 50,000, 50,001 and 257 nodes, K = 128, with the tie
-   count on and off, over random inputs, no schedulable row, all rows at one
-   weight (the first pod's winner must be the first maximum) and padded
-   rows and pods; one window runs under ``torch.cuda.set_sync_debug_mode
-   ("error")``, so a host synchronisation inside it fails. Then its device
-   us, device kernels and host kernel-launch calls per window
-   (``torch.profiler`` over three windows) and the median host ms of ten
-   ``DripBatchKernel.dispatch`` calls with the carry kept;
+11. drip_window: the drip path's window on the card, K3, equals the
+   PyTorch window (``_drip_batch``, ``_drip_batch_numa``) on CPU tensors,
+   exactly (every int64 output and the folded carries), K = 128, with the
+   tie count on and off: at 50,000, 50,001 and 257 nodes over random
+   inputs, no schedulable row, all rows at one weight (the first pod's
+   winner must be the first maximum) and padded rows and pods; at 65,000
+   nodes plain and with two zone columns, 257 nodes with four zones and
+   one node with one. One window runs under
+   ``torch.cuda.set_sync_debug_mode("error")``, so a host synchronisation
+   inside it fails. Then the median host ms of ten
+   ``DripBatchKernel.dispatch`` calls with the carry kept, every window
+   through K3;
 12. drip_queue: 50,000 nodes from seed 0 with the default policy's
    annotations and allocatable {cpu 16, memory 64Gi, ephemeral-storage
    100Gi, pods 110}, ``ResourceFitPlugin`` weight 1 and ``DynamicPlugin``
@@ -78,11 +86,13 @@ non-zero without printing a result.
    ``schedule_queue`` (window 128) places 4,096 pods of 100m cpu and 128Mi,
    equal pod for pod to a twin cluster's per-pod columnar ``schedule_one``;
    every pod binds and folds, no fallback, and the best nodes fill to their
-   110-pod cap. The line carries ms per pod, windows, uploads, and the
-   device busy and idle share of one more profiled window;
+   110-pod cap; K3 launched and every window ran it (``kernel_windows``
+   == ``dispatches``, replays included). The line carries ms per pod,
+   windows, uploads, and the device busy and idle share of one more
+   profiled window;
 13. drip_serve: the same storm through ``open_queue(window=32)``, one
    ``offer`` per pod after 16 infeasible ones, the half-full tail dispatched
-   by ``drain``; placements equal drip_queue's;
+   by ``drain``; placements equal drip_queue's; every window ran K3;
 14. drip_scalar: at 2,000 nodes and 64 pods, the scalar plugin loop
    (``columnar=False``) and ``schedule_queue`` on a scheduler from
    ``build_scheduler_from_config`` place alike, unseeded and with a seeded
@@ -415,8 +425,13 @@ it each kernel the path runs must have launched; the ``kernels`` line
 lists the counts per path (the drip paths, the per-pod NUMA leg, the
 descheduler's re-placement windows, crane-scheduler's plugin modes, the
 kube drip storm and every control and shards leg but the journaled
-one-shot run neither kernel). crane-scorer's counts come from its exit
-line; the serve, SIGTERM, standby, descheduler and wire legs' counts come
+one-shot run neither K1 nor K2; the drip queue, serve, kube drip,
+descheduler and shards legs run K3, and the paths that run neither K3
+nor a drip window must count 0 of it). K3's count is its entry point's
+calls: an eager or captured window adds one, a replayed window none, so
+the drip queue, serve and kube drip legs also hold ``kernel_windows``
+equal to ``dispatches``. crane-scorer's counts come from its exit
+line (K1 and K2 alone); the serve, SIGTERM, standby, descheduler and wire legs' counts come
 from their processes' own exit lines (``--cli-child``), the SIGTERM and
 wire legs' summed over their two processes, the standby leg's from the
 standby (its SIGKILLed leader prints none).
@@ -479,7 +494,7 @@ from crane_scheduler_tpu_torch.policy.types import (
     PriorityPolicy,
     SyncPolicy,
 )
-from crane_scheduler_tpu_torch.scorer import drip_batch, gang_kernel, score_kernel
+from crane_scheduler_tpu_torch.scorer import drip_batch, drip_step, gang_kernel, score_kernel
 from crane_scheduler_tpu_torch.scorer.batched import BatchedScorer, PolicyConstants, score_plain
 from crane_scheduler_tpu_torch.scorer.hybrid import HybridScorer
 from crane_scheduler_tpu_torch.scorer.parity import check_placement_parity
@@ -504,7 +519,6 @@ DRIP_WINDOW = 128  # schedule_queue's window (the batched drip benchmark's)
 DRIP_SERVE_WINDOW = 32  # open_queue's window (the scheduler CLI's)
 DRIP_PODS = 4096  # the drip storm
 DRIP_WINDOW_NODES = (N_NODES, 50_001, 257)
-DRIP_PROFILED_WINDOWS = 3  # windows per torch.profiler session (about 2,000 events each)
 DRIP_TIMED_DISPATCHES = 10
 DRIP_SCALAR_NODES = 2_000  # the scalar loop is O(plugins x nodes) per pod
 DRIP_SCALAR_PODS = 64
@@ -819,6 +833,138 @@ def phase_k2(dev, rng) -> dict:
     return {"max_abs_err": worst, **out["plain"]}
 
 
+# -- K3 ----------------------------------------------------------------------
+
+K3_NODES = 65_000  # the drip cells' cluster
+K3_PROFILED_WINDOWS = 4
+
+
+def k3_inputs(n: int, k: int, z: int, rng) -> tuple:
+    """One drip window's host inputs, as ``window_case`` draws the plain
+    columns, and with ``z`` > 0 zone columns: allocatable milli-CPU of 1
+    to ``z`` zones a node (``-2^62`` past them), whole-core caps, zone
+    usage with overcommitted zones, CR, Static and single-NUMA flags, and
+    pod rows with 0 to 16 cores, a quarter aware."""
+    cols = window_case(n, k, "random", rng)
+    cols[5][k - 4:] = False  # padded pods
+    if z == 0:
+        return cols, None
+    zkey = rng.integers(2, 49, (n, z)).astype(np.int64) * 1000
+    zkey[np.arange(z)[None, :] >= rng.integers(1, z + 1, n)[:, None]] = -(1 << 62)
+    zcap = np.where(zkey >= 0, zkey // 1000 * 1000, 0)
+    used = np.where(zkey >= 0, rng.choice([0, 2000, 8000, 60000], (n, z)), 0).astype(np.int64)
+    has, static = rng.random(n) < 0.95, rng.random(n) < 0.9
+    naw = static & (rng.random(n) < 0.25)
+    pods = drip_batch.numa_pod_rows(rng.choice([0, 2000, 4000, 8000, 16000], k),
+                                    rng.choice([-1, -1, 0, 1], k), 2, z)
+    return cols, ((zkey, zcap, has, static, naw), used, pods)
+
+
+def k3_tensors(cols, zones, dev) -> tuple:
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    c = [t(a) for a in cols]
+    return c, None if zones is None else (tuple(t(a) for a in zones[0]), t(zones[1]),
+                                          t(zones[2]))
+
+
+def k3_plain(c, zs, want_ties: bool):
+    if zs is None:
+        return drip_batch._drip_batch(*c, want_ties=want_ties)
+    return drip_batch._drip_batch_numa(*c, *zs, want_ties=want_ties)
+
+
+def k3_bound_us(n: int, k: int, z: int) -> float:
+    """Least time of one step: the benchmark's least time of the window
+    (each byte read or written once, the operations these inputs need;
+    operations bound it at the drip cells' shapes) over its ``k`` steps."""
+    from portbench.bounds import drip_window_least_s
+    from portbench.bounds_numa import numa_window_least_s
+
+    least = drip_window_least_s(n, k) if z == 0 else numa_window_least_s(n, k, z)
+    return least * 1e6 / k
+
+
+def k3_step_us(fn, windows: int) -> tuple[float, int]:
+    """Mean device us of one ``drip_step`` launch over ``windows`` calls of
+    ``fn`` under ``torch.profiler`` (after one warm call), and the launches
+    the profiler kept."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(windows):
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and "drip_step" in e.key]
+    count = sum(e.count for e in hits)
+    if count == 0:
+        raise AssertionError("the profiler saw no drip_step launch")
+    return sum(e.self_device_time_total for e in hits) / count, count
+
+
+def k3_against_plain(cols, zones, want_ties: bool, scratch, dev, what: str):
+    """K3's window on ``dev`` against the PyTorch window on CPU tensors,
+    every output row and folded carry exactly; returns K3's ``outs``."""
+    want = k3_plain(*k3_tensors(cols, zones, "cpu"), want_ties)
+    c, zs = k3_tensors(cols, zones, dev)
+    outs = drip_step.drip_window(*c, scratch, want_ties, zones=zs)
+    got = (outs, c[3]) if zs is None else (outs, c[3], zs[1])
+    if not all(torch.equal(g.cpu(), w) for g, w in zip(got, want)):
+        raise AssertionError(f"K3 != the PyTorch window: {what}, want_ties={want_ties}")
+    return outs.cpu()
+
+
+def phase_k3(dev, rng) -> dict:
+    """K3's times at the drip cells' shape (its equality: ``phase_drip_window``)."""
+    scratch = drip_step.StepScratch(dev)
+    out = {}
+    for z in (0, 2):
+        cols, zones = k3_inputs(K3_NODES, DRIP_WINDOW, z, rng)
+        c, zs = k3_tensors(cols, zones, dev)
+        free0 = c[3].clone()
+        used0 = None if zs is None else zs[1].clone()
+
+        def window():
+            return drip_step.drip_window(*c, scratch, False, zones=zs)
+
+        step_us, seen = k3_step_us(window, K3_PROFILED_WINDOWS)
+        host_ms = []
+        for _ in range(DRIP_TIMED_DISPATCHES + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            window()
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        # one window replayed from a captured graph, its carries reset first
+        stream = torch.cuda.Stream(device=dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(stream):
+            graph.capture_begin(capture_error_mode="thread_local")
+            window()
+            graph.capture_end()
+        torch.cuda.current_stream(dev).wait_stream(stream)
+
+        def replay():
+            c[3].copy_(free0)
+            if zs is not None:
+                zs[1].copy_(used0)
+            graph.replay()
+
+        graph_ms = cuda_ms(replay, iters=20)
+        plain_ms = cuda_ms(lambda: k3_plain(c, zs, False), iters=5, warmup=1)
+        bound = k3_bound_us(K3_NODES, DRIP_WINDOW, z)
+        out["plain" if z == 0 else f"zones_{z}"] = dict(
+            ms=step_us / 1e3, device_launches_seen=seen,
+            host_launch_ms=statistics.median(host_ms[1:]), graph_window_ms=graph_ms,
+            plain_ms=plain_ms, bound_ms=bound / 1e3, bound_by="operations",
+            **bound_fields(step_us, bound / 1e3))
+    log("k3", nodes=K3_NODES, k=DRIP_WINDOW, **out)
+    return {**out["plain"], "zones_2": out["zones_2"]}
+
+
 # -- the main path -------------------------------------------------------------
 
 class Clock:
@@ -895,7 +1041,11 @@ def run_bursts(sched: BatchScheduler, clock: Clock, nows, check: bool):
     return placements, burst_ms, stage_ms, pipe_ms
 
 
-KERNELS = {"score": score_kernel.KERNEL, "gang": gang_kernel.KERNEL}
+# K3's count is its entry point's calls: an eager or a captured window adds
+# one (the call enqueues the window's K step launches), a replayed window
+# none; the drip phases hold ``kernel_windows`` against ``dispatches`` for
+# the replays
+KERNELS = {"score": score_kernel.KERNEL, "gang": gang_kernel.KERNEL, "drip": drip_step.KERNEL}
 
 
 def reset_launches() -> None:
@@ -911,6 +1061,18 @@ def read_launches(path: str, need=("score", "gang")) -> dict:
     if missing:
         raise AssertionError(f"{path} did not launch {missing}: {got}")
     return got
+
+
+def all_kernel_windows(stats: dict, pre, path: str) -> int:
+    """The drip windows dispatched since ``pre`` (``drip_stats()`` before
+    the run; None for a fresh scheduler); raises unless there are some and
+    every one ran K3, eager, captured or replayed."""
+    before = pre["batch"] if pre else {"dispatches": 0, "kernel_windows": 0}
+    windows = stats["batch"]["dispatches"] - before["dispatches"]
+    kernel = stats["batch"]["kernel_windows"] - before["kernel_windows"]
+    if windows < 1 or kernel != windows:
+        raise AssertionError(f"{path}: {kernel} of {windows} drip windows ran K3")
+    return kernel
 
 
 def phase_main_path(rng) -> dict:
@@ -1286,45 +1448,40 @@ def profile_windows(fn, count: int) -> dict:
 
 
 def phase_drip_window(dev) -> dict:
-    """``_drip_batch`` on the card against the same function on CPU tensors,
-    exactly: every int64 output and the folded carry."""
+    """K3 (``drip_step.drip_window``) on the card against the PyTorch window
+    on CPU tensors, exactly: every int64 output and the folded carries."""
     rng = np.random.default_rng(SEED)
+    scratch = drip_step.StepScratch(dev)
     checked = []
     t_phase = time.perf_counter()
     for n in DRIP_WINDOW_NODES:
         for case in ("random", "infeasible", "equal", "padded"):
             args = window_case(n, DRIP_WINDOW, case, rng)
             for want_ties in (True, False):
-                host = [torch.from_numpy(a) for a in args]
-                outs_c, free_c = drip_batch._drip_batch(*host, want_ties=want_ties)
-                outs_d, free_d = drip_batch._drip_batch(*(t.to(dev) for t in host),
-                                                        want_ties=want_ties)
-                outs_d, free_d = outs_d.cpu(), free_d.cpu()
-                if not (torch.equal(outs_d, outs_c) and torch.equal(free_d, free_c)):
-                    raise AssertionError(f"_drip_batch on {dev} != CPU: {n} nodes, {case}, "
-                                         f"want_ties={want_ties}")
-                if int(outs_d[0, 0]) != first_choice(args):
+                outs = k3_against_plain(args, None, want_ties, scratch, dev, f"{n} nodes, {case}")
+                if int(outs[0, 0]) != first_choice(args):
                     raise AssertionError(f"first pod's winner is not the first maximum: {case}")
-                if case == "infeasible" and not (outs_d[:, 0] == -1).all():
+                if case == "infeasible" and not (outs[:, 0] == -1).all():
                     raise AssertionError("a pod was placed with no schedulable row")
-                if case == "equal" and want_ties and int(outs_d[0, 2]) < 2:
+                if case == "equal" and want_ties and int(outs[0, 2]) < 2:
                     raise AssertionError("the all-equal case reported no tie")
-                checked.append([n, case, want_ties])
-    # timing at the queue's shape, carry kept as the scheduler keeps it
+                checked.append([n, 0, case, want_ties])
+    for n, z in ((K3_NODES, 0), (K3_NODES, 2), (257, 4), (1, 1)):
+        cols, zones = k3_inputs(n, DRIP_WINDOW, z, rng)
+        for want_ties in (True, False):
+            outs = k3_against_plain(cols, zones, want_ties, scratch, dev, f"{n} nodes, {z} zones")
+            checked.append([n, z, "random", want_ties, int((outs[:, 0] >= 0).sum())])
     check_s = time.perf_counter() - t_phase
+    # the window never waits on the device: a synchronising call raises
     args = window_case(N_NODES, DRIP_WINDOW, "random", rng)
-    # the K-step loop never waits on the device: a synchronising call raises
     dev_args = [torch.from_numpy(a).to(dev) for a in args]
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        drip_batch._drip_batch(*dev_args, want_ties=True)
+        drip_step.drip_window(*dev_args, scratch, True)
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    timing = {}
-    for want_ties in (False, True):
-        timing[f"want_ties_{want_ties}"] = profile_windows(
-            lambda: drip_batch._drip_batch(*dev_args, want_ties=want_ties), DRIP_PROFILED_WINDOWS)
+    torch.cuda.synchronize()
     kern = drip_batch.DripBatchKernel(device=dev)
     schedulable, weighted, bounded, free, vecs, _ = args
     host_ms = []
@@ -1336,20 +1493,20 @@ def phase_drip_window(dev) -> dict:
             if c >= 0:
                 free[c] -= vecs[i]
         kern.mark_synced(free)
-    if kern.free_uploads != 1:
-        raise AssertionError(f"the carry was uploaded {kern.free_uploads} times")
+    if kern.free_uploads != 1 or kern.kernel_windows != kern.dispatches:
+        raise AssertionError(f"the carry was uploaded {kern.free_uploads} times; "
+                             f"{kern.kernel_windows} of {kern.dispatches} windows ran K3")
     out = {
         "nodes": list(DRIP_WINDOW_NODES), "k": DRIP_WINDOW, "cases": len(checked),
-        "equal_to_cpu": True, "first_max": True, "no_host_sync_in_window": True,
-        "device_us_per_window": timing["want_ties_False"]["device_us"],
-        "kernels_per_window": timing["want_ties_False"]["device_kernels"],
+        "checked": checked, "equal_to_cpu": True, "first_max": True,
+        "no_host_sync_in_window": True,
         "host_ms_per_dispatch": statistics.median(host_ms[1:]),
         "host_ms_per_dispatch_all": host_ms, "free_uploads": kern.free_uploads,
+        "graph_replays": kern.graph_replays, "kernel_windows": kern.kernel_windows,
         "check_s": check_s, "timing_s": time.perf_counter() - t_phase - check_s,
-        "profile": timing,
     }
     log("drip_window", **out)
-    return out
+    return {"max_abs_err": 0, **out}
 
 
 def drip_cluster(annos) -> ClusterState:
@@ -1395,8 +1552,9 @@ def phase_drip_queue(dev, annos) -> tuple:
     t0 = time.perf_counter()
     results = sched.schedule_queue(pods, window=DRIP_WINDOW)
     wall_ms = (time.perf_counter() - t0) * 1e3
-    launches = read_launches("drip queue", need=())
+    launches = read_launches("drip queue", need=("drip",))
     stats = sched.drip_stats()
+    kernel_windows = all_kernel_windows(stats, pre, "drip queue")
     binds = sum(r.node is not None for r in results)
     folds = stats["folds"] - pre["folds"]
     if binds != DRIP_PODS or folds != binds or stats["fallbacks"]:
@@ -1432,7 +1590,7 @@ def phase_drip_queue(dev, annos) -> tuple:
         "profiled_window": {k: prof[k] for k in ("device_us", "wall_us", "device_idle_share",
                                                  "device_kernels", "device_events_seen",
                                                  "top_device_us")},
-        "launches": launches,
+        "launches": launches, "kernel_windows": kernel_windows,
     }
     log("drip_queue", **out)
     return out, placements(results), launches
@@ -1454,19 +1612,20 @@ def phase_drip_serve(dev, annos, queue_placements) -> tuple:
         queue.offer(pod)
     drained = queue.drain()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    launches = read_launches("drip serve", need=())
+    launches = read_launches("drip serve", need=("drip",))
     results = queue.take_results()
     if drained != DRIP_SERVE_WINDOW // 2 or any(r.node for r in results[:drained]):
         raise AssertionError(f"drip serve: drained {drained}")
     if placements(results[drained:]) != queue_placements:
         raise AssertionError("open_queue placements != schedule_queue placements")
     stats = sched.drip_stats()
+    kernel_windows = all_kernel_windows(stats, None, "drip serve")
     out = {"nodes": len(annos), "pods": DRIP_PODS, "window": DRIP_SERVE_WINDOW,
            "equal_to_queue": True, "drained_tail": drained,
            "ms_per_pod": wall_ms / DRIP_PODS, "wall_ms": wall_ms,
            "windows": stats["batch"]["dispatches"], "folds": stats["folds"],
            "fallbacks": stats["fallbacks"], "free_uploads": sched._batch_kernel.free_uploads,
-           "launches": launches}
+           "launches": launches, "kernel_windows": kernel_windows}
     log("drip_serve", **out)
     return out, launches
 
@@ -1880,7 +2039,7 @@ def phase_gang_queue(dev) -> tuple:
     seq_ms = (time.perf_counter() - t0) * 1e3
     seq_stage_ms["rest"] = seq_ms - sum(seq_stage_ms.values())
     by_path["gang_seq"] = read_launches("gang sequential")
-    if by_path["gang_seq"] != {"score": len(GANG_SHAPES), "gang": len(GANG_SHAPES)}:
+    if by_path["gang_seq"] != {"score": len(GANG_SHAPES), "gang": len(GANG_SHAPES), "drip": 0}:
         raise AssertionError(f"gang sequential: {by_path['gang_seq']} launches for "
                              f"{len(GANG_SHAPES)} gangs")
 
@@ -2371,7 +2530,7 @@ def numa_gang_legs(dev, twin_run, mixed_run) -> tuple:
     results, per_gang = numa_gang_loop(sched, topo, reqs, check)
     check_ms = (time.perf_counter() - t0) * 1e3 - sum(g["ms"] for g in per_gang)
     by_path["numa_gang"] = read_launches("numa gang")
-    if by_path["numa_gang"] != {"score": len(reqs), "gang": len(reqs)}:
+    if by_path["numa_gang"] != {"score": len(reqs), "gang": len(reqs), "drip": 0}:
         raise AssertionError(f"numa gang: {by_path['numa_gang']} launches for {len(reqs)} "
                              "gangs")
     if checks["compared"] == 0 or sched.numa_incremental_rows == 0:
@@ -2777,7 +2936,7 @@ def service_serve_leg(cluster, dev) -> tuple:
             m = svc.metrics()
             renders = m["score_calls"] - before["score_calls"]
             want_k1 = renders if dtype == torch.float32 else 0
-            if launched["score"] != want_k1 or launched["gang"] != 0:
+            if launched != {"score": want_k1, "gang": 0, "drip": 0}:
                 raise AssertionError(f"service serve {tag}: launches {launched} for "
                                      f"{renders} renders")
             if tag == "f32":
@@ -2859,7 +3018,7 @@ def service_assign_leg(cluster, dev) -> tuple:
                         "nodes_used": len(doc["counts"]), "request_bytes": len(body)}
         conn.close()
         launched = read_launches("service assign")
-        if launched["gang"] != calls or launched["score"] != calls:
+        if launched != {"score": calls, "gang": calls, "drip": 0}:
             raise AssertionError(f"service assign: {launched} launches for {calls} calls")
         no_fallback(card, "assign")
     finally:
@@ -2942,7 +3101,7 @@ def phase_service(dev, annos) -> tuple:
     # the float32 miss leg: a warm-up, the timed renders and the pieces'
     # scorer calls (the profiled renders run in a child process)
     k1_want = f32_renders + 1 + 2 * SERVICE_MISS_RENDERS
-    if by_path["service_score"] != {"score": k1_want, "gang": 0}:
+    if by_path["service_score"] != {"score": k1_want, "gang": 0, "drip": 0}:
         raise AssertionError(f"service score: {by_path['service_score']} launches, "
                              f"want {k1_want} of K1 and none of K2")
     serve, serve_paths = service_serve_leg(cluster, dev)
@@ -3161,7 +3320,7 @@ def repl_sim_leg(sim, twin, dev) -> tuple:
         row["hot_nodes"] = len(sim.annotator.hot_values_batch(sim.clock.now()))
         steps.append(row)
     launched = read_launches("replicated sim")
-    if launched != {"score": SIM_STEPS, "gang": SIM_STEPS}:
+    if launched != {"score": SIM_STEPS, "gang": SIM_STEPS, "drip": 0}:
         raise AssertionError(f"replicated sim: launches {launched} for {SIM_STEPS} bursts")
     for s in (sim, twin):
         s.clock.advance(SIM_STEP_SECONDS)
@@ -3444,7 +3603,7 @@ def repl_assign_leg(router, twin, now0: float) -> tuple:
                 want.counts, want.unassigned, want.waterline):
             raise AssertionError(f"replicated assign: card != CPU twin at {now}")
     launched = read_launches("replicated assign")
-    if launched != {"score": REPL_ASSIGN_CALLS, "gang": REPL_ASSIGN_CALLS}:
+    if launched != {"score": REPL_ASSIGN_CALLS, "gang": REPL_ASSIGN_CALLS, "drip": 0}:
         raise AssertionError(f"replicated assign: launches {launched}")
     return {"ms_per_call": ms, "ms_median": statistics.median(ms),
             "unassigned": doc["unassigned"], "waterline": doc["waterline"]}, launched
@@ -3672,7 +3831,7 @@ def phase_replicated(dev) -> tuple:
         card_renders = sum(s.metrics()["score_calls"] - b
                            for s, b in zip(services, before) if s is not twin.service)
         launched = read_launches("replicated replicas", need=("score",))
-        if launched != {"score": card_renders, "gang": 0}:
+        if launched != {"score": card_renders, "gang": 0, "drip": 0}:
             raise AssertionError(f"replicated replicas: launches {launched} for "
                                  f"{card_renders} card renders")
         by_path["replicas"] = launched
@@ -3857,9 +4016,9 @@ def phase_desched(dev) -> tuple:
     none = desched_leg("none", dev)
     reset_launches()
     card = desched_leg("card", dev)
-    launched = read_launches("desched window", need=())
-    # the re-placement is the drip window: neither K1 nor K2 lies on it
-    if launched != {"score": 0, "gang": 0}:
+    launched = read_launches("desched window", need=("drip",))
+    # the re-placement is the drip window: K3, and neither K1 nor K2
+    if launched["score"] or launched["gang"]:
         raise AssertionError(f"desched: K1/K2 launched on the re-placement path: {launched}")
     cpu = desched_leg("cpu", dev)
     if card["reports"] != cpu["reports"] or card["placed"] != cpu["placed"]:
@@ -4056,7 +4215,7 @@ def phase_front_doors(dev) -> tuple:
             launched = runs[case]["launches"]
             # float64 scoring (the CLI's default) launches no K1; each batch
             # burst is one combined step with one K2 launch
-            if launched != {"score": 0, "gang": bursts}:
+            if launched != {"score": 0, "gang": bursts, "drip": 0}:
                 raise AssertionError(f"crane-scheduler {case}: launches {launched}, "
                                      f"want K1 0, K2 {bursts}")
             by_path[case] = launched
@@ -4268,7 +4427,7 @@ def phase_storm(dev) -> tuple:
         "admission": shed_stats, "launches": launched,
         "seconds": time.perf_counter() - t_phase,
     }
-    if launched != {"score": renders, "gang": 0} or renders < 1:
+    if launched != {"score": renders, "gang": 0, "drip": 0} or renders < 1:
         raise AssertionError(f"storm: launches {launched} for {renders} card renders")
     log("storm", **out)
     return out, launched
@@ -4749,7 +4908,7 @@ def kube_burst_leg(server, client, batch, policy, tel) -> tuple:
         placed += int((idx >= 0).sum())
         card.append([result.node_table[j] if j >= 0 else None for j in idx.tolist()])
     launched = read_launches("kube burst")
-    if launched != {"score": KUBE_BURSTS, "gang": KUBE_BURSTS}:
+    if launched != {"score": KUBE_BURSTS, "gang": KUBE_BURSTS, "drip": 0}:
         raise AssertionError(f"kube burst: launches {launched}, want K1 and K2 once per burst")
     for k in range(KUBE_BURSTS):
         result = twin.schedule_pod_burst("kube", [f"kb{k}-{i:05d}" for i in range(KUBE_BURST_PODS)])
@@ -4838,10 +4997,11 @@ def kube_drip_leg(kube_stub, dev) -> tuple:
         t0 = time.perf_counter()
         results = sched.schedule_queue(pods, window=DRIP_WINDOW)
         wall_ms = (time.perf_counter() - t0) * 1e3
-        launched = read_launches("kube drip", need=())
-        if launched != {"score": 0, "gang": 0}:
+        launched = read_launches("kube drip", need=("drip",))
+        if launched["score"] or launched["gang"]:
             raise AssertionError(f"kube drip: launches {launched}")
         drip = sched.drip_stats()
+        all_kernel_windows(drip, pre, "kube drip")
         stats = server.stats()
         binds = sum(r.node is not None for r in results)
         if (binds != KUBE_DRIP_PODS or stats["bind_posts"] != KUBE_DRIP_PODS
@@ -5072,7 +5232,7 @@ def kube_cli_leg(kube_stub, dev) -> tuple:
         finally:
             server.stop()
         batches = -(-KUBE_CLI_PODS // KUBE_CLI_BATCH)
-        if launched != {"score": 0, "gang": batches}:
+        if launched != {"score": 0, "gang": batches, "drip": 0}:
             raise AssertionError(f"kube cli: crane-scheduler launches {launched}, "
                                  f"want K1 0, K2 {batches}")
         by_path["kube_cli_scheduler"] = launched
@@ -5412,7 +5572,7 @@ def control_oneshot_leg(kube_stub, dev) -> tuple:
             twin_run[0].kill()
             twin_run[0].communicate()
     batches = -(-KUBE_CLI_PODS // KUBE_CLI_BATCH)
-    if launched != {"score": 0, "gang": batches}:
+    if launched != {"score": 0, "gang": batches, "drip": 0}:
         raise AssertionError(f"control one-shot: launches {launched}, want K1 0, K2 {batches}")
     rec = card["line"]["recovery"]
     if rec["outcomes"] != {"unbound_reschedulable": 1} or \
@@ -6204,7 +6364,7 @@ def shards_scaling_leg(nodes, dev) -> tuple:
     for k, gate in SHARD_GATES.items():
         out[k]["speedup"] = out[k]["pods_per_s"] / out[1]["pods_per_s"]
         out[k]["gate"] = gate
-    return out, read_launches("shards scaling", need=())
+    return out, read_launches("shards scaling", need=("drip",))
 
 
 def drip_columns_of(sched):
@@ -6321,7 +6481,7 @@ def shards_conflict_leg(kube_stub, dev) -> tuple:
         t0 = time.perf_counter()
         results = plane.run_storm(queues, window=SHARD_CONFLICT_WINDOW, threaded=True)
         seconds = time.perf_counter() - t0
-        launched = read_launches("shards conflict", need=())
+        launched = read_launches("shards conflict", need=("drip",))
         stats = server.stats()
         placed = sum(r.node is not None for res in results for r in res)
         conflicts = plane.conflict_stats()
@@ -6513,7 +6673,8 @@ def mesh_step_leg(dev, snap) -> tuple:
                 raise AssertionError("mesh step: the snapshot is not tiled")
             want = single.packed(sp, BURST_PODS).result()
             got, per_step = launched(lambda: tiled.packed(tp, BURST_PODS).result())
-            expect = {"score": MESH_TILES if dtype == torch.float32 else 0, "gang": MESH_TILES}
+            expect = {"score": MESH_TILES if dtype == torch.float32 else 0, "gang": MESH_TILES,
+                      "drip": 0}
             if dev.type != "cuda":  # a CPU rehearsal: the plain versions launch nothing
                 expect = dict.fromkeys(expect, 0)
             if per_step != expect:
@@ -6564,7 +6725,8 @@ def mesh_burst_leg(dev, annos) -> tuple:
         ms["flat"].append((time.perf_counter() - t0) * 1e3)
         if got.node_table != want.node_table or not np.array_equal(got.node_idx, want.node_idx):
             raise AssertionError(f"mesh burst {tag}: placements != the mesh-free twin's")
-        if n != dict.fromkeys(KERNELS, MESH_TILES if dev.type == "cuda" else 0):
+        if n != {**dict.fromkeys(("score", "gang"), MESH_TILES if dev.type == "cuda" else 0),
+                 "drip": 0}:
             raise AssertionError(f"mesh burst {tag}: launches {n}")
         total = add_counts(total, n)
         clock.t += 7.0
@@ -7200,15 +7362,16 @@ def main() -> int:
 
     t0 = time.perf_counter()
     host = build_host_library()  # the host C++ library, beside the nvcc builds
-    build_all([score_kernel.KERNEL, gang_kernel.KERNEL])
+    build_all([score_kernel.KERNEL, gang_kernel.KERNEL, drip_step.KERNEL])
     host_line = host()
     ptxas = {k.source.name: [ln for ln in k.build_log.splitlines() if "registers" in ln]
-             for k in (score_kernel.KERNEL, gang_kernel.KERNEL)}
+             for k in (score_kernel.KERNEL, gang_kernel.KERNEL, drip_step.KERNEL)}
     log("build", seconds=time.perf_counter() - t0, ptxas=ptxas, host_library=host_line)
 
     rng = np.random.default_rng(SEED)
     k1 = phase_k1(dev, rng)
     k2 = phase_k2(dev, rng)
+    k3 = phase_k3(dev, rng)
     launches, sched, clock, last_now, hit_prepare_ms = phase_main_path(rng)
     phase_profile(sched, clock, last_now)
     by_path = {"main_path": launches}
@@ -7219,8 +7382,8 @@ def main() -> int:
     by_path["column_path"], store, column_now = phase_column_path(rng, last_now + 24.0)
     by_path["overlap"] = phase_overlap(sched, clock, last_now + 24.0)
     by_path["hybrid_scorer"] = phase_hybrid_scorer(store, column_now)
-    # the drip path: no hand-written kernel lies on it, so K1 and K2 show 0
-    phase_drip_window(dev)
+    # the drip path runs K3 (one launch per pod step), not K1 or K2
+    k3_check = phase_drip_window(dev)
     drip_annos = cluster_annotations(compile_policy(DEFAULT_POLICY), np.random.default_rng(SEED))
     queue, queue_placed, by_path["drip_queue"] = phase_drip_queue(dev, drip_annos)
     _, by_path["drip_serve"] = phase_drip_serve(dev, drip_annos, queue_placed)
@@ -7266,6 +7429,15 @@ def main() -> int:
             "launches": launches["gang"], "max_abs_err": k2["max_abs_err"],
             "launches_by_path": {p: c["gang"] for p, c in by_path.items()},
             **{k: k2[k] for k in KERNEL_KEYS}, "library_ms": None,
+        },
+        {
+            "name": "drip_step", "route": "cuda",
+            "source": "crane_scheduler_tpu_torch/csrc/drip_step.cu",
+            "replaces": None,  # the reference's window is a lax.scan, no Pallas kernel
+            "launches": by_path["drip_queue"]["drip"], "max_abs_err": k3_check["max_abs_err"],
+            # a path counted by a child that reports K1 and K2 alone has None
+            "launches_by_path": {p: c.get("drip") for p, c in by_path.items()},
+            **{k: k3[k] for k in KERNEL_KEYS}, "zones_2": k3["zones_2"], "library_ms": None,
         },
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -2187,7 +2187,8 @@ class Scheduler:
         distributions, with the host seconds of each window stage
         (``batch["stage_seconds"]``, ``DRIP_STAGES``), the batch
         kernel's CUDA-graph counters (``graph_captures``, ``graph_replays``,
-        ``eager_windows``; ``replays`` counts tie replays) and the NRT
+        ``eager_windows``; ``replays`` counts tie replays), the windows
+        whose steps ran the step kernel (``kernel_windows``) and the NRT
         window's (``zone_windows``: windows through ``drip_zone``;
         ``zone_results``: topology results written; ``cross_zone_binds``:
         bound pods whose result spans more than one zone)."""
@@ -2209,7 +2210,7 @@ class Scheduler:
             "stage_seconds": dict(self._stages.seconds),
         }
         kern = self._batch_kernel
-        for name in ("graph_captures", "graph_replays", "eager_windows"):
+        for name in ("graph_captures", "graph_replays", "eager_windows", "kernel_windows"):
             out["batch"][name] = getattr(kern, name, 0)
         return out
 

@@ -2,8 +2,12 @@
 
 Counterpart of ``crane_scheduler_tpu/scorer/drip_batch.py``. The
 reference's ``_drip_batch`` is a jitted XLA program (a ``lax.scan``), not a
-Pallas kernel; here it is the plain PyTorch function ``_drip_batch``, whose
-K dependent steps run as PyTorch kernels on the caller's device:
+Pallas kernel. Here the window has two routes, chosen by the tensors'
+device: on a card, ``scorer.drip_step.drip_window`` launches one
+hand-written CUDA kernel per pod (``csrc/drip_step.cu``), each the pod's
+whole step over every node; on the CPU, the plain PyTorch function
+``_drip_batch`` runs the same K dependent steps as PyTorch ops, and the
+tests hold the kernel against it bit for bit:
 
     for each pod k (sequentially):
         fit_fail = bounded & any(vec_k > 0 & free < vec_k)
@@ -28,21 +32,22 @@ padded inputs (padded nodes are ``schedulable=False``, padded pods
 
 On a CUDA device the window is the counterpart of the reference's
 compile-once-per-shape program: when two windows in a row have one shape
-``(device, n, k, want_ties)``, the second captures ``_drip_batch`` into a
-CUDA graph (``_WindowGraph``) and every later window of that shape replays
-it with one launch instead of enqueuing its ~16 ops per pod from the host.
-The kernels and their arithmetic are the eager ones. ``GraphSlot`` decides
-which route a window takes and holds one graph: a shape that does not
-repeat back to back runs eagerly and leaves the held graph in place, so
-shapes that alternate never capture each other out.
+``(device, n, k, want_ties)``, the second captures the window's K step
+launches into a CUDA graph (``_WindowGraph``) and every later window of
+that shape replays it with one launch from the host. The kernels and their
+arithmetic are the eager ones. ``GraphSlot`` decides which route a window
+takes and holds one graph: a shape that does not repeat back to back runs
+eagerly and leaves the held graph in place, so shapes that alternate never
+capture each other out.
 
 The fold carry stays on the device across windows: after a fully accepted
 window the host applies the same integer folds to its own ``free`` copy
 (``mark_synced``), so the next dispatch skips the ``[N, 4]`` upload.
 
-With ``NodeResourceTopologyMatch`` registered the scheduler runs
-``_drip_batch_numa`` instead (``DripBatchKernel.dispatch_numa``; port-only,
-the reference places such a queue pod by pod): each step also evaluates
+With ``NodeResourceTopologyMatch`` registered the scheduler runs the NRT
+window instead (``DripBatchKernel.dispatch_numa``: the step kernel with zone
+columns on a card, ``_drip_batch_numa`` on the CPU; port-only, the
+reference places such a queue pod by pod): each step also evaluates
 the plugin's Filter and greedy zone pack over every node's NUMA zones
 (``[N, Z]`` int64 milli-CPU), adds its weighted score to the Dynamic one,
 and folds the winner's zone takes into a second carry, ``used``, which
@@ -60,7 +65,8 @@ int64, and the fold on the winning tile only. Such columns are
 re-uploaded on a version change, never patched, so the column and carry
 counters equal the reference's. A mesh that spans processes adds two
 ``all_reduce`` sums per step and holds ``_COLLECTIVE_LOCK`` through the
-window's output sync.
+window's output sync. The tiled window runs PyTorch ops on every device; a
+one-tile mesh takes the single-device routes above.
 """
 
 from __future__ import annotations
@@ -75,6 +81,7 @@ from ..device import resolve_device
 from ..parallel.column_cache import SINGLE_DEVICE, DeviceColumnCache, upload
 from ..parallel.distributed import COLLECTIVE_LOCK as _COLLECTIVE_LOCK
 from ..parallel.mesh import node_tiles, round_up_to_shards
+from .drip_step import StepScratch, drip_window
 
 __all__ = ["DripBatchKernel", "drip_batch_dispatch"]
 
@@ -436,9 +443,9 @@ class GraphSlot:
 
 class _WindowGraph:
     """One shape's window captured as a CUDA graph: static inputs, the
-    graph, its ``outs``. The graph folds the carry in place into ``free``
-    (``_drip_batch`` reads it into a clone first), so after an accepted
-    window the carry is already the next replay's input."""
+    step kernel's scratch, the graph, its ``outs``. The graph folds the
+    carry in place into ``free``, so after an accepted window the carry is
+    already the next replay's input."""
 
     def __init__(self, dev: torch.device, n: int, k: int):
         self.sched = torch.empty((n,), dtype=torch.bool, device=dev)
@@ -448,6 +455,7 @@ class _WindowGraph:
         self.vecs = torch.empty((k, 4), dtype=torch.int64, device=dev)
         self.active = torch.ones((k,), dtype=torch.bool, device=dev)
         self._cols = (None, None, None)  # the column tensors last copied in
+        self.scratch = StepScratch(dev)
         self.graph = None
         self.outs = None
 
@@ -489,12 +497,10 @@ class _WindowGraph:
         self.graph, self.outs = graph, outs
 
     def _run(self, want_ties: bool):
-        """The window over the static buffers, its carry folded back into
-        them; returns ``outs``."""
-        outs, free_out = _drip_batch(self.sched, self.weighted, self.bounded, self.free,
-                                     self.vecs, self.active, want_ties=want_ties)
-        self.free.copy_(free_out)
-        return outs
+        """The window over the static buffers, its carry folded in place;
+        returns ``outs``."""
+        return drip_window(self.sched, self.weighted, self.bounded, self.free, self.vecs,
+                           self.active, self.scratch, want_ties)
 
 
 class _NumaWindowGraph(_WindowGraph):
@@ -523,12 +529,9 @@ class _NumaWindowGraph(_WindowGraph):
         self.pods.copy_(pods, non_blocking=True)
 
     def _run(self, want_ties: bool):
-        outs, free_out, used_out = _drip_batch_numa(
-            self.sched, self.weighted, self.bounded, self.free, self.vecs, self.active,
-            self.zcols, self.used, self.pods, want_ties=want_ties)
-        self.free.copy_(free_out)
-        self.used.copy_(used_out)
-        return outs
+        return drip_window(self.sched, self.weighted, self.bounded, self.free, self.vecs,
+                           self.active, self.scratch, want_ties,
+                           zones=(self.zcols, self.used, self.pods))
 
 
 def _pinned(host: np.ndarray) -> torch.Tensor:
@@ -555,11 +558,14 @@ class DripBatchKernel:
     device. With a mesh and no ``device`` the first tile's device holds the
     window's outputs.
 
-    On a CUDA device without tiles, once two windows in a row share a
-    shape, that shape's windows replay a captured graph (``GraphSlot``).
-    ``graph_captures``, ``graph_replays`` and ``eager_windows`` count them:
-    every window is a replay or eager, so ``dispatches == graph_replays +
-    eager_windows``.
+    On a CUDA device without tiles, every window's steps run the step
+    kernel (``drip_step.drip_window``), and once two windows in a row share
+    a shape, that shape's windows replay a captured graph of its launches
+    (``GraphSlot``). ``graph_captures``, ``graph_replays`` and
+    ``eager_windows`` count them: every window is a replay or eager, so
+    ``dispatches == graph_replays + eager_windows``. ``kernel_windows``
+    counts the windows whose steps went through the kernel: on a card
+    every single-device window with a pod in it, on the CPU none.
     """
 
     def __init__(self, device=None, mesh=None):
@@ -581,6 +587,8 @@ class DripBatchKernel:
         self.graph_captures = 0
         self.graph_replays = 0
         self.eager_windows = 0
+        self.kernel_windows = 0
+        self._scratch = None  # the eager windows' StepScratch (CUDA only)
         self._mesh = None
         self.repartitions = 0
         if mesh is None:
@@ -701,12 +709,9 @@ class DripBatchKernel:
             if fresh:
                 free_d = upload(free, dev)
             vecs_d = upload(vecs, dev)
-            active = torch.ones((k,), dtype=torch.bool, device=dev)
             if stages is not None:
                 stages.split("drip_launch")
-            outs, free_out = _drip_batch(sched_d, w_d, bnd_d, free_d, vecs_d, active,
-                                         want_ties=want_ties)
-            self.eager_windows += 1
+            outs, free_out = self._eager((sched_d, w_d, bnd_d), free_d, vecs_d, want_ties)
         else:
             outs, free_out = self._replay(route, key, (sched_d, w_d, bnd_d),
                                           _pinned(free) if fresh else free_d, vecs, stages)
@@ -717,6 +722,27 @@ class DripBatchKernel:
         self._free_synced = True  # provisional; the caller desyncs on reject
         self.dispatches += 1
         return host[:, 0], host[:, 1], host[:, 2]
+
+    def _eager(self, cols, free, vecs, want_ties, numa=None):
+        """One window without a graph on the tensors' device: the step
+        kernel on a card, the PyTorch window on the CPU; the inputs stay
+        as they were. ``numa``: the zone columns, zone carry and pod rows.
+        Returns ``(outs, free)``, and the zone carry after them with
+        ``numa``."""
+        dev, k = free.device, vecs.shape[0]
+        active = torch.ones((k,), dtype=torch.bool, device=dev)
+        self.eager_windows += 1
+        if dev.type != "cuda":
+            if numa is None:
+                return _drip_batch(*cols, free, vecs, active, want_ties=want_ties)
+            return _drip_batch_numa(*cols, free, vecs, active, *numa, want_ties=want_ties)
+        if self._scratch is None or self._scratch.device != dev:
+            self._scratch = StepScratch(dev)
+        free = free.clone()
+        zones = None if numa is None else (numa[0], numa[1].clone(), numa[2])
+        outs = drip_window(*cols, free, vecs, active, self._scratch, want_ties, zones=zones)
+        self.kernel_windows += int(k > 0)
+        return (outs, free) if zones is None else (outs, free, zones[1])
 
     def _put_columns(self, schedulable, weighted, bounded, free, col_version, col_delta):
         """The single-device column puts of a window: the device
@@ -789,13 +815,10 @@ class DripBatchKernel:
             used_d = upload(used, dev) if fresh else self._used_dev
             vecs_d = upload(vecs, dev)
             pods_d = upload(pods, dev)
-            active = torch.ones((k,), dtype=torch.bool, device=dev)
             if stages is not None:
                 stages.split("drip_launch")
-            outs, free_out, used_out = _drip_batch_numa(sched_d, w_d, bnd_d, free_d, vecs_d,
-                                                        active, zcols, used_d, pods_d,
-                                                        want_ties=want_ties)
-            self.eager_windows += 1
+            outs, free_out, used_out = self._eager((sched_d, w_d, bnd_d), free_d, vecs_d,
+                                                   want_ties, numa=(zcols, used_d, pods_d))
         else:
             numa = (zcols, _pinned(used) if fresh else self._used_dev, _pinned(pods))
             outs, free_out, used_out = self._replay(
@@ -836,6 +859,7 @@ class DripBatchKernel:
                 self.graph_captures += 1
             graph.graph.replay()
         self.graph_replays += 1
+        self.kernel_windows += 1
         if numa is not None:
             return graph.outs, graph.free, graph.used
         return graph.outs, graph.free

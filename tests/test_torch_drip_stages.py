@@ -76,18 +76,18 @@ def test_stage_seconds_split_the_call(tiles):
 
 @pytest.mark.parametrize("tiles", [None, 2], ids=["single", "tiled"])
 def test_drip_stats_count_graph_and_eager_windows(tiles):
-    """``drip_stats()["batch"]`` carries the kernel's CUDA-graph counters;
-    on the CPU, and over tiles, every window is eager. Before any window
-    there is no kernel and each reads 0."""
+    """``drip_stats()["batch"]`` carries the kernel's CUDA-graph counters
+    and its step-kernel windows; on the CPU, and over tiles, every window
+    is eager and none runs the step kernel. Before any window there is no
+    kernel and each reads 0."""
+    counters = ("graph_captures", "graph_replays", "eager_windows", "kernel_windows")
     rng = random.Random(5)
     idle = build_scheduler("port", build_cluster("port", fuzz_node_specs(rng, 3)))
-    assert {k: idle.drip_stats()["batch"][k]
-            for k in ("graph_captures", "graph_replays", "eager_windows")} == dict.fromkeys(
-                ("graph_captures", "graph_replays", "eager_windows"), 0)
+    assert {k: idle.drip_stats()["batch"][k] for k in counters} == dict.fromkeys(counters, 0)
     mesh = make_placement_mesh(tiles, [torch.device("cpu")] * tiles) if tiles else None
     sched, _results, _wall = queue_run(mesh=mesh)
     batch = sched.drip_stats()["batch"]
-    assert batch["graph_captures"] == batch["graph_replays"] == 0
+    assert batch["graph_captures"] == batch["graph_replays"] == batch["kernel_windows"] == 0
     assert batch["eager_windows"] == batch["dispatches"] == PODS // WINDOW
     assert batch["replays"] == 0  # the tie replays, a separate count
 
