@@ -2064,6 +2064,21 @@ class _Hooks:
         self.unreserve = hooks("unreserve")
 
 
+@dataclass(frozen=True)
+class _PluginSet:
+    """A plugin set the columnar paths serve (``Scheduler._parse_plugins``):
+    the ``DynamicPlugin`` and its weight, the ``ResourceFitPlugin``'s
+    tracker (None without Fit), the registration order (``"dyn"``,
+    ``"fit"``, ``"nrt"``) and ``topo``, the ``TopologyMatch`` and its
+    weight (None without it), which makes a window the NRT window."""
+
+    dyn: object
+    dyn_weight: int
+    tracker: object
+    order: tuple
+    topo: tuple | None
+
+
 # the batched drip window's stages (Scheduler._dispatch_window); a window
 # runs them in this order, with drip_zone (the NRT window's zone results,
 # annotation writes and assumes) between drip_wait and drip_bind
@@ -2080,8 +2095,8 @@ class Scheduler:
     extended-resource requests and unknown plugins), the columnar fast
     path over ``framework.drip.DripColumns``, and the batched windows of
     ``schedule_queue`` / ``open_queue`` through ``scorer.drip_batch``
-    (with ``TopologyMatch`` registered too: the NRT window,
-    ``_dispatch_numa_window``).
+    (with ``TopologyMatch`` registered too: the NRT window, the same
+    ``_dispatch_window`` with a zone carry).
     Host selection takes the max weighted score, the lowest snapshot index
     among ties, or a seeded-random tie with ``tie_break_seed``.
 
@@ -2122,11 +2137,11 @@ class Scheduler:
         self._columnar = bool(columnar)
         self._hooks: _Hooks | None = None
         self._drip = None  # DripColumns once plugins are recognized
-        # plugin recognition for the columnar path: False = not yet
-        # computed, None = unrecognized set (scalar forever)
-        self._recognized: tuple | None | bool = False
+        # plugin recognition (_PluginSet) for the columnar path: False =
+        # not yet computed, None = unrecognized set (scalar forever)
+        self._recognized: _PluginSet | None | bool = False
         self._unrecognized_reason = "unknown_plugin"
-        self._window_rec: tuple | None | bool = False  # the same, for the window
+        self._window_rec: _PluginSet | None | bool = False  # the same, for the window
         self._fallbacks: dict[str, int] = {}
         # bind-plane backpressure: an optional callable that blocks while
         # a downstream bind-flush queue is over its watermark, so window
@@ -2217,66 +2232,37 @@ class Scheduler:
     def _recognition(self):
         """Columnar eligibility of the registered plugin set: exactly one
         ``DynamicPlugin`` plus at most one ``ResourceFitPlugin`` (order
-        free). Anything else — subclasses included, which may override
-        hooks — is unrecognized and pins the scalar loop."""
-        rec = self._recognized
-        if rec is not False:
-            return rec
-        from ..fit.plugin import ResourceFitPlugin
-        from ..plugins.dynamic import DynamicPlugin
-
-        dyn = None
-        dyn_weight = 1
-        tracker = None
-        order: list[str] = []
-        for wp in self._plugins:
-            p = wp.plugin
-            if type(p) is DynamicPlugin and dyn is None:
-                dyn, dyn_weight = p, wp.weight
-                order.append("dyn")
-            elif type(p) is ResourceFitPlugin and tracker is None:
-                tracker = p.tracker
-                order.append("fit")
-            else:
-                self._recognized = None
-                self._unrecognized_reason = "unknown_plugin"
-                return None
-        if dyn is None:
-            self._recognized = None
-            self._unrecognized_reason = "no_dynamic_plugin"
-            return None
-        self._recognized = (dyn, dyn_weight, tracker, tuple(order))
+        free), as a ``_PluginSet``. Anything else — subclasses included,
+        which may override hooks, and ``TopologyMatch``, which only the
+        batched window serves — is unrecognized and pins the scalar loop."""
+        if self._recognized is False:
+            self._parse_plugins()
         return self._recognized
 
     def _window_recognition(self):
         """The batched window's eligibility: ``_recognition``'s plugin sets,
         and exactly one ``DynamicPlugin``, at most one
         ``ResourceFitPlugin`` and exactly one ``TopologyMatch`` (order
-        free) — the NRT window, whose recognition tuple adds ``(plugin,
-        weight)``. The plugin must write to this scheduler's cluster, keep
-        the default topology-aware resources (CPU) and have a lister with
-        a ``version``; the window runs on one device. Anything else goes
-        per pod."""
-        rec = self._window_rec
-        if rec is not False:
-            return rec
-        rec = self._recognition()
-        if rec is None:
-            rec = self._numa_recognition()
-        self._window_rec = rec
-        return rec
+        free) — the NRT window, whose record carries ``topo``. The plugin
+        must write to this scheduler's cluster, keep the default
+        topology-aware resources (CPU) and have a lister with a
+        ``version``; the window runs on one device. Anything else goes per
+        pod."""
+        if self._recognized is False:
+            self._parse_plugins()
+        return self._window_rec
 
-    def _numa_recognition(self):
+    def _parse_plugins(self) -> None:
+        """Read the registered plugin set once per registration into
+        ``_recognized``, ``_window_rec`` and the fallback reason."""
         from ..fit.plugin import ResourceFitPlugin
         from ..plugins.dynamic import DynamicPlugin
         from ..topology.plugin import DEFAULT_TOPOLOGY_AWARE_RESOURCES, TopologyMatch
 
-        mesh = self._kernel_mesh
-        if mesh is not None and mesh.size > 1:
-            return None
         dyn = tracker = topo = None
         dyn_weight = 1
         order: list[str] = []
+        known = True
         for wp in self._plugins:
             p = wp.plugin
             if type(p) is DynamicPlugin and dyn is None:
@@ -2289,15 +2275,22 @@ class Scheduler:
                 topo = (p, wp.weight)
                 order.append("nrt")
             else:
-                return None
-        if dyn is None or topo is None:
-            return None
-        plugin = topo[0]
-        if (plugin.cluster is not self.cluster
-                or plugin.topology_aware_resources != DEFAULT_TOPOLOGY_AWARE_RESOURCES
-                or not hasattr(plugin.lister, "version")):
-            return None
-        return (dyn, dyn_weight, tracker, tuple(order), topo)
+                known = False
+                break
+        rec = None
+        self._unrecognized_reason = "unknown_plugin"  # TopologyMatch's too, per pod
+        if known and dyn is not None:
+            rec = _PluginSet(dyn, dyn_weight, tracker, tuple(order), topo)
+        elif known and topo is None:
+            self._unrecognized_reason = "no_dynamic_plugin"
+        self._recognized = rec if topo is None else None
+        if topo is not None and rec is not None:
+            plugin, mesh = topo[0], self._kernel_mesh
+            if ((mesh is not None and mesh.size > 1) or plugin.cluster is not self.cluster
+                    or plugin.topology_aware_resources != DEFAULT_TOPOLOGY_AWARE_RESOURCES
+                    or not hasattr(plugin.lister, "version")):
+                rec = None
+        self._window_rec = rec
 
     def _count_fallback(self, reason: str) -> None:
         self._fallbacks[reason] = self._fallbacks.get(reason, 0) + 1
@@ -2400,7 +2393,7 @@ class Scheduler:
     @staticmethod
     def _columnar_ineligible(pod: Pod, rec) -> str | None:
         """Per-pod reasons the cached columns cannot express."""
-        dyn, _w, tracker, _order = rec[:4]
+        dyn, tracker = rec.dyn, rec.tracker
         if pod.is_daemonset_pod():
             return "daemonset"  # Dynamic Filter bypass is per-pod
         if dyn.degraded is not None and dyn.degraded.active:
@@ -2512,10 +2505,9 @@ class Scheduler:
 
         drip = self._drip
         if drip is None:
-            dyn, dyn_weight, tracker, order = rec[:4]
             drip = self._drip = DripColumns(
-                self.cluster, dyn, dyn_weight, order, fit_tracker=tracker,
-                telemetry=self._telemetry, topology=rec[4][0] if len(rec) > 4 else None)
+                self.cluster, rec.dyn, rec.dyn_weight, rec.order, fit_tracker=rec.tracker,
+                telemetry=self._telemetry, topology=None if rec.topo is None else rec.topo[0])
         return drip
 
     @staticmethod
@@ -2564,11 +2556,11 @@ class Scheduler:
         seeded tie-break consumes the RNG exactly like the scalar path, one
         ``randrange`` per real tie, selecting the r-th tie in snapshot
         order."""
-        dyn, _dyn_weight, tracker, _order = rec
+        tracker = rec.tracker
         drip = self._ensure_drip(rec)
         # the Dynamic plugin's own clock: the scalar oracle stamps
         # freshness with dyn._clock(), and parity pins to that
-        drip.ensure(dyn._clock())
+        drip.ensure(rec.dyn._clock())
         names = drip.names
         n = len(names)
         vec = None
@@ -2620,8 +2612,8 @@ class Scheduler:
         with NRT the lister's and the assume cache's."""
         cluster = self.cluster
         fence = (cluster.sched_version, cluster.pod_version, cluster.node_version)
-        if len(rec) > 4:
-            topo = rec[4][0]
+        if rec.topo is not None:
+            topo = rec.topo[0]
             fence += (topo.lister.version, topo.cache.version)
         return fence
 
@@ -2640,7 +2632,7 @@ class Scheduler:
     def _request_row(pod: Pod, rec):
         from ..fit.tracker import pod_fit_request, request_vec
 
-        return request_vec(pod_fit_request(pod)) if rec[2] is not None else None
+        return request_vec(pod_fit_request(pod)) if rec.tracker is not None else None
 
     def _nrt_request(self, pod: Pod) -> tuple[int, int]:
         """The NRT PreFilter of one pod: its guaranteed milli-CPU over the
@@ -2737,56 +2729,90 @@ class Scheduler:
         ``bind_pods``), ``drip_fold`` (the results and the host folds). A
         rejected window keeps the first three; its per-pod replay is none.
 
+        With ``rec.topo`` (``NodeResourceTopologyMatch``) the drip columns
+        hold zone columns, and the window is the NRT window: it carries the
+        zones' usage across its steps (``DripBatchKernel.dispatch_numa``),
+        and each accepted bind does what the plugin's Reserve and PreBind
+        do, for the whole window at once in the stage ``drip_zone``
+        (``_zone_stage``) before ``bind_pods``. It also replays per pod
+        where a feasible node's greedy pack uses no zone (the plugin's
+        Score divides by zero), where a pod is already assumed or missing
+        from the cluster, and where the zone columns hold what the window
+        does not model (``ZoneColumns.clean``). Its results read the fit
+        and zone columns as their pods saw them (``_numa_views``); the
+        plain window's read the live columns (``_lazy_views``).
+
         Under ``conflict_retry`` the window re-reads the pod_version fence
         after the window and before the bind POSTs: a competing binder
         moving it means the placements were computed over stale free
         columns, so the window drops and retries at queue position
         (``_retry`` bounds the loop; exhaustion falls back to the per-pod
         path)."""
-        if len(rec) > 4:
-            return self._dispatch_numa_window(buf, rec, results, _retry)
-        dyn, _dyn_weight, tracker, _order = rec
+        tracker = rec.tracker
         if self.bind_backpressure is not None:
             self.bind_backpressure()
         k = len(buf)
         drip = self._ensure_drip(rec)
+        zones = drip.zones
         tel = self._telemetry
-        now = dyn._clock()
+        now = rec.dyn._clock()
         stages = self._stages
         t = stages.stop()  # the end of drip_admit
         with maybe_span(tel, "drip_dispatch", pods=k):
             stages.begin("drip_prepare", t)
             drip.ensure(now)
+            if zones is not None and not zones.clean:
+                stages.stop()
+                return self._replay_per_pod(buf, results)
             names = drip.names
             n = len(names)
             vecs = np.zeros((k, 4), dtype=np.int64)
             if tracker is not None:
                 for i, (_pod, vec) in enumerate(buf):
                     vecs[i] = vec
+            if zones is not None:
+                from ..scorer.drip_batch import numa_pod_rows
+
+                nrt = np.array([self._nrt_request(pod) for pod, _vec in buf],
+                               dtype=np.int64).reshape(k, 2)
+                pod_rows = numa_pod_rows(nrt[:, 0], nrt[:, 1], rec.topo[1], zones.z)
             kern = self._kernel()
+            cols = (drip.schedulable, drip.weighted, drip.bounded, drip.free, vecs)
+            want_ties = self._tie_rng is not None
             t_upload = stages.clock()
-            chosen, feasible, ties = kern.dispatch(
-                drip.schedulable, drip.weighted, drip.bounded, drip.free, vecs,
-                want_ties=self._tie_rng is not None, col_version=drip.col_epoch,
-                col_delta=drip.dirty_rows_between, stages=stages,
-            )
+            if zones is None:
+                chosen, feasible, ties = kern.dispatch(
+                    *cols, want_ties=want_ties, col_version=drip.col_epoch,
+                    col_delta=drip.dirty_rows_between, stages=stages)
+            else:
+                chosen, feasible, ties, bad, takes = kern.dispatch_numa(
+                    *cols, zones, pod_rows, want_ties=want_ties, col_version=drip.col_epoch,
+                    col_delta=drip.dirty_rows_between, stages=stages)
             t_fetched = stages.stop()
-        b = self._batch
         self._count_window(k, t_fetched - t_upload)
         if self._stale_window(tracker, drip, kern):
             if _retry < self.max_window_retries:
                 return self._dispatch_window(buf, rec, results, _retry + 1)
             return self._replay_per_pod(buf, results)
 
-        if self._tie_rng is not None and bool((ties > 1).any()):
-            # a real tie consumes seeded RNG the window cannot replay —
-            # re-run the whole window per-pod against the untouched host
-            # columns: identical placements and RNG consumption
+        # a real tie consumes seeded RNG the window cannot replay, and a
+        # pack over no zone is the plugin's division by zero: re-run the
+        # whole window per-pod against the untouched host columns, with
+        # identical placements and RNG consumption
+        tied = want_ties and bool((ties > 1).any())
+        if tied:
+            self._batch["replays"] += 1
+        if tied or (zones is not None and bool((bad[nrt[:, 0] > 0] > 0).any())):
             kern.mark_desynced()
-            b["replays"] += 1
             return self._replay_per_pod(buf, results)
 
-        stages.begin("drip_bind", t_fetched)
+        if zones is None:
+            stages.begin("drip_bind", t_fetched)
+        else:
+            zoned = self._zone_stage(buf, rec.topo[0], zones, chosen, takes, kern, t_fetched)
+            if zoned is None:
+                return self._replay_per_pod(buf, results)
+            entries, pre_cache = zoned
         lc = self._mark_scored(buf, chosen, names)
         pairs = [
             (pod.key(), names[int(chosen[i])])
@@ -2805,43 +2831,102 @@ class Scheduler:
         # reason later in the window reads the free state the per-pod path
         # would have seen)
         ok_folds = (
-            tracker is not None
-            and drip.free is not None
-            and drip._fit_pod_ver == pre_pod
+            n_bound == len(pairs)
             and self.cluster.pod_version == pre_pod + n_bound
-            and n_bound == len(pairs)
+            and (tracker is None or (drip.free is not None and drip._fit_pod_ver == pre_pod))
         )
+        folds = None
+        if zones is None:
+            ok_folds = ok_folds and tracker is not None  # nothing to fold without Fit
+        else:
+            folds, zones_ok = self._zone_folds(drip, rec.topo[0], entries, bound_set,
+                                               pre_pod, pre_cache)
+            ok_folds = ok_folds and zones_ok
+        fold_rows = []
         for i, (pod, vec) in enumerate(buf):
             key = pod.key()
             ci = int(chosen[i])
+            if folds is None:
+                views = self._lazy_views(drip, vec)
+            else:
+                views = self._numa_views(drip, vec, pod_rows[i], folds, len(fold_rows))
             if ci < 0:
-                reason = drip.reason_for(n - 1, vec) if n else ""
-                result = self._result(self._lazy_views(drip, vec), key, None, 0,
-                                      reason or "no feasible nodes")
+                reason = ""
+                if n:
+                    code = (-1 if folds is None
+                            else drip.nrt_code(n - 1, pod_rows[i], zones.used))
+                    reason = drip.reason_for(n - 1, vec, code)
+                result = self._result(views, key, None, 0, reason or "no feasible nodes")
             elif key in bound_set:
-                if ok_folds:
-                    drip.fold_row(ci, vec)
+                if ok_folds and folds is None:
+                    drip.fold_row(ci, vec)  # and the per-pod path's SegMaxTree updates
+                elif ok_folds:
+                    if tracker is not None:
+                        drip.free[ci] -= vec
+                    zones.fold(ci, takes[i])
+                    fold_rows.append(i)
                 if lc is not None:
                     lc.posted(key, node=names[ci])
-                result = self._result(self._lazy_views(drip, vec), key, names[ci],
-                                      int(feasible[i]))
+                result = self._result(views, key, names[ci], int(feasible[i]))
             else:
-                result = self._result(self._lazy_views(drip, vec), key, None,
-                                      int(feasible[i]), "bind failed")
+                result = self._result(views, key, None, int(feasible[i]), "bind failed")
             if tel is not None:
                 self._m_decisions.labels(outcome="scheduled" if result.node else "failed").inc()
                 tel.decisions.offer(self._decision_builder(result))
             results.append(result)
-        if tracker is not None:
-            if ok_folds:
+        if ok_folds:
+            if folds is not None:
+                drip.stats["folds"] += len(fold_rows)
+                drip.close_folds(folds, chosen[fold_rows].astype(np.int64), vecs[fold_rows],
+                                 takes[fold_rows])
+                zones.commit(pre_pod + n_bound, pre_cache + len(entries))
+            if tracker is not None:
                 drip.commit_folds(pre_pod + n_bound)
-                # the host replayed the window's exact integer folds, so
-                # the device carry mirrors the host column bit for bit
-                kern.mark_synced(drip.free)
-            else:
+            # the host replayed the window's exact integer folds, so the
+            # device carries mirror the host columns bit for bit
+            kern.mark_synced(drip.free, None if zones is None else zones.used)
+        else:
+            if tracker is not None:
                 drip.drop_fit()
-                kern.mark_desynced()
+            kern.mark_desynced()
         return stages.stop()
+
+    def _zone_stage(self, buf, topo, zones, chosen, takes, kern, t_fetched):
+        """The NRT window's stage ``drip_zone``: the plugin's Reserve and
+        PreBind for every pod that takes a zone (``commit_results``: the
+        zone result assumed in the cache and written onto the pod as its
+        topology-result annotation). Returns ``(entries, pre_cache)`` with
+        ``drip_bind`` open, or None when the cache refused them (the stage
+        closed and the carries desynced: the window replays per pod)."""
+        stages = self._stages
+        stages.begin("drip_zone", t_fetched)
+        entries = [(buf[i][0], *self._zone_result(zones, int(chosen[i]), takes[i]))
+                   for i in np.flatnonzero((chosen >= 0) & takes.any(axis=1)).tolist()]
+        pre_cache = topo.cache.version
+        if entries and not topo.commit_results(entries):
+            stages.stop()
+            kern.mark_desynced()
+            return None
+        self._batch["zone_windows"] += 1
+        self._batch["zone_results"] += len(entries)
+        stages.split("drip_bind")
+        return entries, pre_cache
+
+    def _zone_folds(self, drip, topo, entries, bound_set, pre_pod, pre_cache):
+        """The NRT window's binds in the zone columns: the per-pod cycle's
+        Unreserve for each pod whose bind failed, the cross-zone count, and
+        the ``_Folds`` record the window's zone folds go into
+        (``DripColumns.open_folds``). Returns the record and whether the
+        zone columns and the cache moved by the window's own assumes
+        alone."""
+        unbound = [pod for pod, _zl, _raw in entries if pod.key() not in bound_set]
+        if unbound:
+            topo.cache.forget_pods(unbound)
+        self._batch["cross_zone_binds"] += sum(len(zl) > 1 for pod, zl, _raw in entries
+                                               if pod.key() in bound_set)
+        ok = (drip.zones.stamps() == (pre_pod, pre_cache)
+              and topo.cache.version == pre_cache + len(entries))
+        return drip.open_folds(), ok
 
     def _count_window(self, k: int, kernel_s: float) -> None:
         """A dispatched window's counts and metrics (``kernel_s``: the
@@ -2899,146 +2984,6 @@ class Scheduler:
         for pod, _vec in buf:
             results.append(self.schedule_one(pod))
         return self._stages.clock()
-
-    def _dispatch_numa_window(self, buf, rec, results, _retry: int = 0) -> float:
-        """``_dispatch_window`` with ``NodeResourceTopologyMatch``: the
-        window carries the zone columns' usage across its steps
-        (``DripBatchKernel.dispatch_numa``) and each accepted bind does
-        what the plugin's Reserve and PreBind do, for the whole window at
-        once in the stage ``drip_zone`` (``TopologyMatch.commit_results``:
-        the zone result assumed in the cache and written onto the pod as
-        its topology-result annotation) before ``bind_pods``.
-
-        The window replays per pod, where the per-pod cycle must decide it:
-        a seeded tie, a feasible node on which the plugin's greedy pack
-        uses no zone (its Score divides by zero), a pod already assumed or
-        missing from the cluster, and zone columns the window does not
-        model (``ZoneColumns.clean``). A result's ``scores`` and filter
-        reasons read the fit and zone columns as its pod saw them
-        (``framework.drip.columns_at``)."""
-        from ..scorer.drip_batch import numa_pod_rows
-
-        dyn, _dyn_weight, tracker, _order, (topo, topo_weight) = rec
-        if self.bind_backpressure is not None:
-            self.bind_backpressure()
-        k = len(buf)
-        drip = self._ensure_drip(rec)
-        zones = drip.zones
-        tel = self._telemetry
-        now = dyn._clock()
-        stages = self._stages
-        t = stages.stop()  # the end of drip_admit
-        with maybe_span(tel, "drip_dispatch", pods=k):
-            stages.begin("drip_prepare", t)
-            drip.ensure(now)
-            if not zones.clean:
-                stages.stop()
-                return self._replay_per_pod(buf, results)
-            names = drip.names
-            n = len(names)
-            vecs = np.zeros((k, 4), dtype=np.int64)
-            if tracker is not None:
-                for i, (_pod, vec) in enumerate(buf):
-                    vecs[i] = vec
-            nrt = np.array([self._nrt_request(pod) for pod, _vec in buf],
-                           dtype=np.int64).reshape(k, 2)
-            pod_rows = numa_pod_rows(nrt[:, 0], nrt[:, 1], topo_weight, zones.z)
-            kern = self._kernel()
-            t_upload = stages.clock()
-            chosen, feasible, ties, bad, takes = kern.dispatch_numa(
-                drip.schedulable, drip.weighted, drip.bounded, drip.free, vecs, zones, pod_rows,
-                want_ties=self._tie_rng is not None, col_version=drip.col_epoch,
-                col_delta=drip.dirty_rows_between, stages=stages,
-            )
-            t_fetched = stages.stop()
-        b = self._batch
-        self._count_window(k, t_fetched - t_upload)
-        if self._stale_window(tracker, drip, kern):
-            if _retry < self.max_window_retries:
-                return self._dispatch_numa_window(buf, rec, results, _retry + 1)
-            return self._replay_per_pod(buf, results)
-
-        tied = self._tie_rng is not None and bool((ties > 1).any())
-        if tied:
-            b["replays"] += 1
-        on = nrt[:, 0] > 0
-        if tied or bool((bad[on] > 0).any()):
-            kern.mark_desynced()
-            return self._replay_per_pod(buf, results)
-
-        stages.begin("drip_zone", t_fetched)
-        entries = [(buf[i][0], *self._zone_result(zones, int(chosen[i]), takes[i]))
-                   for i in np.flatnonzero((chosen >= 0) & takes.any(axis=1)).tolist()]
-        pre_cache = topo.cache.version
-        if entries and not topo.commit_results(entries):
-            stages.stop()
-            kern.mark_desynced()
-            return self._replay_per_pod(buf, results)
-        b["zone_windows"] += 1
-        b["zone_results"] += len(entries)
-
-        stages.split("drip_bind")
-        lc = self._mark_scored(buf, chosen, names)
-        pairs = [(pod.key(), names[int(chosen[i])])
-                 for i, (pod, _vec) in enumerate(buf) if chosen[i] >= 0]
-        pre_pod = self.cluster.pod_version
-        bound = self.cluster.bind_pods(pairs, self._clock()) if pairs else []
-        stages.split("drip_fold")
-        bound_set = set(bound)
-        unbound = [pod for pod, _zl, _raw in entries if pod.key() not in bound_set]
-        if unbound:
-            # the per-pod cycle's Unreserve after a failed bind
-            topo.cache.forget_pods(unbound)
-        n_bound = len(bound)
-        b["cross_zone_binds"] += sum(len(zl) > 1 for pod, zl, _raw in entries
-                                     if pod.key() in bound_set)
-        ok_folds = (
-            n_bound == len(pairs)
-            and self.cluster.pod_version == pre_pod + n_bound
-            and zones.stamps() == (pre_pod, pre_cache)
-            and topo.cache.version == pre_cache + len(entries)
-            and (tracker is None or (drip.free is not None and drip._fit_pod_ver == pre_pod))
-        )
-        folds = drip.open_folds()
-        fold_rows = []
-        j = 0
-        for i, (pod, vec) in enumerate(buf):
-            key = pod.key()
-            ci = int(chosen[i])
-            views = self._numa_views(drip, vec, pod_rows[i], folds, j)
-            if ci < 0:
-                code = drip.nrt_code(n - 1, pod_rows[i], zones.used) if n else -1
-                reason = drip.reason_for(n - 1, vec, code) if n else ""
-                result = self._result(views, key, None, 0, reason or "no feasible nodes")
-            elif key in bound_set:
-                if ok_folds:
-                    if tracker is not None:
-                        drip.free[ci] -= vec
-                    zones.fold(ci, takes[i])
-                    fold_rows.append(i)
-                    j += 1
-                if lc is not None:
-                    lc.posted(key, node=names[ci])
-                result = self._result(views, key, names[ci], int(feasible[i]))
-            else:
-                result = self._result(views, key, None, int(feasible[i]), "bind failed")
-            if tel is not None:
-                self._m_decisions.labels(outcome="scheduled" if result.node else "failed").inc()
-                tel.decisions.offer(self._decision_builder(result))
-            results.append(result)
-        if ok_folds:
-            drip.stats["folds"] += len(fold_rows)
-            drip.close_folds(folds, chosen[fold_rows].astype(np.int64), vecs[fold_rows],
-                             takes[fold_rows])
-            zones.commit(pre_pod + n_bound, pre_cache + len(entries))
-            if tracker is not None:
-                drip.commit_folds(pre_pod + n_bound)
-            kern.mark_synced(drip.free, zones.used)
-        else:
-            if tracker is not None:
-                drip.drop_fit()
-            kern.mark_desynced()
-        return stages.stop()
 
     @staticmethod
     def _zone_result(zones, row: int, take) -> tuple:
@@ -3121,7 +3066,7 @@ class DripQueue:
         self.results: list[ScheduleResult] = []
         self._buf: list = []  # (pod, request vec) rows of the open window
         self._fence = None
-        self._rec = None  # recognition tuple the open window captured
+        self._rec = None  # the _PluginSet the open window captured
 
     def __len__(self) -> int:
         return len(self._buf)

@@ -20,7 +20,8 @@ A column tiled over a node mesh (the shard-parallel drip window) is put
 with ``place=``, which turns the prepared host array into its per-tile
 device tensors; such a column is re-uploaded on a version change, never
 patched, as in the reference. ``set_partition`` fences the cache to one
-partitioning: a changed token drops every slot.
+partitioning and names the device its single-device columns go to (for a
+tiled one, the first tile's): a changed token drops every slot.
 """
 
 from __future__ import annotations
@@ -52,11 +53,18 @@ class DeviceColumnCache:
         self._partition_token = None
         self.repartitions = 0
 
-    def set_partition(self, token) -> bool:
+    @property
+    def device(self) -> torch.device:
+        """Where single-device columns are uploaded (``set_partition``)."""
+        return self._device
+
+    def set_partition(self, token, device: torch.device) -> bool:
         """Declare the partitioning the cached columns are placed for (any
         token that compares by value: ``SINGLE_DEVICE`` or a mesh's
-        ``token()``). Returns True (and drops every slot) when it changed
-        from an earlier token."""
+        ``token()``) and the device of its single-device columns. Returns
+        True (and drops every slot) when the token changed from an earlier
+        one."""
+        self._device = device
         if token == self._partition_token:
             return False
         changed = self._partition_token is not None

@@ -51,8 +51,10 @@ reference places such a queue pod by pod): each step also evaluates
 the plugin's Filter and greedy zone pack over every node's NUMA zones
 (``[N, Z]`` int64 milli-CPU), adds its weighted score to the Dynamic one,
 and folds the winner's zone takes into a second carry, ``used``, which
-stays on the device beside ``free``. Its graphs (``_NumaWindowGraph``)
-are keyed by shape and zone count in the same ``GraphSlot``.
+stays on the device beside ``free``. Both windows go through one dispatch
+and one ``_WindowGraph``, which holds the zone buffers only for the NRT
+window; the graph key adds the zone count, so a plain graph and a zoned
+graph never replay each other.
 
 Over a node mesh of more than one tile (``DripBatchKernel(mesh=)``, the
 reference's ``_sharded_drip_fn``) the columns are padded to the
@@ -443,36 +445,51 @@ class GraphSlot:
 
 class _WindowGraph:
     """One shape's window captured as a CUDA graph: static inputs, the
-    step kernel's scratch, the graph, its ``outs``. The graph folds the
-    carry in place into ``free``, so after an accepted window the carry is
-    already the next replay's input."""
+    step kernel's scratch, the graph, its ``outs``. With ``z`` (the NRT
+    window's zone count) the zone columns, the zone carry ``used`` and the
+    per-pod rows sit beside the plain buffers. The graph folds the carries
+    in place, so after an accepted window they are already the next
+    replay's inputs."""
 
-    def __init__(self, dev: torch.device, n: int, k: int):
-        self.sched = torch.empty((n,), dtype=torch.bool, device=dev)
-        self.weighted = torch.empty((n,), dtype=torch.int64, device=dev)
-        self.bounded = torch.empty((n,), dtype=torch.bool, device=dev)
-        self.free = torch.empty((n, 4), dtype=torch.int64, device=dev)
-        self.vecs = torch.empty((k, 4), dtype=torch.int64, device=dev)
+    def __init__(self, dev: torch.device, n: int, k: int, z: int | None = None):
+        def empty(shape, dtype=torch.int64):
+            return torch.empty(shape, dtype=dtype, device=dev)
+
+        self.cols = (empty((n,), torch.bool), empty((n,)), empty((n,), torch.bool))
+        self.free = empty((n, 4))
+        self.vecs = empty((k, 4))
         self.active = torch.ones((k,), dtype=torch.bool, device=dev)
-        self._cols = (None, None, None)  # the column tensors last copied in
+        self.zones = None
+        if z is not None:
+            zcols = (empty((n, z)), empty((n, z)), *(empty((n,), torch.bool) for _ in range(3)))
+            self.cols += zcols
+            self.zones = (zcols, empty((n, z)), empty((k, 5 + z)))
+        self._last = (None,) * len(self.cols)  # the column tensors last copied in
         self.scratch = StepScratch(dev)
         self.graph = None
         self.outs = None
 
-    def load(self, cols, free, vecs) -> None:
+    @property
+    def used(self):
+        return None if self.zones is None else self.zones[1]
+
+    def load(self, cols, free, vecs, numa=None) -> None:
         """Copy the window's inputs into the static buffers, on the current
-        stream: a device column only where its tensor changed (the column
-        cache returns a new one on an upload or a scatter), the carry unless
-        it is already ``self.free``; ``free`` and ``vecs`` may be pinned
-        host tensors."""
-        for static, src, last in zip((self.sched, self.weighted, self.bounded), cols,
-                                     self._cols):
+        stream: a device column (``numa``'s zone columns too) only where its
+        tensor changed (the column cache returns a new one on an upload or
+        a scatter), a carry unless it is already the static one; ``free``,
+        ``vecs`` and ``numa``'s zone carry and pod rows may be pinned host
+        tensors."""
+        if numa is not None:
+            cols = (*cols, *numa[0])
+        for static, src, last in zip(self.cols, cols, self._last):
             if src is not last:
                 static.copy_(src)
-        self._cols = tuple(cols)
-        if free is not self.free:
-            self.free.copy_(free, non_blocking=True)
-        self.vecs.copy_(vecs, non_blocking=True)
+        self._last = tuple(cols)
+        for static, src in ((self.free, free), (self.vecs, vecs),
+                            *(() if numa is None else zip(self.zones[1:], numa[1:]))):
+            if src is not static:
+                static.copy_(src, non_blocking=True)
 
     def capture(self, want_ties: bool, stream) -> None:
         """Record the window on the side ``stream``; nothing runs until a
@@ -487,7 +504,8 @@ class _WindowGraph:
             with torch.cuda.stream(stream):
                 graph.capture_begin(capture_error_mode="thread_local")
                 try:
-                    outs = self._run(want_ties)
+                    outs = drip_window(*self.cols[:3], self.free, self.vecs, self.active,
+                                       self.scratch, want_ties, zones=self.zones)
                 finally:
                     graph.capture_end()
         finally:
@@ -496,46 +514,16 @@ class _WindowGraph:
         cur.wait_stream(stream)
         self.graph, self.outs = graph, outs
 
-    def _run(self, want_ties: bool):
-        """The window over the static buffers, its carry folded in place;
-        returns ``outs``."""
-        return drip_window(self.sched, self.weighted, self.bounded, self.free, self.vecs,
-                           self.active, self.scratch, want_ties)
-
-
-class _NumaWindowGraph(_WindowGraph):
-    """``_WindowGraph`` of the NRT window (``_drip_batch_numa``): the zone
-    columns, the zone carry ``used`` and the per-pod rows beside the plain
-    buffers; both carries fold back in place."""
-
-    def __init__(self, dev: torch.device, n: int, k: int, z: int):
-        super().__init__(dev, n, k)
-        self.zcols = (torch.empty((n, z), dtype=torch.int64, device=dev),
-                      torch.empty((n, z), dtype=torch.int64, device=dev),
-                      *(torch.empty((n,), dtype=torch.bool, device=dev) for _ in range(3)))
-        self.used = torch.empty((n, z), dtype=torch.int64, device=dev)
-        self.pods = torch.empty((k, 5 + z), dtype=torch.int64, device=dev)
-        self._zlast = (None,) * len(self.zcols)
-
-    def load_numa(self, zcols, used, pods) -> None:
-        """As ``load``: a zone column only where its tensor changed, the
-        zone carry unless it is already ``self.used``, the pod rows."""
-        for static, src, last in zip(self.zcols, zcols, self._zlast):
-            if src is not last:
-                static.copy_(src)
-        self._zlast = tuple(zcols)
-        if used is not self.used:
-            self.used.copy_(used, non_blocking=True)
-        self.pods.copy_(pods, non_blocking=True)
-
-    def _run(self, want_ties: bool):
-        return drip_window(self.sched, self.weighted, self.bounded, self.free, self.vecs,
-                           self.active, self.scratch, want_ties,
-                           zones=(self.zcols, self.used, self.pods))
-
 
 def _pinned(host: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(host)).pin_memory()
+
+
+def _columns(host: np.ndarray, zones) -> tuple:
+    """A window's host outputs as ``dispatch`` (``zones`` None) or
+    ``dispatch_numa`` returns them."""
+    out = (host[:, 0], host[:, 1], host[:, 2])
+    return out if zones is None else out + (host[:, 3], host[:, 4:])
 
 
 class DripBatchKernel:
@@ -591,17 +579,11 @@ class DripBatchKernel:
         self._scratch = None  # the eager windows' StepScratch (CUDA only)
         self._mesh = None
         self.repartitions = 0
-        if mesh is None:
-            self._cols.set_partition(SINGLE_DEVICE)
-        else:
-            self.repartition(mesh)
+        self.repartition(mesh)
 
     @property
     def mesh(self):
         return self._mesh
-
-    def _partition_token(self):
-        return SINGLE_DEVICE if self._mesh is None else self._mesh.token()
 
     def repartition(self, mesh) -> bool:
         """Point the window at a (possibly resized) placement mesh, or at
@@ -610,8 +592,8 @@ class DripBatchKernel:
         carry tiled for the old partitioning. Returns True when the
         partitioning changed."""
         self._mesh = mesh
-        self._cols._device = self.device if mesh is None else mesh.devices[0]
-        changed = self._cols.set_partition(self._partition_token())
+        changed = (self._cols.set_partition(SINGLE_DEVICE, self.device) if mesh is None
+                   else self._cols.set_partition(mesh.token(), mesh.devices[0]))
         if changed:
             self.mark_desynced()
             self.repartitions += 1
@@ -675,66 +657,107 @@ class DripBatchKernel:
         ``stages`` (a ``telemetry.StageClock``, or None) is split into
         ``drip_launch`` before the K-step enqueue and ``drip_wait`` before
         the fetch."""
+        return self._dispatch(schedulable, weighted, bounded, free, vecs, want_ties,
+                              col_version, col_delta, stages)
+
+    def dispatch_numa(self, schedulable, weighted, bounded, free, vecs, zones, pods,
+                      want_ties=True, col_version=0, col_delta=None, stages=None):
+        """``dispatch`` for the window with ``NodeResourceTopologyMatch``
+        (``_drip_batch_numa``; one device, no tiles). ``zones``: the host
+        zone columns (``framework.drip.ZoneColumns``: ``zkey``, ``zcap``,
+        ``has``, ``active``, ``act_naw`` under the version ``epoch``, and
+        ``used``, which the zone carry mirrors); ``pods`` int64 [K, 5 + Z]
+        (``numa_pod_rows``). Returns ``(chosen, feasible, ties, bad,
+        takes)``: ``bad`` counts the feasible nodes whose pack used no zone,
+        ``takes`` int64 [K, Z] is the winner's milli-CPU per zone in CR
+        order (zeros where NRT took nothing). Both carries, ``free`` and
+        the zones, stay on the device as ``dispatch``'s does; the shape key
+        adds the zone count."""
+        return self._dispatch(schedulable, weighted, bounded, free, vecs, want_ties,
+                              col_version, col_delta, stages, zones, pods)
+
+    def _dispatch(self, schedulable, weighted, bounded, free, vecs, want_ties, col_version,
+                  col_delta, stages, zones=None, pods=None):
+        """The window of ``dispatch`` and, with ``zones`` and ``pods``,
+        ``dispatch_numa``: the host ``[K, 3]`` (``[K, 4 + Z]``) outputs
+        split into their columns."""
         n = int(schedulable.shape[0])
         k = int(vecs.shape[0])
+        z = None if zones is None else int(zones.used.shape[1])
         if n == 0:
             # no node: every pod is infeasible, as the reference's padded
             # rows report (no tie among infeasible rows; 1 without ties)
             self.mark_desynced()
             self.dispatches += 1
             self.eager_windows += 1
-            ties = np.zeros(k, np.int64) if want_ties else np.ones(k, np.int64)
-            return np.full(k, -1, np.int64), np.zeros(k, np.int64), ties
-        if self._cols.set_partition(self._partition_token()):
-            self.mark_desynced()
-            self.repartitions += 1
-        mesh = self._mesh
-        if mesh is not None and mesh.size > 1:
+            host = np.zeros((k, 3 if z is None else 4 + z), np.int64)
+            host[:, 0] = -1
+            host[:, 2] = 0 if want_ties else 1
+            return _columns(host, zones)
+        tiled = self._mesh is not None and self._mesh.size > 1
+        if tiled and zones is not None:
+            raise ValueError("the NRT drip window runs on one device, not over tiles")
+        self.repartition(self._mesh)
+        if tiled:
             return self._dispatch_tiled(schedulable, weighted, bounded, free, vecs,
                                         want_ties, col_version, stages)
-        dev = self._cols._device
+        cols = self._cols
+        dev = cols.device
         sched_d, w_d, bnd_d, free = self._put_columns(schedulable, weighted, bounded, free,
                                                       col_version, col_delta)
-        free_d = self._free_dev
-        fresh = (not self._free_synced or free_d is None or self._free_src is not free
-                 or self._free_rows is not None)
-        if fresh:
-            self._free_src = free
-            self._free_rows = None
-            self.free_uploads += 1
         vecs = np.asarray(vecs, dtype=np.int64).reshape(k, 4)
         key = (dev, n, k, bool(want_ties))
+        fresh = (not self._free_synced or self._free_dev is None or self._free_src is not free
+                 or self._free_rows is not None)
+        used = None
+        if zones is not None:
+            zcols = tuple(cols.put(f"zone_{name}", getattr(zones, name), version=zones.epoch)
+                          for name in ("zkey", "zcap", "has", "active", "act_naw"))
+            used = zones.used
+            pods = np.asarray(pods, dtype=np.int64).reshape(k, 5 + z)
+            fresh = fresh or self._used_dev is None or self._used_src is not used
+            key += ("numa", z)
+        if fresh:
+            self._free_src, self._used_src = free, used
+            self._free_rows = None
+            self.free_uploads += 1
         route = self._graphs.route(key) if dev.type == "cuda" and k > 0 else "eager"
+        # the eager window uploads its carries, the graph copies them in
+        # from pinned memory
+        put = (lambda a: upload(a, dev)) if route == "eager" else _pinned
+        free_d = put(free) if fresh else self._free_dev
+        numa = None
+        if zones is not None:
+            numa = (zcols, put(used) if fresh else self._used_dev, put(pods))
         if route == "eager":
-            if fresh:
-                free_d = upload(free, dev)
             vecs_d = upload(vecs, dev)
             if stages is not None:
                 stages.split("drip_launch")
-            outs, free_out = self._eager((sched_d, w_d, bnd_d), free_d, vecs_d, want_ties)
+            outs, free_out, used_out = self._eager((sched_d, w_d, bnd_d), free_d, vecs_d,
+                                                   want_ties, numa)
         else:
-            outs, free_out = self._replay(route, key, (sched_d, w_d, bnd_d),
-                                          _pinned(free) if fresh else free_d, vecs, stages)
+            outs, free_out, used_out = self._replay(route, key, (sched_d, w_d, bnd_d), free_d,
+                                                    vecs, stages, numa)
         if stages is not None:
             stages.split("drip_wait")
         host = self._fetch(outs)
-        self._free_dev = free_out
+        self._free_dev, self._used_dev = free_out, used_out
         self._free_synced = True  # provisional; the caller desyncs on reject
         self.dispatches += 1
-        return host[:, 0], host[:, 1], host[:, 2]
+        return _columns(host, zones)
 
     def _eager(self, cols, free, vecs, want_ties, numa=None):
         """One window without a graph on the tensors' device: the step
         kernel on a card, the PyTorch window on the CPU; the inputs stay
         as they were. ``numa``: the zone columns, zone carry and pod rows.
-        Returns ``(outs, free)``, and the zone carry after them with
-        ``numa``."""
+        Returns ``(outs, free, used)``: the zone carry after them, or None
+        without ``numa``."""
         dev, k = free.device, vecs.shape[0]
         active = torch.ones((k,), dtype=torch.bool, device=dev)
         self.eager_windows += 1
         if dev.type != "cuda":
             if numa is None:
-                return _drip_batch(*cols, free, vecs, active, want_ties=want_ties)
+                return (*_drip_batch(*cols, free, vecs, active, want_ties=want_ties), None)
             return _drip_batch_numa(*cols, free, vecs, active, *numa, want_ties=want_ties)
         if self._scratch is None or self._scratch.device != dev:
             self._scratch = StepScratch(dev)
@@ -742,7 +765,7 @@ class DripBatchKernel:
         zones = None if numa is None else (numa[0], numa[1].clone(), numa[2])
         outs = drip_window(*cols, free, vecs, active, self._scratch, want_ties, zones=zones)
         self.kernel_windows += int(k > 0)
-        return (outs, free) if zones is None else (outs, free, zones[1])
+        return outs, free, None if zones is None else zones[1]
 
     def _put_columns(self, schedulable, weighted, bounded, free, col_version, col_delta):
         """The single-device column puts of a window: the device
@@ -764,91 +787,19 @@ class DripBatchKernel:
             free = np.zeros((n, 4), dtype=np.int64)
         return sched_d, w_d, cols.put("bounded", bounded), free
 
-    def dispatch_numa(self, schedulable, weighted, bounded, free, vecs, zones, pods,
-                      want_ties=True, col_version=0, col_delta=None, stages=None):
-        """``dispatch`` for the window with ``NodeResourceTopologyMatch``
-        (``_drip_batch_numa``; one device, no tiles). ``zones``: the host
-        zone columns (``framework.drip.ZoneColumns``: ``zkey``, ``zcap``,
-        ``has``, ``active``, ``act_naw`` under the version ``epoch``, and
-        ``used``, which the zone carry mirrors); ``pods`` int64 [K, 5 + Z]
-        (``numa_pod_rows``). Returns ``(chosen, feasible, ties, bad,
-        takes)``: ``bad`` counts the feasible nodes whose pack used no zone,
-        ``takes`` int64 [K, Z] is the winner's milli-CPU per zone in CR
-        order (zeros where NRT took nothing). Both carries, ``free`` and
-        the zones, stay on the device as ``dispatch``'s does; the shape key
-        adds the zone count."""
-        n = int(schedulable.shape[0])
-        k = int(vecs.shape[0])
-        z = int(zones.used.shape[1])
-        if n == 0:
-            self.mark_desynced()
-            self.dispatches += 1
-            self.eager_windows += 1
-            ties = np.zeros(k, np.int64) if want_ties else np.ones(k, np.int64)
-            return (np.full(k, -1, np.int64), np.zeros(k, np.int64), ties,
-                    np.zeros(k, np.int64), np.zeros((k, z), np.int64))
-        if self._mesh is not None and self._mesh.size > 1:
-            raise ValueError("the NRT drip window runs on one device, not over tiles")
-        if self._cols.set_partition(self._partition_token()):
-            self.mark_desynced()
-            self.repartitions += 1
-        cols = self._cols
-        dev = cols._device
-        sched_d, w_d, bnd_d, free = self._put_columns(schedulable, weighted, bounded, free,
-                                                      col_version, col_delta)
-        zcols = tuple(cols.put(f"zone_{name}", getattr(zones, name), version=zones.epoch)
-                      for name in ("zkey", "zcap", "has", "active", "act_naw"))
-        used = zones.used
-        fresh = (not self._free_synced or self._free_dev is None or self._used_dev is None
-                 or self._free_src is not free or self._used_src is not used
-                 or self._free_rows is not None)
-        if fresh:
-            self._free_src, self._used_src = free, used
-            self._free_rows = None
-            self.free_uploads += 1
-        vecs = np.asarray(vecs, dtype=np.int64).reshape(k, 4)
-        pods = np.asarray(pods, dtype=np.int64).reshape(k, 5 + z)
-        key = (dev, n, k, bool(want_ties), "numa", z)
-        route = self._graphs.route(key) if dev.type == "cuda" and k > 0 else "eager"
-        if route == "eager":
-            free_d = upload(free, dev) if fresh else self._free_dev
-            used_d = upload(used, dev) if fresh else self._used_dev
-            vecs_d = upload(vecs, dev)
-            pods_d = upload(pods, dev)
-            if stages is not None:
-                stages.split("drip_launch")
-            outs, free_out, used_out = self._eager((sched_d, w_d, bnd_d), free_d, vecs_d,
-                                                   want_ties, numa=(zcols, used_d, pods_d))
-        else:
-            numa = (zcols, _pinned(used) if fresh else self._used_dev, _pinned(pods))
-            outs, free_out, used_out = self._replay(
-                route, key, (sched_d, w_d, bnd_d), _pinned(free) if fresh else self._free_dev,
-                vecs, stages, numa=numa)
-        if stages is not None:
-            stages.split("drip_wait")
-        host = self._fetch(outs)
-        self._free_dev, self._used_dev = free_out, used_out
-        self._free_synced = True  # provisional; the caller desyncs on reject
-        self.dispatches += 1
-        return host[:, 0], host[:, 1], host[:, 2], host[:, 3], host[:, 4:]
-
     def _replay(self, route, key, cols, free, vecs, stages, numa=None):
         """The window from its shape's graph, captured first on the
         ``"capture"`` route: the inputs copied into its static buffers,
-        one launch. Returns the graph's ``outs`` and its carry, and with
-        ``numa`` (the NRT window's zone columns, zone carry and pod rows)
-        its zone carry too."""
+        one launch. ``numa``: the NRT window's zone columns, zone carry and
+        pod rows. Returns the graph's ``outs`` and its carries, ``used``
+        None without ``numa``."""
         dev, n, k, want_ties = key[:4]
         with _GRAPH_LOCK:
-            if route != "capture":
-                graph = self._graphs.graph
-            elif numa is None:
-                graph = _WindowGraph(dev, n, k)
+            if route == "capture":
+                graph = _WindowGraph(dev, n, k, None if numa is None else key[5])
             else:
-                graph = _NumaWindowGraph(dev, n, k, key[5])
-            graph.load(cols, free, _pinned(vecs))
-            if numa is not None:
-                graph.load_numa(*numa)
+                graph = self._graphs.graph
+            graph.load(cols, free, _pinned(vecs), numa)
             if stages is not None:
                 stages.split("drip_launch")
             if route == "capture":
@@ -860,9 +811,7 @@ class DripBatchKernel:
             graph.graph.replay()
         self.graph_replays += 1
         self.kernel_windows += 1
-        if numa is not None:
-            return graph.outs, graph.free, graph.used
-        return graph.outs, graph.free
+        return graph.outs, graph.free, graph.used
 
     def _dispatch_tiled(self, schedulable, weighted, bounded, free, vecs, want_ties,
                         col_version, stages):

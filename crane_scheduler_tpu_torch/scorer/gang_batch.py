@@ -189,7 +189,7 @@ class GangBatchKernel:
                                    max_offset=max_offset, device=self.device)
         self._n_levels = MAX_NODE_SCORE * int(dynamic_weight) + int(max_offset) + 2
         self._cols = DeviceColumnCache(self.device)
-        self._cols.set_partition(SINGLE_DEVICE)
+        self._cols.set_partition(SINGLE_DEVICE, self.device)
         self._free_dev = None  # device fold carry [N, 4]
         self._free_src = None  # host free array the carry mirrors
         self._free_synced = False

@@ -31,6 +31,7 @@ from crane_scheduler_tpu_torch.fit import FitTracker as PortFitTracker
 from crane_scheduler_tpu_torch.fit import ResourceFitPlugin as PortFitPlugin
 from crane_scheduler_tpu_torch.framework.scheduler import DRIP_STAGES
 from crane_scheduler_tpu_torch.framework.scheduler import Scheduler as PortScheduler
+from crane_scheduler_tpu_torch.parallel.mesh import make_placement_mesh
 from crane_scheduler_tpu_torch.plugins import DynamicPlugin as PortDynamicPlugin
 from crane_scheduler_tpu_torch.policy import DEFAULT_POLICY as PORT_POLICY
 from crane_scheduler_tpu_torch import telemetry as ptel
@@ -334,6 +335,72 @@ def test_numa_window_is_pure_until_accepted():
             results = [sched.schedule_one(p) for p in pods]
         out[side] = observe(cluster, topo, results)
     assert out["port"] == out["jax"]
+
+
+class _ListerWithoutVersion:
+    """An NRT lister that keeps no version: nothing fences a window on it."""
+
+    def __init__(self, inner):
+        self._inner = inner
+
+    def get(self, name):
+        return self._inner.get(name)
+
+
+class _SubTopologyMatch(TOPO["port"]["plugin"].TopologyMatch):
+    """A subclass may override any hook the window models."""
+
+
+def refused_set(case, cluster, topo):
+    """The (plugin, weight) pairs of a plugin set with ``TopologyMatch``
+    that the NRT window does not serve, and the scheduler's mesh. The
+    variants of the world's ``topo`` share its lister and assume cache."""
+    tm = TOPO["port"]["plugin"].TopologyMatch
+    lister, cache = topo.lister, topo.cache
+    nrt = {
+        "two_topology_match": [topo, tm(lister, cluster=cluster)],
+        "another_cluster": [tm(lister, cluster=SIDES["port"]["ClusterState"](), cache=cache)],
+        "memory_aware": [tm(lister, cluster=cluster, cache=cache,
+                            topology_aware_resources=frozenset({"cpu", "memory"}))],
+        "lister_without_version": [tm(_ListerWithoutVersion(lister), cluster=cluster,
+                                      cache=cache)],
+        "subclass": [_SubTopologyMatch(lister, cluster=cluster, cache=cache)],
+    }.get(case, [topo])
+    plugins = [(PortFitPlugin(PortFitTracker(cluster)), 1)]
+    if case != "no_dynamic":
+        plugins.append((PortDynamicPlugin(PORT_POLICY, clock=lambda: NOW), 3))
+    plugins += [(p, 2) for p in nrt]
+    mesh = make_placement_mesh(2, [torch.device("cpu")] * 2) if case == "two_tile_mesh" else None
+    return plugins, mesh
+
+
+@pytest.mark.parametrize("case", ["two_topology_match", "another_cluster", "memory_aware",
+                                  "lister_without_version", "subclass", "no_dynamic",
+                                  "two_tile_mesh"])
+def test_numa_window_refuses_sets_it_does_not_model(case):
+    """A plugin set with ``TopologyMatch`` that the window does not model
+    dispatches no window: the queue places its pods one by one, as the
+    port's scalar loop does."""
+    world = numa_world(19, 48)
+    shapes = pod_shapes(19, 40)
+    out = {}
+    for columnar in (False, True):
+        cluster, _unused, topo = build("port", world)
+        plugins, mesh = refused_set(case, cluster, topo)
+        sched = PortScheduler(cluster, clock=lambda: NOW, columnar=columnar, mesh=mesh,
+                              device="cpu")
+        for plugin, weight in plugins:
+            sched.register(plugin, weight=weight)
+        pods = [pod("port", f"p{i:03d}", *shape) for i, shape in enumerate(shapes)]
+        cluster.add_pods(pods)
+        if columnar:
+            results = sched.schedule_queue(pods, window=16)
+            assert sched.drip_stats()["batch"]["dispatches"] == 0
+        else:
+            results = [sched.schedule_one(p) for p in pods]
+        out[columnar] = observe(cluster, topo, results)
+    assert out[True] == out[False]
+    assert any(node is not None for node, *_rest in out[True][0])
 
 
 # -- the plain window is the one it was ----------------------------------------------
